@@ -7,10 +7,12 @@ Phases, one JSON line each:
   device     the card (and its name and power limit from nvidia-smi, as a
              plain line of its own);
   build      nvcc builds of csrc/*.cu into build/kernels/ (all in parallel);
-  kernel     each hand-written kernel against its plain PyTorch version at the
-             flagship's DTU-eval shapes, with the error against the stated
-             tolerance, the kernel's, the plain version's and one library
-             call's time (CUDA events) and the least time the card could take;
+  kernel     each hand-written kernel against its plain PyTorch version at
+             every shape the DTU-eval flagship gives it, element by element
+             within ops.cuda.tolerance, and the same check against a planted
+             fault, which it must reject; the kernel's, the plain version's
+             and one library call's time (CUDA events) and the least time the
+             card could take;
   reference  the port on the card (kernels, fp32) against the port on the CPU
              (plain versions, fp32) on a small flagship;
   main_path  the full-width flagship forward at DTU eval (1 x 5 x 1152 x 1536,
@@ -42,10 +44,6 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 # SFU exponentials: 132 SMs x 16 ex2 per clock x 1.98 GHz boost clock
 EXP_S = 132 * 16 * 1.98e9
-
-# max |kernel - plain| / max |plain| allowed: f32 outputs differ only by
-# summation order; bf16 outputs may round to a neighbouring value (2 ulp)
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 
 TINY = dict(feat_chs=(4, 8, 16, 32), vit_ch=64, vit_depth=3, vit_num_heads=4, out_ch=32,
             ndepths=(8, 4, 4, 4), groups=(4, 4, 4, 4),
@@ -108,48 +106,84 @@ def nbytes(*ts) -> int:
 
 
 # ---------------------------------------------------------------- kernel cases
+# Each `*_cases` yields (case, launches per forward, args) for every shape the
+# flagship forward at DTU eval gives the kernel; a case's launches per forward
+# are how often the main path calls the kernel at that shape, so they sum to
+# the kernel's launch count there. Each `*_fault` plants an arithmetic fault
+# (as a change of the inputs) that the kernel-vs-plain check must reject.
 
-def warp_cases(device, dtype, scale=1):
+def warp_cases():
     """The four stage shapes of the flagship warp (source views batched)."""
     from mvsformerplusplus_tpu_torch.ops.geometry import compose_projection, plane_sweep_coords
     from mvsformerplusplus_tpu_torch.ops.sampling import init_inverse_range
 
-    h0, w0 = 1152 // scale, 1536 // scale
-    imgs, cams, dv = to_device(make_dtu_eval_batch(h=h0, w=w0), device)
-    gen = torch.Generator(device=device).manual_seed(1)
+    imgs, cams, dv = to_device(make_dtu_eval_batch(), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
     for i, (c, nd) in enumerate(((64, 32), (32, 16), (16, 8), (8, 4))):
-        hh, ww = h0 // 2 ** (3 - i), w0 // 2 ** (3 - i)
+        hh, ww = 1152 // 2 ** (3 - i), 1536 // 2 ** (3 - i)
         projs = compose_projection(cams[f"stage{i + 1}"])
         hypo = init_inverse_range(dv, nd, hh, ww)
         coords, _ = plane_sweep_coords(projs[0, 1:], projs[0, :1].expand(4, 4, 4),
                                        hypo.expand(4, -1, -1, -1), hh, ww)
-        src = torch.randn(4, hh, ww, c, generator=gen, device=device).to(dtype)
-        yield f"stage{i + 1}", (src, coords)
+        src = torch.randn(4, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
+        yield f"stage{i + 1}", 1, (src, coords)
 
 
-def flash_cases(device, dtype, scale=1):
+def warp_fault(src, coords):
+    """Sample positions off by 1/256 pixel."""
+    return src, coords + 1 / 256
+
+
+def flash_cases():
+    """The 12 ViT blocks (1729 tokens: 36 x 48 patches of the 504 x 672 input,
+    and the class token) and the 6 CTA blocks (the stage-1 volume, 32 x 144 x
+    192, down by (2, 4, 4) to 27648 tokens)."""
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
 
-    gen = torch.Generator(device=device).manual_seed(2)
-    n_vit = (1152 * 7 // 16 // 14 // scale) * (1536 * 7 // 16 // 14 // scale) + 1
-    n_cta = 27648 // scale ** 2
-    for name, (b, n, h, dh, sc) in (("vit", (5, n_vit, 12, 64, 64 ** -0.5)),
-                                    ("cta", (1, n_cta, 4, 16,
-                                             entropy_inv_scale(16, n_cta, 12185)))):
-        q, k, v = (torch.randn(b, n, h, dh, generator=gen, device=device).to(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n_vit = (1152 * 7 // 16 // 14) * (1536 * 7 // 16 // 14) + 1
+    n_cta = (32 // 2) * (144 // 4) * (192 // 4)
+    for name, count, (b, n, h, dh, sc) in (
+            ("vit", 12, (5, n_vit, 12, 64, 64 ** -0.5)),
+            ("cta", 6, (1, n_cta, 4, 16, entropy_inv_scale(16, n_cta, 12185)))):
+        q, k, v = (torch.randn(b, n, h, dh, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        yield name, (q, k, v, sc)
+        yield name, count, (q, k, v, sc)
 
 
-def conv_cases(device, dtype, scale=1):
-    gen = torch.Generator(device=device).manual_seed(3)
-    hh, ww = 1152 // scale, 1536 // scale
-    for name, (b, ci, co, k) in (("encoder_7x7", (5, 3, 8, 7)), ("decoder_64to8", (5, 64, 8, 3)),
-                                 ("visibility_1to16", (4, 1, 16, 3))):
-        x = torch.randn(b, hh, ww, ci, generator=gen, device=device).to(dtype)
-        kern = (torch.randn(k, k, ci, co, generator=gen, device=device)
-                * (k * k * ci) ** -0.5).to(dtype)
-        yield name, (x, kern)
+def flash_fault(q, k, v, scale):
+    """The softmax scale 8% low."""
+    return q, k, v, 0.92 * scale
+
+
+# (case, launches per forward, (batch, divisor of 1152 x 1536, Ci, Co, k)):
+# the FPN encoder's stride-1 convs and the decoder's heads on the 5 views, the
+# visibility net of each stage on the 4 source views, and the FMT smoothing
+# convs, run once per view at batch 1
+CONV_SHAPES = ([("encoder_7x7_3to8", 1, (5, 1, 3, 8, 7)), ("encoder_5x5_8to8", 1, (5, 1, 8, 8, 5)),
+                ("encoder_16to16", 2, (5, 2, 16, 16, 3)), ("encoder_32to32", 2, (5, 4, 32, 32, 3)),
+                ("encoder_64to64", 2, (5, 8, 64, 64, 3)), ("decoder_64to32", 1, (5, 4, 64, 32, 3)),
+                ("decoder_64to16", 1, (5, 2, 64, 16, 3)), ("decoder_64to8", 1, (5, 1, 64, 8, 3))]
+               + [(f"visibility{s + 1}_{ci}to{co}", 1, (4, 2 ** (3 - s), ci, co, 3))
+                  for s in range(4) for ci, co in ((1, 16), (16, 16), (16, 8))]
+               + [(f"fmt_smooth_{c}", 5, (1, c // 8, c, c, 3)) for c in (32, 16, 8)])
+
+
+def conv_cases():
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, count, (b, div, ci, co, k) in CONV_SHAPES:
+        x = torch.randn(b, 1152 // div, 1536 // div, ci, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
+                * (k * k * ci) ** -0.5).to(torch.bfloat16)
+        yield name, count, (x, kern)
+
+
+def conv_fault(x, kern):
+    """The top row of taps weighted 8% low."""
+    kern = kern.clone()
+    kern[0] *= 0.92
+    return x, kern
 
 
 def warp_library(src, coords):
@@ -199,59 +233,77 @@ def kernel_table():
 
     return {
         "warp_bilinear": ("csrc/warp.cu", "mvsformerplusplus_tpu/ops/pallas/warp_band.py:395",
-                          warp.warp_bilinear, warp.warp_bilinear_plain, warp_cases,
+                          warp.warp_bilinear, warp.warp_bilinear_plain, warp_cases, warp_fault,
                           warp_library, warp_bound),
         "flash_attention_fwd": ("csrc/flash_attention.cu",
                                 "mvsformerplusplus_tpu/ops/pallas/flash_attention.py:131",
                                 flash_attention.flash_attention_fwd,
-                                flash_attention.flash_attention_plain, flash_cases,
+                                flash_attention.flash_attention_plain, flash_cases, flash_fault,
                                 flash_library, flash_bound),
         "conv2d_same": ("csrc/conv2d.cu", "mvsformerplusplus_tpu/ops/pallas/conv2d.py:176",
-                        conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_cases,
+                        conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_cases, conv_fault,
                         conv_library, conv_bound),
     }
 
 
-def run_kernel_phase(device="cuda", scale=1, timed=True):
-    """Each kernel against its plain version at the main path's shapes
-    (`scale` divides the spatial sizes, for a rehearsal on the CPU)."""
+def err_over_tol(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 where they agree."""
+    w = want.float()
+    return ((got.float() - w).abs() / (atol + rtol * w.abs())).max().item()
+
+
+def run_kernel_phase():
+    """Each kernel against its plain version at every shape the main path
+    gives it, element by element within `ops.cuda.tolerance`; each case's
+    planted fault must fail the same check. The kernel's summary sums each
+    case's times and bound times its launches per forward."""
+    from mvsformerplusplus_tpu_torch.ops.cuda import tolerance
+
     results = {}
-    for name, (src, replaces, kernel, plain, cases, library, bound) in kernel_table().items():
+    for name, (src, replaces, kernel, plain, cases, fault, library,
+               bound) in kernel_table().items():
         rows = []
-        for case, args in cases(device, torch.bfloat16, scale):
-            got = kernel(*args)
+        for case, count, args in cases():
             want = plain(*args)
-            err = (got.float() - want.float()).abs().max().item()
-            ref = want.float().abs().max().item()
-            tol = TOL[got.dtype] * max(ref, 1.0)
+            rtol, atol = tolerance(want)
+            got = kernel(*args)
+            ratio = err_over_tol(got, want, rtol, atol)
+            fault_ratio = err_over_tol(kernel(*fault(*args)), want, rtol, atol)
             bytes_s, ops_s = bound(*args, got)
-            del got, want
             row = {"phase": "kernel", "kernel": name, "case": case,
+                   "launches_per_forward": count,
                    "shapes": [list(a.shape) for a in args if isinstance(a, torch.Tensor)],
-                   "max_abs_err": err, "max_abs_ref": ref, "max_rel_err": err / max(ref, 1.0),
-                   "tol": tol,
+                   "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                   "max_abs_ref": want.float().abs().max().item(), "rtol": rtol, "atol": atol,
+                   "err_over_tol": ratio, "fault_err_over_tol": fault_ratio,
                    "bound_ms": max(bytes_s, ops_s) * 1e3,
                    "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
-            if timed:
-                row["ms"] = time_ms(lambda: kernel(*args))
-                row["plain_ms"] = time_ms(lambda: plain(*args), iters=2)
-                row["library_ms"] = time_ms(library(*args))
+            del got, want
+            row["ms"] = time_ms(lambda: kernel(*args))
+            row["plain_ms"] = time_ms(lambda: plain(*args), iters=2)
+            row["library_ms"] = time_ms(library(*args))
             emit(row)
-            if not err <= tol:
+            if not ratio <= 1:
                 raise SystemExit(f"{name}[{case}] disagrees with its plain version: "
-                                 f"{err} > {tol}")
+                                 f"error {ratio} x its tolerance")
+            if not fault_ratio > 1:
+                raise SystemExit(f"{name}[{case}]: the check passes a planted fault "
+                                 f"({fault.__doc__})")
             rows.append(row)
             del args
-            if timed:
-                torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
         results[name] = {
             "name": name, "route": "cuda", "source": f"mvsformerplusplus_tpu_torch/{src}",
             "replaces": replaces, "launches": None,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")
-               if timed},
-            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-            "cases": [r["case"] for r in rows],
+            **{k: sum(r[k] * r["launches_per_forward"] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": max(rows, key=lambda r: r["bound_ms"] * r["launches_per_forward"])[
+                "bound_by"],
+            "times": "per forward: each case's time x its launches per forward",
+            "max_err_over_tol": max(r["err_over_tol"] for r in rows),
+            "min_fault_err_over_tol": min(r["fault_err_over_tol"] for r in rows),
+            "cases": {r["case"]: r["launches_per_forward"] for r in rows},
         }
     return results
 
@@ -436,6 +488,10 @@ def main() -> int:
     launches = run_main_path(counters)
     for name, n in launches.items():
         results[name]["launches"] = n
+        checked = sum(results[name]["cases"].values())
+        if checked != n:
+            raise SystemExit(f"{name}: the kernel phase checks {checked} launches per forward "
+                             f"at the main path's shapes, the main path made {n}")
     print(card, flush=True)
     emit({"kernels": list(results.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -44,7 +44,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{hashlib.sha1(src).hexdigest()[:12]}.so"
 
 
-def build_all(verbose: bool = False) -> dict:
+def build_all() -> dict:
     """Compile every source that has no up-to-date library, one nvcc process
     per source, all started together. Returns {name: ptxas log}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -67,8 +67,6 @@ def build_all(verbose: bool = False) -> dict:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
             os.replace(tmp, out)
-        if verbose:
-            print(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return logs
@@ -85,6 +83,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def tolerance(want: torch.Tensor) -> tuple:
+    """(rtol, atol) within which a kernel's output must match its plain
+    version's output `want`, element by element: |got - want| <= atol +
+    rtol * |want|. Both compute in fp32 and round once to the output type, so
+    a bf16 output may land one bf16 ulp (at most 2^-7 |want|) away; atol,
+    1e-5 of the largest |want|, covers fp32 summation-order noise."""
+    rtol = 2 ** -7 if want.dtype == torch.bfloat16 else 1e-5
+    return rtol, 1e-5 * want.float().abs().max().item()
 
 
 def check(err: int, what: str) -> None:

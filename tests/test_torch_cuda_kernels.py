@@ -8,14 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention, warp
+from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention, tolerance, warp
 from mvsformerplusplus_tpu_torch.ops.geometry import compose_projection, plane_sweep_coords
 
 pytestmark = pytest.mark.cuda
-
-# max |kernel - plain| / max |plain|: f32 outputs differ only in summation
-# order; bf16 outputs may round to a neighbouring value (2 ulp)
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 
 
 @pytest.fixture
@@ -28,8 +24,8 @@ def dev():
 
 
 def _close(got, want):
-    tol = TOL[got.dtype] * max(want.float().abs().max().item(), 1.0)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    rtol, atol = tolerance(want)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
