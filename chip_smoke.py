@@ -4,24 +4,35 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  device     the card (and its name and power limit from nvidia-smi, as a
-             plain line of its own);
-  build      nvcc builds of csrc/*.cu into build/kernels/ (all in parallel);
-  kernel     each hand-written kernel against its plain PyTorch version at
-             every shape the DTU-eval flagship gives it, element by element
-             within ops.cuda.tolerance, and the same check against a planted
-             fault, which it must reject; the kernel's, the plain version's
-             and one library call's time (CUDA events) and the least time the
-             card could take;
-  reference  the port on the card (kernels, fp32) against the port on the CPU
-             (plain versions, fp32) on a small flagship;
-  main_path  the full-width flagship forward at DTU eval (1 x 5 x 1152 x 1536,
-             192 depths, bf16, weights drawn from a seed) through
-             build_model / load_config, with every kernel's launch count, the
-             output checks, ms per depth map and peak memory;
-  profile    device ms per top-level layer (CUDA events in forward hooks) and
-             torch.profiler over one more forward: device time by kernel,
-             the hand-written kernels' share, the device's idle share.
+  device      the card (and its name and power limit from nvidia-smi, as a
+              plain line of its own);
+  build       nvcc builds of csrc/*.cu into build/kernels/ (all in parallel);
+  kernel      each hand-written kernel against its plain PyTorch version at
+              every shape the two main paths give it (the DTU-eval forward
+              and the train step), element by element within
+              ops.cuda.tolerance, and the same check against a planted
+              fault, which it must reject; the kernel's, the plain version's
+              and one library call's time (CUDA events) and the least time
+              the card could take;
+  reference   the port on the card (kernels, fp32) against the port on the
+              CPU (plain versions, fp32) on a small flagship: the eval
+              forward, then one train step (per-stage losses, every
+              gradient, the BatchNorm running statistics, the parameters
+              after AdamW);
+  main_path   the full-width flagship forward at DTU eval (1 x 5 x 1152 x
+              1536, 192 depths, bf16, weights drawn from a seed) through
+              build_model / load_config, with every kernel's launch count, the
+              output checks, ms per depth map and peak memory;
+  profile     device ms per top-level layer (CUDA events in forward hooks) and
+              torch.profiler over one more forward: device time by kernel,
+              the hand-written kernels' share, the device's idle share;
+  train_step  the full-width flagship train step (B=2, 5 views, 512 x 640,
+              192 depths, bf16, frozen ViT, remat of the regularizers, CE at
+              all stages, two-group AdamW with warmup-cosine) through
+              build_model(train=True) and the port's Trainer fed by a seeded
+              loader: launches per step of every kernel, ms per step, peak
+              memory, losses, gradient norm and which parameters moved;
+  profile_train  torch.profiler over one more train step.
 Then the {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
@@ -106,54 +117,146 @@ def nbytes(*ts) -> int:
 
 
 # ---------------------------------------------------------------- kernel cases
-# Each `*_cases` yields (case, launches per forward, args) for every shape the
-# flagship forward at DTU eval gives the kernel; a case's launches per forward
-# are how often the main path calls the kernel at that shape, so they sum to
-# the kernel's launch count there. Each `*_fault` plants an arithmetic fault
-# (as a change of the inputs) that the kernel-vs-plain check must reject.
+# Each `*_cases` yields (case, path, launches, args) for every shape a main
+# path gives the kernel: path "main_path" is the DTU-eval forward, path
+# "train_step" the train step; launches are how often that path calls the
+# kernel at that shape, so per path they sum to the kernel's launch count
+# there. Each `*_fault` computes the kernel's output with a planted
+# arithmetic fault (mostly as a change of the inputs), which the
+# kernel-vs-plain check must reject.
 
-def warp_cases():
-    """The four stage shapes of the flagship warp (source views batched)."""
+TRAIN = dict(b=2, v=5, h=512, w=640, dfull=192)
+TRAIN_NDEPTHS = (32, 16, 8, 4)
+TRAIN_STAGE_C = (64, 32, 16, 8)
+
+
+def make_train_batch(b=2, v=5, h=512, w=640, dfull=192, seed=1):
+    """The train protocol's batch (as bench.py's): DTU-like images, cameras
+    and depth range at the crop, ground truth uniform in 450-900 mm and 80%
+    valid masks per stage."""
+    rng = np.random.RandomState(seed)
+    imgs, cams, dv = make_dtu_eval_batch(b=b, v=v, h=h, w=w, dfull=dfull, seed=seed)
+    gt = {f"stage{i + 1}": rng.uniform(450, 900, (b, h // (8 >> i), w // (8 >> i))).astype(
+        np.float32) for i in range(4)}
+    return {"imgs": imgs, "cams": cams, "depth_values": dv, "depth_gt": gt,
+            "mask": {k: (rng.rand(*g.shape) > 0.2).astype(np.float32) for k, g in gt.items()}}
+
+
+def stage_coords(cams, dv, stage, nd, hh, ww):
+    """Warp coordinates of one stage with the source views folded into the
+    batch, view-major, as StageNet.build_volume folds them: [(V-1)*B, D, hh,
+    ww, 2], on the inverse-depth init range."""
     from mvsformerplusplus_tpu_torch.ops.geometry import compose_projection, plane_sweep_coords
     from mvsformerplusplus_tpu_torch.ops.sampling import init_inverse_range
 
-    imgs, cams, dv = to_device(make_dtu_eval_batch(), "cuda")
+    projs = compose_projection(cams[f"stage{stage}"])  # [B, V, 4, 4]
+    b, v = projs.shape[:2]
+    src = projs[:, 1:].transpose(0, 1).reshape((v - 1) * b, 4, 4)
+    ref = projs[:, 0].repeat(v - 1, 1, 1)
+    hypo = init_inverse_range(dv, nd, hh, ww).repeat(v - 1, 1, 1, 1)
+    return plane_sweep_coords(src, ref, hypo, hh, ww)[0]
+
+
+def _stage_shapes(h, w):
+    return [(i + 1, nd, c, h // 2 ** (3 - i), w // 2 ** (3 - i))
+            for i, (nd, c) in enumerate(zip(TRAIN_NDEPTHS, TRAIN_STAGE_C))]
+
+
+def warp_cases():
+    """The four stage shapes of the flagship warp (source views batched), at
+    DTU eval (4 source views of one batch) and at the train crop (4 x 2);
+    the train stage 3 is the TPU's narrow-row banded_warp_rows shape."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for i, (c, nd) in enumerate(((64, 32), (32, 16), (16, 8), (8, 4))):
-        hh, ww = 1152 // 2 ** (3 - i), 1536 // 2 ** (3 - i)
-        projs = compose_projection(cams[f"stage{i + 1}"])
-        hypo = init_inverse_range(dv, nd, hh, ww)
-        coords, _ = plane_sweep_coords(projs[0, 1:], projs[0, :1].expand(4, 4, 4),
-                                       hypo.expand(4, -1, -1, -1), hh, ww)
-        src = torch.randn(4, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
-        yield f"stage{i + 1}", 1, (src, coords)
+    for path, batch in (("main_path", make_dtu_eval_batch()),
+                        ("train_step", make_dtu_eval_batch(b=2, h=512, w=640, seed=1))):
+        imgs, cams, dv = to_device(batch, "cuda")
+        nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
+        for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
+            coords = stage_coords(cams, dv, stage, nd, hh, ww)
+            src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
+            yield f"{path}_stage{stage}", path, 1, (src, coords)
 
 
-def warp_fault(src, coords):
+def warp_fault(kernel, src, coords):
     """Sample positions off by 1/256 pixel."""
-    return src, coords + 1 / 256
+    return kernel(src, coords + 1 / 256)
+
+
+def warp_bwd_cases():
+    """The image gradient at the four train stages: the f32 cotangent of the
+    warped volume [8, D, H, W, C] (rows 6 and 7 of the TPU table: narrow-row
+    stage 3, wide-row stage 4)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    imgs, cams, dv = to_device(make_dtu_eval_batch(b=2, h=512, w=640, seed=1), "cuda")
+    nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
+    for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
+        coords = stage_coords(cams, dv, stage, nd, hh, ww)
+        g = torch.randn(nsrc, nd, hh, ww, c, generator=gen, device="cuda")
+        yield f"train_step_stage{stage}", "train_step", 1, (g, coords, (nsrc, hh, ww, c))
+
+
+def warp_bwd_fault(kernel, g, coords, src_shape):
+    """The top-left corner's bilinear weight 8% low: the kernel's result
+    minus 0.08 of that corner's share, which the plain scatter gives."""
+    from mvsformerplusplus_tpu_torch.ops.cuda.warp import bilinear_corners
+
+    b, h, w, c = src_shape
+    xy = coords.reshape(b, -1, 2)
+    idx, wt = next(bilinear_corners(xy, h, w))
+    share = torch.zeros(b * h * w, c, device=g.device)
+    base = (torch.arange(b, device=g.device) * (h * w))[:, None]
+    share.index_add_(0, (idx + base).reshape(-1), (g.reshape(b, -1, c) * wt[..., None]).reshape(-1, c))
+    return kernel(g, coords, src_shape) - 0.08 * share.reshape(b, h, w, c)
 
 
 def flash_cases():
-    """The 12 ViT blocks (1729 tokens: 36 x 48 patches of the 504 x 672 input,
-    and the class token) and the 6 CTA blocks (the stage-1 volume, 32 x 144 x
-    192, down by (2, 4, 4) to 27648 tokens)."""
+    """DTU eval: the 12 ViT blocks (1729 tokens: 36 x 48 patches of the
+    504 x 672 input, and the class token) and the 6 CTA blocks (the stage-1
+    volume, 32 x 144 x 192, down by (2, 4, 4) to 27648 tokens), no lse. Train
+    step: the frozen ViT (321 tokens of 10 views, no lse) and the CTA (5120
+    tokens of 2 samples, with lse, 6 forwards and 6 replays of the
+    checkpointed regularizer)."""
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     n_vit = (1152 * 7 // 16 // 14) * (1536 * 7 // 16 // 14) + 1
     n_cta = (32 // 2) * (144 // 4) * (192 // 4)
-    for name, count, (b, n, h, dh, sc) in (
-            ("vit", 12, (5, n_vit, 12, 64, 64 ** -0.5)),
-            ("cta", 6, (1, n_cta, 4, 16, entropy_inv_scale(16, n_cta, 12185)))):
+    n_vit_t = (512 * 7 // 16 // 14) * (640 * 7 // 16 // 14) + 1
+    n_cta_t = (32 // 2) * (64 // 4) * (80 // 4)
+    for name, path, count, (b, n, h, dh, sc), lse in (
+            ("vit", "main_path", 12, (5, n_vit, 12, 64, 64 ** -0.5), False),
+            ("cta", "main_path", 6, (1, n_cta, 4, 16, entropy_inv_scale(16, n_cta, 12185)), False),
+            ("vit_train", "train_step", 12, (10, n_vit_t, 12, 64, 64 ** -0.5), False),
+            ("cta_train", "train_step", 12,
+             (2, n_cta_t, 4, 16, entropy_inv_scale(16, n_cta_t, 12185)), True)):
         q, k, v = (torch.randn(b, n, h, dh, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        yield name, count, (q, k, v, sc)
+        yield name, path, count, (q, k, v, sc, lse)
 
 
-def flash_fault(q, k, v, scale):
+def flash_fault(kernel, q, k, v, scale, lse):
     """The softmax scale 8% low."""
-    return q, k, v, 0.92 * scale
+    return kernel(q, k, v, 0.92 * scale, lse)
+
+
+def flash_bwd_cases():
+    """The CTA's backward at the train crop: 6 per step (one per block)."""
+    from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
+    from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (attention_delta,
+                                                                      flash_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = (32 // 2) * (64 // 4) * (80 // 4)
+    scale = entropy_inv_scale(16, n, 12185)
+    q, k, v, dout = (torch.randn(2, n, 4, 16, generator=gen, device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+    yield "cta_train", "train_step", 6, (q, k, v, dout, lse, attention_delta(out, dout), scale)
+
+
+def flash_bwd_fault(kernel, q, k, v, dout, lse, delta, scale):
+    """delta = rowsum(dO * O) 8% low."""
+    return kernel(q, k, v, dout, lse, 0.92 * delta, scale)
 
 
 # (case, launches per forward, (batch, divisor of 1152 x 1536, Ci, Co, k)):
@@ -169,21 +272,53 @@ CONV_SHAPES = ([("encoder_7x7_3to8", 1, (5, 1, 3, 8, 7)), ("encoder_5x5_8to8", 1
                + [(f"fmt_smooth_{c}", 5, (1, c // 8, c, c, 3)) for c in (32, 16, 8)])
 
 
+def _train_conv(shapes):
+    """The same convs at the train crop: the batch doubles (B = 2)."""
+    return [(name, n, (2 * b, div, ci, co, k)) for name, n, (b, div, ci, co, k) in shapes]
+
+
+# the convs whose input needs a gradient on the train path, with their dx
+# launches per step: not the encoder's 7x7 on the images, not each stage's
+# first visibility conv on the detached entropy
+CONV_DX_SHAPES = [sh for sh in _train_conv(CONV_SHAPES)
+                  if sh[0] != "encoder_7x7_3to8" and "_1to16" not in sh[0]]
+
+
 def conv_cases():
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for name, count, (b, div, ci, co, k) in CONV_SHAPES:
-        x = torch.randn(b, 1152 // div, 1536 // div, ci, generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
-                * (k * k * ci) ** -0.5).to(torch.bfloat16)
-        yield name, count, (x, kern)
+    for path, (h, w), shapes in (("main_path", (1152, 1536), CONV_SHAPES),
+                                 ("train_step", (512, 640), _train_conv(CONV_SHAPES))):
+        for name, count, (b, div, ci, co, k) in shapes:
+            x = torch.randn(b, h // div, w // div, ci, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
+                    * (k * k * ci) ** -0.5).to(torch.bfloat16)
+            yield f"{path}_{name}", path, count, (x, kern)
 
 
-def conv_fault(x, kern):
+def conv_fault(kernel, x, kern):
     """The top row of taps weighted 8% low."""
     kern = kern.clone()
     kern[0] *= 0.92
-    return x, kern
+    return kernel(x, kern)
+
+
+def conv_dx_cases():
+    """dx = the conv kernel on the cotangent [B, H, W, Co] with the weights
+    flipped and ci/co swapped, at each train conv whose input needs it."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for name, count, (b, div, ci, co, k) in CONV_DX_SHAPES:
+        g = torch.randn(b, 512 // div, 640 // div, co, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
+                * (k * k * co) ** -0.5).to(torch.bfloat16)
+        yield f"train_step_{name}", "train_step", count, (g, kern)
+
+
+def conv_dx_fault(kernel, g, kern):
+    """The weights not flipped in space (dx_kernel flips the pre-flipped
+    ones back)."""
+    return kernel(g, kern.flip(0, 1))
 
 
 def warp_library(src, coords):
@@ -196,14 +331,42 @@ def warp_library(src, coords):
                                  align_corners=True)
 
 
-def flash_library(q, k, v, scale):
+def warp_bwd_library(g, coords, src_shape):
+    """grid_sample's image backward (f32, NCHW), the one aten call."""
+    b, h, w, c = src_shape
+    d, hh, ww = coords.shape[1:4]
+    img = torch.zeros(b, c, h, w, device=g.device)
+    grid = torch.stack([coords[..., 0] / ((w - 1) / 2) - 1, coords[..., 1] / ((h - 1) / 2) - 1],
+                       dim=-1).reshape(b, d * hh, ww, 2)
+    gc = g.permute(0, 4, 1, 2, 3).reshape(b, c, d * hh, ww).contiguous()
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(gc, img, grid, 0, 0, True,
+                                                           [True, False])
+
+
+def flash_library(q, k, v, scale, lse):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+
+def flash_bwd_library(q, k, v, dout, lse, delta, scale):
+    """SDPA's backward (dq, dk and dv together) on the same inputs."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    gt = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
 
 
 def conv_library(x, kern):
     xc, wc = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).contiguous()
     return lambda: F.conv2d(xc, wc, padding=kern.shape[0] // 2)
+
+
+def conv_dx_library(g, kern):
+    """cuDNN's conv2d_input (NCHW) for the same gradient."""
+    b, hh, ww, _ = g.shape
+    gc, wc = g.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).contiguous()
+    size = (b, kern.shape[2], hh, ww)
+    return lambda: torch.nn.grad.conv2d_input(size, wc, gc, padding=kern.shape[0] // 2)
 
 
 def warp_bound(src, coords, out):
@@ -212,13 +375,31 @@ def warp_bound(src, coords, out):
     return nbytes(src, coords, out) / HBM_BYTES_S, 12 * out.numel() / FP32_FLOPS
 
 
-def flash_bound(q, k, v, scale, out):
+def warp_bwd_bound(g, coords, src_shape, out):
+    """The f32 cotangent and the coordinates read once, dsrc written once,
+    against 4 corners x (weight multiply + multiply + add) per element."""
+    return nbytes(g, coords, out) / HBM_BYTES_S, 12 * g.numel() / FP32_FLOPS
+
+
+def flash_bound(q, k, v, scale, lse, out):
     """Bytes of q, k, v and out, against the two products on bf16 tensor cores
     and the N*M exponentials on the SFUs, whichever takes longer."""
     b, n, h, dh = q.shape
     m = k.shape[1]
-    return (nbytes(q, k, v, out) / HBM_BYTES_S,
+    return (nbytes(q, k, v, *_tuple(out)) / HBM_BYTES_S,
             max(4 * b * h * n * m * dh / BF16_FLOPS, b * h * n * m / EXP_S))
+
+
+def _flash_bwd_bound(n_products):
+    def bound(q, k, v, dout, lse, delta, scale, out):
+        """Bytes of the inputs and outputs, against this kernel's products on
+        bf16 tensor cores (dK/dV: q.k, dO.v, P.dO, dS.q; dQ: q.k, dO.v, dS.k)
+        and its N*M exponentials on the SFUs, whichever takes longer."""
+        b, n, h, dh = q.shape
+        m = k.shape[1]
+        return (nbytes(q, k, v, dout, lse, delta, *_tuple(out)) / HBM_BYTES_S,
+                max(2 * n_products * b * h * n * m * dh / BF16_FLOPS, b * h * n * m / EXP_S))
+    return bound
 
 
 def conv_bound(x, kern, out):
@@ -228,60 +409,89 @@ def conv_bound(x, kern, out):
             2 * b * hh * ww * ky * kx * ci * co / BF16_FLOPS)
 
 
+def _tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
 def kernel_table():
     from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention, warp
 
+    pallas = "mvsformerplusplus_tpu/ops/pallas/"
     return {
-        "warp_bilinear": ("csrc/warp.cu", "mvsformerplusplus_tpu/ops/pallas/warp_band.py:395",
+        "warp_bilinear": ("csrc/warp.cu", f"{pallas}warp_band.py:395; {pallas}warp_band.py:195",
                           warp.warp_bilinear, warp.warp_bilinear_plain, warp_cases, warp_fault,
                           warp_library, warp_bound),
-        "flash_attention_fwd": ("csrc/flash_attention.cu",
-                                "mvsformerplusplus_tpu/ops/pallas/flash_attention.py:131",
+        "warp_bilinear_bwd": ("csrc/warp_bwd.cu",
+                              f"{pallas}warp_band.py:231; {pallas}warp_band.py:478",
+                              warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
+                              warp_bwd_cases, warp_bwd_fault, warp_bwd_library, warp_bwd_bound),
+        "flash_attention_fwd": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
                                 flash_attention.flash_attention_fwd,
                                 flash_attention.flash_attention_plain, flash_cases, flash_fault,
                                 flash_library, flash_bound),
-        "conv2d_same": ("csrc/conv2d.cu", "mvsformerplusplus_tpu/ops/pallas/conv2d.py:176",
+        "flash_attention_bwd_dkv": ("csrc/flash_attention_bwd.cu",
+                                    f"{pallas}flash_attention.py:263",
+                                    flash_attention.flash_attention_bwd_dkv,
+                                    flash_attention.flash_attention_bwd_dkv_plain,
+                                    flash_bwd_cases, flash_bwd_fault, flash_bwd_library,
+                                    _flash_bwd_bound(4)),
+        "flash_attention_bwd_dq": ("csrc/flash_attention_bwd.cu",
+                                   f"{pallas}flash_attention.py:263",
+                                   flash_attention.flash_attention_bwd_dq,
+                                   flash_attention.flash_attention_bwd_dq_plain,
+                                   flash_bwd_cases, flash_bwd_fault, None, _flash_bwd_bound(3)),
+        "conv2d_same": ("csrc/conv2d.cu", f"{pallas}conv2d.py:176",
                         conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_cases, conv_fault,
                         conv_library, conv_bound),
+        "conv2d_same_dx": ("csrc/conv2d.cu", f"{pallas}conv2d.py:224",
+                           conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, conv_dx_cases,
+                           conv_dx_fault, conv_dx_library,
+                           lambda g, kern, out: conv_bound(g, conv2d.dx_kernel(kern), out)),
     }
 
 
-def err_over_tol(got, want, rtol, atol) -> float:
-    """max |got - want| / (atol + rtol |want|): at most 1 where they agree."""
-    w = want.float()
-    return ((got.float() - w).abs() / (atol + rtol * w.abs())).max().item()
+def err_over_tol(got, want) -> float:
+    """max over outputs of max |got - want| / (atol + rtol |want|), with
+    (rtol, atol) from ops.cuda.tolerance: at most 1 where they agree."""
+    from mvsformerplusplus_tpu_torch.ops.cuda import tolerance
+
+    ratio = 0.0
+    for g, w in zip(_tuple(got), _tuple(want)):
+        rtol, atol = tolerance(w)
+        wf = w.float()
+        ratio = max(ratio, ((g.float() - wf).abs() / (atol + rtol * wf.abs())).max().item())
+    return ratio
 
 
 def run_kernel_phase():
-    """Each kernel against its plain version at every shape the main path
-    gives it, element by element within `ops.cuda.tolerance`; each case's
+    """Each kernel against its plain version at every shape the main paths
+    give it, element by element within `ops.cuda.tolerance`; each case's
     planted fault must fail the same check. The kernel's summary sums each
-    case's times and bound times its launches per forward."""
-    from mvsformerplusplus_tpu_torch.ops.cuda import tolerance
-
+    case's times and bound times its launches per run of its path (one DTU
+    eval forward, one train step)."""
     results = {}
     for name, (src, replaces, kernel, plain, cases, fault, library,
                bound) in kernel_table().items():
         rows = []
-        for case, count, args in cases():
+        for case, path, count, args in cases():
             want = plain(*args)
-            rtol, atol = tolerance(want)
             got = kernel(*args)
-            ratio = err_over_tol(got, want, rtol, atol)
-            fault_ratio = err_over_tol(kernel(*fault(*args)), want, rtol, atol)
+            ratio = err_over_tol(got, want)
+            fault_ratio = err_over_tol(fault(kernel, *args), want)
             bytes_s, ops_s = bound(*args, got)
-            row = {"phase": "kernel", "kernel": name, "case": case,
-                   "launches_per_forward": count,
+            row = {"phase": "kernel", "kernel": name, "case": case, "path": path,
+                   "launches_per_run": count,
                    "shapes": [list(a.shape) for a in args if isinstance(a, torch.Tensor)],
-                   "max_abs_err": (got.float() - want.float()).abs().max().item(),
-                   "max_abs_ref": want.float().abs().max().item(), "rtol": rtol, "atol": atol,
+                   "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                                      for g, w in zip(_tuple(got), _tuple(want))),
+                   "max_abs_ref": max(w.float().abs().max().item() for w in _tuple(want)),
                    "err_over_tol": ratio, "fault_err_over_tol": fault_ratio,
                    "bound_ms": max(bytes_s, ops_s) * 1e3,
                    "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
             del got, want
             row["ms"] = time_ms(lambda: kernel(*args))
             row["plain_ms"] = time_ms(lambda: plain(*args), iters=2)
-            row["library_ms"] = time_ms(library(*args))
+            row["library_ms"] = time_ms(library(*args)) if library is not None else None
             emit(row)
             if not ratio <= 1:
                 raise SystemExit(f"{name}[{case}] disagrees with its plain version: "
@@ -292,18 +502,29 @@ def run_kernel_phase():
             rows.append(row)
             del args
             torch.cuda.empty_cache()
+        cases_by_path = {}
+        for r in rows:
+            cases_by_path.setdefault(r["path"], {})[r["case"]] = r["launches_per_run"]
         results[name] = {
             "name": name, "route": "cuda", "source": f"mvsformerplusplus_tpu_torch/{src}",
             "replaces": replaces, "launches": None,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: sum(r[k] * r["launches_per_forward"] for r in rows)
-               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": max(rows, key=lambda r: r["bound_ms"] * r["launches_per_forward"])[
+            **{k: sum(r[k] * r["launches_per_run"] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "library_ms": (sum(r["library_ms"] * r["launches_per_run"] for r in rows)
+                           if library is not None else None),
+            "bound_by": max(rows, key=lambda r: r["bound_ms"] * r["launches_per_run"])[
                 "bound_by"],
-            "times": "per forward: each case's time x its launches per forward",
+            "times": "per run of each main path it serves (one DTU eval forward, one train "
+                     "step): each case's time x its launches per run",
             "max_err_over_tol": max(r["err_over_tol"] for r in rows),
             "min_fault_err_over_tol": min(r["fault_err_over_tol"] for r in rows),
-            "cases": {r["case"]: r["launches_per_forward"] for r in rows},
+            "cases": cases_by_path,
+            "by_path": {path: {k: (sum(r[k] * r["launches_per_run"] for r in rows
+                                       if r["path"] == path)
+                                   if library is not None or k != "library_ms" else None)
+                               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                        for path in cases_by_path},
         }
     return results
 
@@ -316,17 +537,23 @@ def well_conditioned(dv: torch.Tensor, far: float) -> torch.Tensor:
     return ((dv > 0) & (dv < 4 * far)).all(dim=1)
 
 
-def run_reference_phase():
-    """Tiny flagship, fp32: kernels on the card vs plain versions on the CPU."""
+def tiny_model(device, train=False):
+    """The small flagship in fp32 with seeded weights, its regularizers
+    checkpointed as on the train path."""
     from mvsformerplusplus_tpu_torch.config import init_weights
     from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
 
+    model = DINOv2MVSNet(**TINY, remat_granularity="cost_reg", dtype=torch.float32)
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.to(device).train(train)
+
+
+def run_reference_phase():
+    """Tiny flagship, fp32: kernels on the card vs plain versions on the CPU."""
     batch = make_dtu_eval_batch(v=3, h=128, w=256, dfull=48, seed=1)
     outs = {}
     for device in ("cpu", "cuda"):
-        model = DINOv2MVSNet(**TINY, dtype=torch.float32)
-        init_weights(model, torch.Generator().manual_seed(0))
-        model = model.to(device).eval()
+        model = tiny_model(device)
         with torch.inference_mode():
             out = model(*to_device(batch, device))
         outs[device] = {k: out[k].float().cpu() for k in ("refined_depth",
@@ -346,6 +573,97 @@ def run_reference_phase():
     if not (mask.float().mean() > 0.5 and depth_rel <= 1e-3 and conf_err <= 1e-3
             and prob_err <= 1e-3):
         raise SystemExit("the port on the card disagrees with its plain CPU path")
+
+
+def make_small_train_batch(seed=0, b=1, v=3, h=64, w=64, dfull=48, near=4.0, far=5.0):
+    """A scene 4-5 units away seen by in-view cameras (principal point at the
+    centre, baselines of 0.4): every hypothesis stays positive and the
+    argmax depth a stage hands on is far from a tie, so the card and the CPU
+    take the same hypotheses at every stage."""
+    rng = np.random.RandomState(seed)
+    imgs = rng.rand(b, v, h, w, 3).astype(np.float32)
+    cams = {}
+    for s in range(4):
+        scale = 0.125 * 2 ** s
+        cam = np.zeros((b, v, 2, 4, 4), np.float32)
+        for vi in range(v):
+            c, sn = np.cos(0.02 * vi), np.sin(0.02 * vi)
+            ext = np.eye(4, dtype=np.float32)
+            ext[:3, :3] = [[c, 0, sn], [0, 1, 0], [-sn, 0, c]]
+            ext[0, 3] = 0.4 * vi
+            cam[:, vi, 0] = ext
+            f = w * scale
+            cam[:, vi, 1, :3, :3] = [[f, 0, w * scale / 2], [0, f, h * scale / 2], [0, 0, 1]]
+        cams[f"stage{s + 1}"] = cam
+    gt = {f"stage{i + 1}": rng.uniform(near, far, (b, h >> (3 - i), w >> (3 - i))).astype(
+        np.float32) for i in range(4)}
+    return {"imgs": imgs, "cams": cams,
+            "depth_values": np.linspace(near, far, dfull, dtype=np.float32)[None].repeat(b, 0),
+            "depth_gt": gt,
+            "mask": {k: (rng.rand(*g.shape) > 0.2).astype(np.float32) for k, g in gt.items()}}
+
+
+def run_reference_train_phase():
+    """One train step of the tiny flagship (fp32, remat of the regularizers)
+    on the card against the same step on the port's CPU path: the argmax
+    depths handed between stages, per-stage losses, every gradient (max
+    |diff| <= 1e-3 of the tensor's largest entry + 2e-4 of the largest
+    gradient: on the CPU alone a one-ulp change of the input images moves
+    the stage-3 visibility net's first BatchNorm bias gradient by 8e-5 of
+    the largest gradient), the BatchNorm running statistics (rtol 1e-4) and
+    the parameters after AdamW (1e-6 where |g| is above the gradient
+    tolerance, 2 lr elsewhere, where the first Adam step is -lr * sign(g))."""
+    from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
+    from mvsformerplusplus_tpu_torch.train.step import train_step
+    from mvsformerplusplus_tpu_torch.train.trainer import to_device as batch_to
+
+    lr = 1e-3
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = tiny_model(device, train=True)
+        batch = batch_to(make_small_train_batch(), device)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        with torch.no_grad():
+            out = model(batch["imgs"], batch["cams"], batch["depth_values"])
+        depths = [out[f"stage{i}"]["depth"].cpu() for i in (1, 2, 3)]
+        model.load_state_dict(before)
+        opt, sched = make_optimizer(model, lr=lr, warmup_steps=0, total_steps=10)
+        logs = train_step(model, opt, sched, batch)
+        runs[device] = dict(
+            depths=depths, logs={k: float(v) for k, v in logs.items()
+                                 if k == "loss" or k.startswith("stage")},
+            grads={n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
+            state={k: v.cpu() for k, v in model.state_dict().items()})
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    gmax = max(g.abs().max().item() for g in cpu["grads"].values())
+    atol = 2e-4 * gmax
+    depth_same = all(torch.allclose(a, b, rtol=1e-5, atol=0)
+                     for a, b in zip(cpu["depths"], gpu["depths"]))
+    loss_rel = max(abs(gpu["logs"][k] - v) / abs(v) for k, v in cpu["logs"].items())
+    grad_rows = sorted(((gpu["grads"][n] - g).abs().max().item()
+                        / (1e-3 * g.abs().max().item() + atol), n, g.abs().max().item())
+                       for n, g in cpu["grads"].items())
+    grad_ratio = grad_rows[-1][0]
+    stat_names = [k for k in cpu["state"] if k.endswith(("running_mean", "running_var"))]
+    stat_ratio = max(((gpu["state"][k] - cpu["state"][k]).abs()
+                      / (2e-5 + 1e-4 * cpu["state"][k].abs())).max().item() for k in stat_names)
+    param_err = 0.0
+    for n, g in cpu["grads"].items():
+        diff = (gpu["state"][n] - cpu["state"][n]).abs()
+        firm = g.abs() > atol
+        param_err = max(param_err, diff[firm].max().item() / 1e-6 if firm.any() else 0,
+                        diff[~firm].max().item() / (2 * lr + 1e-6) if (~firm).any() else 0)
+    same_keys = set(cpu["grads"]) == set(gpu["grads"])
+    row = {"phase": "reference_train", "stage_depths_equal": depth_same,
+           "loss_max_rel_err": loss_rel, "loss_rtol": 1e-4, "grad_err_over_tol": grad_ratio,
+           "grad_atol": atol, "worst_grads": grad_rows[-5:], "bn_stats_err_over_tol": stat_ratio,
+           "params_err_over_tol": param_err, "params_with_grad": len(cpu["grads"]),
+           "same_params_with_grad": same_keys, "losses_cpu": cpu["logs"],
+           "losses_cuda": gpu["logs"]}
+    emit(row)
+    if not (depth_same and same_keys and loss_rel <= 1e-4 and grad_ratio <= 1
+            and stat_ratio <= 1 and param_err <= 1):
+        raise SystemExit("the port's train step on the card disagrees with its plain CPU path")
 
 
 def run_main_path(counters, iters=3):
@@ -371,7 +689,9 @@ def run_main_path(counters, iters=3):
             "depth_in_hypothesis_range": bool(((depth >= lo - slack) & (depth <= hi + slack))
                                               .all()),
             "confidence_in_0_1": bool(((conf >= 0) & (conf <= 1 + 1e-5)).all()),
-            "every_kernel_launched": all(n > 0 for n in launches.values()),
+            "every_forward_kernel_launched": all(
+                launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd",
+                                          "conv2d_same")),
         }
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         del out
@@ -390,8 +710,96 @@ def run_main_path(counters, iters=3):
     return launches
 
 
+class SeededLoader:
+    """The train protocol's batch, made once on the card from a seed, with
+    the JAX TrainLoader's interface: `epoch(e)` yields (batch, crop_hw)."""
+
+    def __init__(self, steps: int):
+        from mvsformerplusplus_tpu_torch.train.trainer import to_device as batch_to
+
+        self.batch = batch_to(make_train_batch(**TRAIN), "cuda")
+        self.steps = steps
+
+    def steps_per_epoch(self) -> int:
+        return self.steps
+
+    def epoch(self, e):
+        for _ in range(self.steps):
+            yield self.batch, (TRAIN["h"], TRAIN["w"])
+
+
+def run_train_step(counters, iters=3):
+    """The full-width train step through build_model(train=True) and the
+    port's Trainer: one counted warm step, then `iters` timed steps."""
+    from mvsformerplusplus_tpu_torch.config import build_model, load_config
+    from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
+    from mvsformerplusplus_tpu_torch.train.trainer import Trainer
+
+    cfg = load_config(CONFIG)
+    model = build_model(cfg, dtype=torch.bfloat16, train=True, remat_stages=True,
+                        remat_granularity="cost_reg")
+    opt, sched = make_optimizer(model, lr=1e-3, vit_lr=3e-5, weight_decay=0.01, min_lr_frac=0.01,
+                                warmup_steps=500, total_steps=10000, freeze_vit=True)
+    loader = SeededLoader(steps=1 + iters)
+    trainer = Trainer(model, loader, opt, sched, logging_every=1,
+                      loss_kwargs=dict(clip_func=cfg["arch"]["loss"]["clip_func"]))
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {k: v.clone() for k, v in model.state_dict().items()
+              if k.endswith(("running_mean", "running_var"))}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.train(epochs=1, max_steps=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    nonzero_grad = {n for n, p in model.named_parameters()
+                    if p.grad is not None and bool(p.grad.ne(0).any())}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    logs += trainer.train(epochs=1, max_steps=iters)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p.detach(), params0[n])}
+    sd = model.state_dict()
+    stats_moved = sum(not torch.equal(sd[k], v) for k, v in stats0.items())
+    finite = all(np.isfinite(v) for e in logs for k, v in e.items()
+                 if k == "loss" or k == "grad_norm" or k.startswith("stage"))
+    checks = {
+        "losses_and_grad_norm_finite": finite,
+        "every_trainable_param_moved": trainable <= moved,
+        "vit_unchanged": not any(n.startswith("vit.") for n in moved),
+        "only_trainable_params_moved": moved <= trainable,
+        "batch_norm_stats_moved": stats_moved == len(stats0),
+        "every_kernel_launched": all(n > 0 for n in launches.values()),
+    }
+    row = {"phase": "train_step", "config": str(CONFIG.relative_to(REPO)),
+           "shape": [TRAIN["b"], TRAIN["v"], TRAIN["h"], TRAIN["w"], 3],
+           "depths": TRAIN["dfull"], "dtype": "bfloat16", "remat_granularity": "cost_reg",
+           "launches_per_step": launches, "checks": checks, "ms_per_step": ms, "iters": iters,
+           "warm_step_s": warm_s, "peak_mem_gb": peak_gb,
+           "params": {"trainable": len(trainable), "moved": len(moved),
+                      "with_nonzero_grad": len(nonzero_grad),
+                      "trainable_not_moved": sorted(trainable - moved)[:20],
+                      "vit": sum(n.startswith("vit.") for n in params0)},
+           "bn_stats": {"tensors": len(stats0), "moved": stats_moved},
+           "logs": logs}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"train step checks failed: {checks}")
+    emit(profile_train(model, opt, sched, loader.batch))
+    return launches
+
+
 LAYERS = ("encoder", "vit", "decoder_vit", "decoder", "fmt", "cascade.stage1",
           "cascade.stage2", "cascade.stage3", "cascade.stage4")
+HAND_WRITTEN = ("warp_bilinear_kernel", "warp_bilinear_bwd_kernel", "flash_fwd_kernel",
+                "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "conv2d_same_kernel")
 
 
 def layer_ms(model, inputs) -> dict:
@@ -424,32 +832,46 @@ def layer_ms(model, inputs) -> dict:
     return out
 
 
-def profile_forward(model, inputs, top=20) -> dict:
-    """torch.profiler over one forward: device time by kernel name, the share
-    of each hand-written kernel, and the device's idle share of the wall time
+def profile_run(fn, top=20) -> dict:
+    """torch.profiler over fn(): device time by kernel name, the share of
+    each hand-written kernel, and the device's idle share of the wall time
     (one stream, so kernels do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(*inputs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    ours = {k: sum(ms for name, (ms, _) in by_name.items() if k in name)
-            for k in ("warp_bilinear_kernel", "flash_fwd_kernel", "conv2d_same_kernel")}
+    ours = {k: sum(ms for name, (ms, _) in by_name.items() if k in name.split("<")[0])
+            for k in HAND_WRITTEN}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"phase": "profile", "layer_ms": layer_ms(model, inputs),
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "hand_written_ms": ours,
+            "hand_written_ms": ours, "hand_written_share": sum(ours.values()) / busy_ms
+            if busy_ms else None,
             "top_kernels": [{"name": k[:160], "ms": ms, "count": n} for k, (ms, n) in ranked]}
+
+
+def profile_forward(model, inputs) -> dict:
+    def forward():
+        with torch.inference_mode():
+            model(*inputs)
+
+    return {"phase": "profile", "layer_ms": layer_ms(model, inputs), **profile_run(forward)}
+
+
+def profile_train(model, opt, sched, batch) -> dict:
+    from mvsformerplusplus_tpu_torch.train.step import train_step
+
+    return {"phase": "profile_train", **profile_run(lambda: train_step(model, opt, sched, batch))}
 
 
 def main() -> int:
@@ -482,16 +904,23 @@ def main() -> int:
 
     results = run_kernel_phase()
     run_reference_phase()
-    counters = {"warp_bilinear": warp.warp_bilinear,
+    run_reference_train_phase()
+    counters = {"warp_bilinear": warp.warp_bilinear, "warp_bilinear_bwd": warp.warp_bilinear_bwd,
                 "flash_attention_fwd": flash_attention.flash_attention_fwd,
-                "conv2d_same": conv2d.conv2d_same}
-    launches = run_main_path(counters)
-    for name, n in launches.items():
-        results[name]["launches"] = n
-        checked = sum(results[name]["cases"].values())
-        if checked != n:
-            raise SystemExit(f"{name}: the kernel phase checks {checked} launches per forward "
-                             f"at the main path's shapes, the main path made {n}")
+                "flash_attention_bwd_dkv": flash_attention.flash_attention_bwd_dkv,
+                "flash_attention_bwd_dq": flash_attention.flash_attention_bwd_dq,
+                "conv2d_same": conv2d.conv2d_same, "conv2d_same_dx": conv2d.conv2d_same_dx}
+    by_path = {"main_path": run_main_path(counters)}
+    torch.cuda.empty_cache()
+    by_path["train_step"] = run_train_step(counters)
+    for name, res in results.items():
+        res["launches_by_path"] = {path: by_path[path][name] for path in by_path}
+        res["launches"] = sum(res["launches_by_path"].values())
+        for path, n in res["launches_by_path"].items():
+            checked = sum(res["cases"].get(path, {}).values())
+            if checked != n:
+                raise SystemExit(f"{name}: the kernel phase checks {checked} launches per run of "
+                                 f"{path} at its shapes, the {path} run made {n}")
     print(card, flush=True)
     emit({"kernels": list(results.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

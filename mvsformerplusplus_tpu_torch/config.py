@@ -64,11 +64,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             p.copy_(torch.randn(p.shape, generator=generator) * fan_in ** -0.5)
 
 
-def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0, **extra):
-    """arch.args -> eval-mode model on `device` with weights drawn from `seed`.
+def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
+                train: bool = False, remat_stages: bool = True,
+                remat_granularity: str = "stage", **extra):
+    """arch.args -> model on `device` with weights drawn from `seed`, in
+    eval mode, or in train mode when `train` (the training entry point).
 
-    The model runs on the card unless the caller passes device="cpu"; without
-    CUDA a CUDA device raises instead of falling back to the CPU.
+    `remat_stages` / `remat_granularity` ("stage" or "cost_reg") choose the
+    gradient checkpointing of the cascade; `arch.args.freeze_vit` (default
+    true) freezes the ViT. The model runs on the card unless the caller
+    passes device="cpu"; without CUDA a CUDA device raises instead of
+    falling back to the CPU.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -103,9 +109,12 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
         cross_interval_layers=dino_cfg.get("cross_interval_layers", 3),
         decoder_cfg=dino_cfg.get("decoder_cfg"),
         fmt_config=args.get("FMT_config"),
+        freeze_vit=args.get("freeze_vit", True),
+        remat_stages=remat_stages,
+        remat_granularity=remat_granularity,
         dtype=dtype,
     )
     kwargs.update(extra)
     model = DINOv2MVSNet(**kwargs)
     init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return model.to(device).train(train)

@@ -11,7 +11,9 @@ layout rules:
   (plus num_batches_tracked); LayerNorm scale -> weight;
 - everything else (biases, LayerScale and residual gammas, cls_token,
   pos_embed, prev_value_i) as it is.
-Arrays arrive as numpy (or anything np.asarray takes).
+Arrays arrive as numpy (or anything np.asarray takes). Every rule is linear
+(transpose, flip, rename), so `from_jax_variables({"params": grads})` also
+converts a flax gradient tree into the layout of the port's `.grad`s.
 """
 from __future__ import annotations
 

@@ -1,7 +1,10 @@
 """The 4-stage coarse-to-fine cascade (counterpart of
-mvsformerplusplus_tpu/models/cascade.py, without remat): hypothesis
-scheduling per stage, 3D PE for the transformer regularizer, StageNet calls
-and confidence averaging across stages."""
+mvsformerplusplus_tpu/models/cascade.py): hypothesis scheduling per stage,
+3D PE for the transformer regularizer, StageNet calls and confidence
+averaging across stages. The previous stage's depth reaches the next stage's
+hypotheses without a gradient. With `remat_stages`, granularity "stage"
+checkpoints whole StageNets (the warp is replayed in the backward) and
+"cost_reg" only their regularizers (the warp's volume is kept)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
@@ -12,6 +15,7 @@ import torch.nn as nn
 from ..ops.geometry import get_position_3d
 from ..ops.resize import resize2d
 from ..ops.sampling import init_inverse_range, init_range, schedule_inverse_range, schedule_range
+from .layers import remat
 from .stagenet import StageNet
 
 Tensor = torch.Tensor
@@ -24,8 +28,14 @@ class CascadeDepth(nn.Module):
                  cost_reg_type: Sequence[str] = ("Normal",) * 4,
                  depth_type: Sequence[str] = ("ce",) * 4,
                  groups: Sequence[int] = (8, 8, 8, 8), use_pe3d: bool = True,
-                 transformer_config: Optional[Sequence[dict]] = None, dtype=torch.float32):
+                 transformer_config: Optional[Sequence[dict]] = None,
+                 remat_stages: bool = True, remat_granularity: str = "stage",
+                 dtype=torch.float32):
         super().__init__()
+        if remat_granularity not in ("stage", "cost_reg"):
+            raise ValueError(f"remat_granularity is 'stage' or 'cost_reg', got "
+                             f"{remat_granularity!r}")
+        self.remat_whole_stage = remat_stages and remat_granularity == "stage"
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
         self.inverse_depth = inverse_depth
@@ -36,7 +46,8 @@ class CascadeDepth(nn.Module):
             if cost_reg_type[i] == "PureTransformerCostReg" and transformer_config:
                 tc = transformer_config[min(i, len(transformer_config) - 1)]
             self.add_module(f"stage{i + 1}", StageNet(
-                nd, groups[i], cost_reg_type[i], depth_type[i], tc, dtype=dtype))
+                nd, groups[i], cost_reg_type[i], depth_type[i], tc,
+                remat_cost_reg=remat_stages and remat_granularity == "cost_reg", dtype=dtype))
 
     def forward(self, features: Dict[str, Tensor], cams: Dict[str, Tensor],
                 depth_values: Tensor, tmp: Sequence[float] = (5.0, 5.0, 5.0, 1.0)) -> dict:
@@ -55,17 +66,21 @@ class CascadeDepth(nn.Module):
                 init = init_inverse_range if self.inverse_depth else init_range
                 hypo = init(depth_values, nd, h, w)
             elif self.inverse_depth:
-                hypo = schedule_inverse_range(prev["depth"], prev["depth_values"], nd,
+                hypo = schedule_inverse_range(prev["depth"].detach(), prev["depth_values"], nd,
                                               self.depth_intervals_ratio[idx], h, w)
             else:
-                hypo = schedule_range(prev["depth"], nd,
+                hypo = schedule_range(prev["depth"].detach(), nd,
                                       self.depth_intervals_ratio[idx] * depth_interval, h, w)
             position3d = None
             if self.cost_reg_type[idx] != "Normal" and self.use_pe3d:
                 position3d, bounds = get_position_3d(
                     stage_cams[:, 0, 1, :3, :3], hypo, h, w, depth_min=depth_values.min(),
                     depth_max=depth_values.max(), bounds=bounds)
-            prev = getattr(self, key)(feats, stage_cams, hypo, tmp[idx], position3d)
+            stage = getattr(self, key)
+            if self.remat_whole_stage:
+                prev = remat(stage, feats, stage_cams, hypo, tmp[idx], position3d)
+            else:
+                prev = stage(feats, stage_cams, hypo, tmp[idx], position3d)
             outputs[key] = prev
             conf = prev["photometric_confidence"]
             if conf.shape[1] != img_h or conf.shape[2] != img_w:

@@ -8,13 +8,15 @@ at use, as flax does. Norms compute in fp32.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.cuda.conv2d import conv2d_same
+from ..ops.cuda.conv2d import Conv2dSame
 from ..ops.resize import resize2d
 
 Tensor = torch.Tensor
@@ -39,9 +41,54 @@ def _tuple(v, n: int) -> tuple:
     return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
 
 
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Inside it, the train-mode BatchNorms of `module` normalize with batch
+    statistics but leave their running statistics alone: a checkpointed
+    block's recompute in the backward must not apply the running update a
+    second time (flax applies it once)."""
+    bns = [m for m in module.modules() if isinstance(m, nn.BatchNorm1d)]
+    for bn in bns:
+        bn.stats_frozen = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.stats_frozen = False
+
+
+def remat(fn: nn.Module, *args):
+    """fn(*args) under gradient checkpointing when autograd records: the
+    activations inside are recomputed in the backward, with the running
+    BatchNorm statistics frozen for the replay. Without autograd recording
+    it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), frozen_batch_stats(fn)))
+
+
 def batch_norm(bn: nn.BatchNorm1d, x: Tensor) -> Tensor:
-    """BatchNorm over the last (channel) axis, fp32."""
-    return bn(x.float().reshape(-1, x.shape[-1])).reshape(x.shape)
+    """BatchNorm over the last (channel) axis in fp32, as flax's BatchNorm
+    (momentum 0.9, eps 1e-5): (x - mean) * (rsqrt(var + eps) * scale) + bias.
+    In train mode mean and var are the batch statistics, var by flax's
+    E[x²] - E[x]² (clipped at 0), the gradient flows through both, and the
+    running mean and the running BIASED variance (torch's BatchNorm would
+    keep the unbiased one) move 0.1 of the way towards them; in eval mode
+    they are the running statistics."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    if bn.training:
+        mean = xf.mean(0)
+        var = ((xf * xf).mean(0) - mean * mean).clamp(min=0)
+        if not getattr(bn, "stats_frozen", False):
+            with torch.no_grad():
+                bn.running_mean.lerp_(mean, bn.momentum)
+                bn.running_var.lerp_(var, bn.momentum)
+                bn.num_batches_tracked += 1
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    return y.reshape(x.shape)
 
 
 def bn_layer(c: int) -> nn.BatchNorm1d:
@@ -104,12 +151,12 @@ class ConvTranspose(nn.Module):
 
 def conv2d_mm(x: Tensor, kernel: Tensor, bias=None) -> Tensor:
     """Stride-1 'same' conv with kernel [ky, kx, Ci, Co], fp32 accumulation,
-    output in x's dtype: 1x1 is a matmul, square k in {3, 5, 7} the conv
-    kernel (its plain version on CPU)."""
+    output in x's dtype: 1x1 is a matmul, square k in {3, 5, 7} the
+    differentiable conv kernel (its plain versions on CPU)."""
     if kernel.shape[0] == kernel.shape[1] == 1:
         out = x @ kernel[0, 0]
     else:
-        out = conv2d_same(x, kernel)
+        out = Conv2dSame.apply(x, kernel)
     if bias is not None:
         out = out.float() + bias.float()
     return out.to(x.dtype)

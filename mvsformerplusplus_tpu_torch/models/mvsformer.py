@@ -1,9 +1,12 @@
 """DINOv2MVSNet, the flagship model (counterpart of
 mvsformerplusplus_tpu/models/mvsformer.py): frozen DINOv2 features + SVA
 cross-view decoder + FPN + FMT + 4-stage cascade. Views are folded into the
-batch for all per-view compute. Eval forward only."""
+batch for all per-view compute. With `freeze_vit` (the default, as in the
+JAX package) the ViT's parameters take no gradient and it runs under
+torch.no_grad(), so none of its activations are kept for a backward."""
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -31,7 +34,8 @@ class DINOv2MVSNet(nn.Module):
                  cost_reg_type: Sequence[str] = ("PureTransformerCostReg", "Normal", "Normal",
                                                  "Normal"),
                  transformer_config: Optional[Sequence[dict]] = None, use_pe3d: bool = True,
-                 dtype=torch.float32):
+                 freeze_vit: bool = True, remat_stages: bool = True,
+                 remat_granularity: str = "stage", dtype=torch.float32):
         super().__init__()
         self.encoder = FPNEncoder(feat_chs, dtype)
         self.decoder = FPNDecoder(feat_chs, dtype)
@@ -39,6 +43,9 @@ class DINOv2MVSNet(nn.Module):
                                          num_heads=vit_num_heads, patch_size=vit_patch,
                                          cross_interval_layers=cross_interval_layers,
                                          dtype=dtype)
+        self.freeze_vit = freeze_vit
+        if freeze_vit:
+            self.vit.requires_grad_(False)
         dec = dict(decoder_cfg or {})
         self.decoder_vit = CrossVITDecoder(
             d_model=dec.get("d_model", vit_ch), nhead=dec.get("nhead", 12),
@@ -52,7 +59,8 @@ class DINOv2MVSNet(nn.Module):
             no_combine_norm=dec.get("no_combine_norm", False), out_ch=out_ch, dtype=dtype)
         self.fmt = FMTWithPathway(groups[0], fmt_config, dtype)
         self.cascade = CascadeDepth(ndepths, depth_intervals_ratio, inverse_depth, cost_reg_type,
-                                    depth_type, groups, use_pe3d, transformer_config, dtype)
+                                    depth_type, groups, use_pe3d, transformer_config,
+                                    remat_stages, remat_granularity, dtype)
         self.rescale, self.vit_patch, self.vit_ch = rescale, vit_patch, vit_ch
         self.dtype = dtype
 
@@ -63,7 +71,9 @@ class DINOv2MVSNet(nn.Module):
         vit_h = int(h * self.rescale // p * p)
         vit_w = int(w * self.rescale // p * p)
         vit_imgs = resize2d(imgs_flat, vit_h, vit_w, method="cubic", align_corners=False)
-        levels = [f.reshape(b, v, -1, self.vit_ch) for f in self.vit(vit_imgs)]
+        with torch.no_grad() if self.freeze_vit else contextlib.nullcontext():
+            levels = self.vit(vit_imgs)
+        levels = [f.reshape(b, v, -1, self.vit_ch) for f in levels]
         return self.decoder_vit(levels, (b, v, vit_h // p, vit_w // p, self.vit_ch))
 
     def forward(self, imgs: Tensor, cams: Dict[str, Tensor], depth_values: Tensor,

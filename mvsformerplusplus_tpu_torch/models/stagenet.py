@@ -7,6 +7,13 @@ warp -> full-C product with the reference features -> entropy of the depth
 softmax -> visibility weight; the volume is the visibility-weighted mean
 over views, reduced to G correlation groups at the end (the group mean
 commutes with the weighted sum).
+
+In train mode (`self.training`), as the JAX StageNet with train=True: a CE
+stage's depth is the hypothesis at the argmax of the probabilities (which
+moves the next stage's hypotheses), and with `remat_cost_reg` the
+regularizer is checkpointed (recomputed in the backward, with the running
+BatchNorm statistics left alone on the replay). The similarity that feeds
+the entropy and the confidence carry no gradient in either mode.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ from ..ops.geometry import compose_projection
 from ..ops.grid_sample import homography_warp
 from ..ops.sampling import conf_regression, depth_regression
 from .cost_reg import CostRegNet, CostRegNet3D, PureTransformerCostReg
-from .layers import ConvBnReLU, MMConv
+from .layers import ConvBnReLU, MMConv, remat
 
 Tensor = torch.Tensor
 
@@ -41,12 +48,12 @@ class VisibilityNet(nn.Module):
 
 
 class StageNet(nn.Module):
-    """One coarse-to-fine stage (eval). cost_reg_type 'PureTransformerCostReg'
-    or 'Normal' (CostRegNet3D when ndepth <= model_th, else CostRegNet)."""
+    """One coarse-to-fine stage. cost_reg_type 'PureTransformerCostReg' or
+    'Normal' (CostRegNet3D when ndepth <= model_th, else CostRegNet)."""
 
     def __init__(self, ndepth: int, groups: int = 8, cost_reg_type: str = "Normal",
                  depth_type: str = "ce", transformer_config: Optional[dict] = None,
-                 model_th: int = 8, dtype=torch.float32):
+                 model_th: int = 8, remat_cost_reg: bool = False, dtype=torch.float32):
         super().__init__()
         self.vis = VisibilityNet(dtype)
         if cost_reg_type == "PureTransformerCostReg":
@@ -60,6 +67,7 @@ class StageNet(nn.Module):
             self.cost_reg = CostRegNet(groups, groups, dtype=dtype)
         self.ndepth, self.groups = ndepth, groups
         self.cost_reg_type, self.depth_type = cost_reg_type, depth_type
+        self.remat_cost_reg = remat_cost_reg
         self.dtype = dtype
 
     def build_volume(self, features: Tensor, cams: Tensor, depth_values: Tensor) -> Tensor:
@@ -79,7 +87,7 @@ class StageNet(nn.Module):
         warped, _ = homography_warp(src, src_projs, ref_proj, dv)  # [nsrc*B, D, H, W, C]
         prod = warped.reshape(nsrc, b, d, h, w, c) * ref_feat[None, :, None]
         del warped
-        sim = prod.sum(dim=-1) / sub
+        sim = prod.detach().sum(dim=-1) / sub
         p = torch.softmax(sim, dim=2)
         entropy = -torch.sum(p * torch.log(p + 1e-7), dim=2)  # [nsrc, B, H, W]
         vis = self.vis(entropy.reshape(nsrc * b, h, w, 1)).reshape(nsrc, b, 1, h, w, 1)
@@ -89,19 +97,26 @@ class StageNet(nn.Module):
     def forward(self, features: Tensor, cams: Tensor, depth_values: Tensor, tmp: float = 1.0,
                 position3d: Optional[Tensor] = None) -> dict:
         volume = self.build_volume(features, cams, depth_values).to(self.dtype)
-        if self.cost_reg_type == "PureTransformerCostReg":
-            reg = self.cost_reg(volume, position3d)
+        args = (volume, position3d) if self.cost_reg_type == "PureTransformerCostReg" else (volume,)
+        if self.remat_cost_reg:
+            reg = remat(self.cost_reg, *args)
         else:
-            reg = self.cost_reg(volume)
+            reg = self.cost_reg(*args)
         prob_pre = reg[..., 0].float()  # [B, D, H, W]
         prob_volume = torch.softmax(prob_pre, dim=1)
         if self.depth_type == "ce":
-            depth = depth_regression(torch.softmax(prob_pre * tmp, dim=1), depth_values)
+            if self.training:
+                idx = prob_volume.argmax(dim=1, keepdim=True)  # [B, 1, H, W]
+                dv4 = depth_values if depth_values.ndim == 4 else depth_values[:, :, None, None]
+                depth = torch.gather(dv4.expand_as(prob_volume), 1, idx)[:, 0]
+            else:
+                depth = depth_regression(torch.softmax(prob_pre * tmp, dim=1), depth_values)
             confidence = prob_volume.max(dim=1).values
         else:
             depth = depth_regression(prob_volume, depth_values)
             n = 4 if self.ndepth >= 32 else {16: 3, 8: 2}.get(self.ndepth)
             confidence = (conf_regression(prob_volume, n) if n is not None
                           else prob_volume.max(dim=1).values)
-        return {"depth": depth, "prob_volume": prob_volume, "photometric_confidence": confidence,
+        return {"depth": depth, "prob_volume": prob_volume,
+                "photometric_confidence": confidence.detach(),
                 "depth_values": depth_values, "prob_volume_pre": prob_pre}

@@ -1,6 +1,7 @@
 """Attention primitives (counterpart of mvsformerplusplus_tpu/ops/attention.py):
 entropy-invariant softmax scale, fp32 linear attention, and softmax
-attention, which on CUDA tensors always runs the flash kernel."""
+attention, which on CUDA tensors always runs the flash kernels (forward, and
+in a backward the dK/dV and dQ kernels)."""
 from __future__ import annotations
 
 import math
@@ -9,7 +10,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .cuda.flash_attention import flash_attention_fwd
+from .cuda.flash_attention import FlashAttention
 
 Tensor = torch.Tensor
 
@@ -33,5 +34,6 @@ def linear_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
 
 
 def softmax_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
-    """Softmax attention, q [B, N, H, Dh], k/v [B, M, H, Dh], fp32 logits."""
-    return flash_attention_fwd(q, k, v, scale)
+    """Softmax attention, q [B, N, H, Dh], k/v [B, M, H, Dh], fp32 logits;
+    differentiable in q, k and v."""
+    return FlashAttention.apply(q, k, v, scale)

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-SOURCES = ("conv2d", "flash_attention", "warp")
+SOURCES = ("conv2d", "flash_attention", "flash_attention_bwd", "warp", "warp_bwd")
 
 _libs: dict = {}
 _lock = threading.Lock()

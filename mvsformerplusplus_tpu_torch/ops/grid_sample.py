@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda.warp import warp_bilinear, warp_bilinear_plain
+from .cuda.warp import WarpBilinear, warp_bilinear_plain
 from .geometry import plane_sweep_coords
 
 Tensor = torch.Tensor
@@ -21,7 +21,9 @@ def homography_warp(src_feat: Tensor, src_proj: Tensor, ref_proj: Tensor,
                     depth_values: Tensor):
     """Warp src features [B, H, W, C] into the ref frustum at depth_values
     ([B, D] or [B, D, H, W]). Returns (warped [B, D, H, W, C] f32, invalid
-    [B, D, H, W] bool). CUDA tensors go through the warp kernel."""
+    [B, D, H, W] bool). CUDA tensors go through the warp kernel. The
+    features get the warp's exact image gradient; the coordinates get none
+    (the JAX warp stops their gradient)."""
     b, h, w, _ = src_feat.shape
     coords, invalid = plane_sweep_coords(src_proj, ref_proj, depth_values, h, w)
-    return warp_bilinear(src_feat, coords), invalid
+    return WarpBilinear.apply(src_feat, coords.detach()), invalid
