@@ -24,15 +24,18 @@ Phases, one JSON line each:
               build_model / load_config, with every kernel's launch count, the
               output checks, ms per depth map and peak memory;
   profile     device ms per top-level layer (CUDA events in forward hooks) and
-              torch.profiler over one more forward: device time by kernel,
-              the hand-written kernels' share, the device's idle share;
+              torch.profiler, tracing CUDA activity only, over two more
+              forwards: device time by kernel, the hand-written kernels'
+              share, and the device's idle share of the CUDA-event wall time
+              of the same forwards;
   train_step  the full-width flagship train step (B=2, 5 views, 512 x 640,
               192 depths, bf16, frozen ViT, remat of the regularizers, CE at
               all stages, two-group AdamW with warmup-cosine) through
               build_model(train=True) and the port's Trainer fed by a seeded
-              loader: launches per step of every kernel, ms per step, peak
-              memory, losses, gradient norm and which parameters moved;
-  profile_train  torch.profiler over one more train step.
+              loader: launches per step of every kernel, ms per step over 6
+              steps with no host synchronisation, peak memory, losses,
+              gradient norm and which parameters moved;
+  profile_train  the same trace over three more train steps.
 Then the {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
@@ -531,12 +534,6 @@ def run_kernel_phase():
 
 # ------------------------------------------------------------------- model runs
 
-def well_conditioned(dv: torch.Tensor, far: float) -> torch.Tensor:
-    """Pixels whose hypotheses are all positive and below 4x the far depth:
-    elsewhere the soft-argmax over 1/inv hypotheses amplifies rounding."""
-    return ((dv > 0) & (dv < 4 * far)).all(dim=1)
-
-
 def tiny_model(device, train=False):
     """The small flagship in fp32 with seeded weights, its regularizers
     checkpointed as on the train path."""
@@ -550,6 +547,8 @@ def tiny_model(device, train=False):
 
 def run_reference_phase():
     """Tiny flagship, fp32: kernels on the card vs plain versions on the CPU."""
+    from mvsformerplusplus_tpu_torch.testing import well_conditioned
+
     batch = make_dtu_eval_batch(v=3, h=128, w=256, dfull=48, seed=1)
     outs = {}
     for device in ("cpu", "cuda"):
@@ -561,7 +560,7 @@ def run_reference_phase():
         outs[device]["prob4"] = out["stage4"]["prob_volume"].float().cpu()
         outs[device]["dv4"] = out["stage4"]["depth_values"].float().cpu()
     cpu, gpu = outs["cpu"], outs["cuda"]
-    mask = well_conditioned(cpu["dv4"], float(batch[2].max()))
+    mask = torch.from_numpy(well_conditioned(cpu["dv4"], float(batch[2].max())))
     depth_rel = ((gpu["refined_depth"] - cpu["refined_depth"]).abs()
                  / cpu["refined_depth"].abs())[mask].max().item()
     conf_err = (gpu["photometric_confidence"] - cpu["photometric_confidence"]).abs().max().item()
@@ -575,94 +574,85 @@ def run_reference_phase():
         raise SystemExit("the port on the card disagrees with its plain CPU path")
 
 
-def make_small_train_batch(seed=0, b=1, v=3, h=64, w=64, dfull=48, near=4.0, far=5.0):
-    """A scene 4-5 units away seen by in-view cameras (principal point at the
-    centre, baselines of 0.4): every hypothesis stays positive and the
-    argmax depth a stage hands on is far from a tie, so the card and the CPU
-    take the same hypotheses at every stage."""
-    rng = np.random.RandomState(seed)
-    imgs = rng.rand(b, v, h, w, 3).astype(np.float32)
-    cams = {}
-    for s in range(4):
-        scale = 0.125 * 2 ** s
-        cam = np.zeros((b, v, 2, 4, 4), np.float32)
-        for vi in range(v):
-            c, sn = np.cos(0.02 * vi), np.sin(0.02 * vi)
-            ext = np.eye(4, dtype=np.float32)
-            ext[:3, :3] = [[c, 0, sn], [0, 1, 0], [-sn, 0, c]]
-            ext[0, 3] = 0.4 * vi
-            cam[:, vi, 0] = ext
-            f = w * scale
-            cam[:, vi, 1, :3, :3] = [[f, 0, w * scale / 2], [0, f, h * scale / 2], [0, 0, 1]]
-        cams[f"stage{s + 1}"] = cam
-    gt = {f"stage{i + 1}": rng.uniform(near, far, (b, h >> (3 - i), w >> (3 - i))).astype(
-        np.float32) for i in range(4)}
-    return {"imgs": imgs, "cams": cams,
-            "depth_values": np.linspace(near, far, dfull, dtype=np.float32)[None].repeat(b, 0),
-            "depth_gt": gt,
-            "mask": {k: (rng.rand(*g.shape) > 0.2).astype(np.float32) for k, g in gt.items()}}
-
-
 def run_reference_train_phase():
     """One train step of the tiny flagship (fp32, remat of the regularizers)
-    on the card against the same step on the port's CPU path: the argmax
-    depths handed between stages, per-stage losses, every gradient (max
-    |diff| <= 1e-3 of the tensor's largest entry + 2e-4 of the largest
-    gradient: on the CPU alone a one-ulp change of the input images moves
-    the stage-3 visibility net's first BatchNorm bias gradient by 8e-5 of
-    the largest gradient), the BatchNorm running statistics (rtol 1e-4) and
-    the parameters after AdamW (1e-6 where |g| is above the gradient
-    tolerance, 2 lr elsewhere, where the first Adam step is -lr * sign(g))."""
+    on the card against the same step on the port's CPU path, on
+    testing.conditioned_train_batch: the argmax depths handed between
+    stages, per-stage losses (rtol 1e-4), every gradient, the BatchNorm
+    running statistics (rtol 1e-4) and the parameters after AdamW.
+
+    Gradients: max |diff| of each tensor within 1e-3 of its largest entry +
+    1e-5 of the largest gradient, or, where larger, twice the tensor's
+    rounding sensitivity, measured here: the max |diff| of its gradient
+    between two CPU steps whose input images differ by one ulp. Parameters:
+    where |g| is above its tensor's gradient tolerance the card's update has
+    the CPU's sign and the parameters agree within 1e-6; everywhere the
+    card's update is AdamW's first step on its own gradient, -lr g / (|g| +
+    eps), within 1e-6."""
+    from mvsformerplusplus_tpu_torch.testing import conditioned_train_batch
     from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
     from mvsformerplusplus_tpu_torch.train.step import train_step
     from mvsformerplusplus_tpu_torch.train.trainer import to_device as batch_to
 
-    lr = 1e-3
     runs = {}
-    for device in ("cpu", "cuda"):
+    for run, device in (("cpu", "cpu"), ("cpu_ulp", "cpu"), ("cuda", "cuda")):
         model = tiny_model(device, train=True)
-        batch = batch_to(make_small_train_batch(), device)
+        batch = batch_to(conditioned_train_batch(), device)
+        if run == "cpu_ulp":
+            batch["imgs"] = torch.nextafter(batch["imgs"], batch["imgs"] + 1)
         before = {k: v.clone() for k, v in model.state_dict().items()}
         with torch.no_grad():
             out = model(batch["imgs"], batch["cams"], batch["depth_values"])
         depths = [out[f"stage{i}"]["depth"].cpu() for i in (1, 2, 3)]
         model.load_state_dict(before)
-        opt, sched = make_optimizer(model, lr=lr, warmup_steps=0, total_steps=10)
+        opt, sched = make_optimizer(model, lr=1e-3, warmup_steps=0, total_steps=10)
+        lr, eps = opt.param_groups[0]["lr"], opt.defaults["eps"]
         logs = train_step(model, opt, sched, batch)
-        runs[device] = dict(
+        runs[run] = dict(
             depths=depths, logs={k: float(v) for k, v in logs.items()
                                  if k == "loss" or k.startswith("stage")},
             grads={n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
-            state={k: v.cpu() for k, v in model.state_dict().items()})
-    cpu, gpu = runs["cpu"], runs["cuda"]
+            state={k: v.cpu() for k, v in model.state_dict().items()},
+            before={k: v.cpu() for k, v in before.items()})
+    cpu, ulp, gpu = runs["cpu"], runs["cpu_ulp"], runs["cuda"]
     gmax = max(g.abs().max().item() for g in cpu["grads"].values())
-    atol = 2e-4 * gmax
-    depth_same = all(torch.allclose(a, b, rtol=1e-5, atol=0)
-                     for a, b in zip(cpu["depths"], gpu["depths"]))
+    depths_same = {run: all(torch.allclose(a, b, rtol=1e-5, atol=0)
+                            for a, b in zip(cpu["depths"], runs[run]["depths"]))
+                   for run in ("cpu_ulp", "cuda")}
     loss_rel = max(abs(gpu["logs"][k] - v) / abs(v) for k, v in cpu["logs"].items())
-    grad_rows = sorted(((gpu["grads"][n] - g).abs().max().item()
-                        / (1e-3 * g.abs().max().item() + atol), n, g.abs().max().item())
-                       for n, g in cpu["grads"].items())
-    grad_ratio = grad_rows[-1][0]
+    tol, sensitive, grad_rows = {}, {}, []
+    for n, g in cpu["grads"].items():
+        base = 1e-3 * g.abs().max().item() + 1e-5 * gmax
+        sens = (ulp["grads"][n] - g).abs().max().item()
+        tol[n] = max(base, 2 * sens)
+        if 2 * sens > base:
+            sensitive[n] = {"base_tol": base, "ulp_sensitivity": sens}
+        grad_rows.append(((gpu["grads"][n] - g).abs().max().item() / tol[n], n, tol[n]))
+    grad_rows.sort()
     stat_names = [k for k in cpu["state"] if k.endswith(("running_mean", "running_var"))]
     stat_ratio = max(((gpu["state"][k] - cpu["state"][k]).abs()
                       / (2e-5 + 1e-4 * cpu["state"][k].abs())).max().item() for k in stat_names)
-    param_err = 0.0
+    firm_err, update_err = 0.0, 0.0
     for n, g in cpu["grads"].items():
-        diff = (gpu["state"][n] - cpu["state"][n]).abs()
-        firm = g.abs() > atol
-        param_err = max(param_err, diff[firm].max().item() / 1e-6 if firm.any() else 0,
-                        diff[~firm].max().item() / (2 * lr + 1e-6) if (~firm).any() else 0)
+        firm = g.abs() > tol[n]
+        if firm.any():
+            firm_err = max(firm_err, (gpu["state"][n] - cpu["state"][n])[firm].abs().max().item())
+        gg = gpu["grads"][n]
+        step = gpu["state"][n] - gpu["before"][n]
+        update_err = max(update_err, (step + lr * gg / (gg.abs() + eps)).abs().max().item())
     same_keys = set(cpu["grads"]) == set(gpu["grads"])
-    row = {"phase": "reference_train", "stage_depths_equal": depth_same,
-           "loss_max_rel_err": loss_rel, "loss_rtol": 1e-4, "grad_err_over_tol": grad_ratio,
-           "grad_atol": atol, "worst_grads": grad_rows[-5:], "bn_stats_err_over_tol": stat_ratio,
-           "params_err_over_tol": param_err, "params_with_grad": len(cpu["grads"]),
+    row = {"phase": "reference_train", "stage_depths_equal": depths_same,
+           "loss_max_rel_err": loss_rel, "loss_rtol": 1e-4, "grad_err_over_tol": grad_rows[-1][0],
+           "largest_grad": gmax, "worst_grads": grad_rows[-5:],
+           "tensors_at_ulp_tolerance": sensitive, "bn_stats_err_over_tol": stat_ratio,
+           "params_firm_max_abs_err": firm_err, "params_update_max_abs_err": update_err,
+           "params_atol": 1e-6, "params_with_grad": len(cpu["grads"]),
            "same_params_with_grad": same_keys, "losses_cpu": cpu["logs"],
            "losses_cuda": gpu["logs"]}
     emit(row)
-    if not (depth_same and same_keys and loss_rel <= 1e-4 and grad_ratio <= 1
-            and stat_ratio <= 1 and param_err <= 1):
+    if not (all(depths_same.values()) and same_keys and loss_rel <= 1e-4
+            and grad_rows[-1][0] <= 1 and stat_ratio <= 1 and firm_err <= 1e-6
+            and update_err <= 1e-6):
         raise SystemExit("the port's train step on the card disagrees with its plain CPU path")
 
 
@@ -712,36 +702,53 @@ def run_main_path(counters, iters=3):
 
 class SeededLoader:
     """The train protocol's batch, made once on the card from a seed, with
-    the JAX TrainLoader's interface: `epoch(e)` yields (batch, crop_hw)."""
+    the JAX TrainLoader's interface: `epoch(e)` yields (batch, crop_hw).
+    `mark(i)`, when given, is called on the host before step i is handed
+    out (after step i - 1 was dispatched) and once more after the last."""
 
-    def __init__(self, steps: int):
+    def __init__(self, steps: int, mark=None):
         from mvsformerplusplus_tpu_torch.train.trainer import to_device as batch_to
 
         self.batch = batch_to(make_train_batch(**TRAIN), "cuda")
-        self.steps = steps
+        self.steps, self.mark = steps, mark
 
     def steps_per_epoch(self) -> int:
         return self.steps
 
     def epoch(self, e):
-        for _ in range(self.steps):
+        for i in range(self.steps):
+            if self.mark is not None:
+                self.mark(i)
             yield self.batch, (TRAIN["h"], TRAIN["w"])
+        if self.mark is not None:
+            self.mark(self.steps)
 
 
-def run_train_step(counters, iters=3):
+def run_train_step(counters, iters=6):
     """The full-width train step through build_model(train=True) and the
-    port's Trainer: one counted warm step, then `iters` timed steps."""
+    port's Trainer, in one epoch of 1 + `iters` steps: the first, counted
+    and logged (its log read synchronises the host), then `iters` timed
+    steps that log nothing, between CUDA events the loader records, with no
+    host synchronisation inside the window."""
     from mvsformerplusplus_tpu_torch.config import build_model, load_config
     from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
     from mvsformerplusplus_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(CONFIG)
-    model = build_model(cfg, dtype=torch.bfloat16, train=True, remat_stages=True,
-                        remat_granularity="cost_reg")
+    model = build_model(cfg, dtype=torch.bfloat16, train=True)
+    remat = (model.cascade.stage1.remat_cost_reg, model.cascade.remat_whole_stage)
     opt, sched = make_optimizer(model, lr=1e-3, vit_lr=3e-5, weight_decay=0.01, min_lr_frac=0.01,
                                 warmup_steps=500, total_steps=10000, freeze_vit=True)
-    loader = SeededLoader(steps=1 + iters)
-    trainer = Trainer(model, loader, opt, sched, logging_every=1,
+    window = {}
+
+    def mark(i):
+        if i == 1:
+            window["launches"] = {name: fn.launches for name, fn in counters.items()}
+        window[i] = torch.cuda.Event(enable_timing=True)
+        window[i].record()
+
+    loader = SeededLoader(steps=1 + iters, mark=mark)
+    trainer = Trainer(model, loader, opt, sched, logging_every=1 + iters,
                       loss_kwargs=dict(clip_func=cfg["arch"]["loss"]["clip_func"]))
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats0 = {k: v.clone() for k, v in model.state_dict().items()
@@ -750,28 +757,23 @@ def run_train_step(counters, iters=3):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logs = trainer.train(epochs=1, max_steps=1)
+    logs = trainer.train(epochs=1)
     torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    nonzero_grad = {n for n, p in model.named_parameters()
-                    if p.grad is not None and bool(p.grad.ne(0).any())}
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    logs += trainer.train(epochs=1, max_steps=iters)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / iters
+    launches = window["launches"]
+    ms = window[1].elapsed_time(window[1 + iters]) / iters
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     trainable = {n for n, p in model.named_parameters() if p.requires_grad}
     moved = {n for n, p in model.named_parameters() if not torch.equal(p.detach(), params0[n])}
+    nonzero_grad = {n for n, p in model.named_parameters()
+                    if p.grad is not None and bool(p.grad.ne(0).any())}
     sd = model.state_dict()
     stats_moved = sum(not torch.equal(sd[k], v) for k, v in stats0.items())
-    finite = all(np.isfinite(v) for e in logs for k, v in e.items()
-                 if k == "loss" or k == "grad_norm" or k.startswith("stage"))
+    finite = len(logs) == 1 and all(np.isfinite(v) for k, v in logs[0].items()
+                                    if k == "loss" or k == "grad_norm" or k.startswith("stage"))
     checks = {
+        "remat_cost_reg_from_config": remat == (True, False),
         "losses_and_grad_norm_finite": finite,
+        "params_finite": all(bool(torch.isfinite(p).all()) for p in model.parameters()),
         "every_trainable_param_moved": trainable <= moved,
         "vit_unchanged": not any(n.startswith("vit.") for n in moved),
         "only_trainable_params_moved": moved <= trainable,
@@ -782,9 +784,9 @@ def run_train_step(counters, iters=3):
            "shape": [TRAIN["b"], TRAIN["v"], TRAIN["h"], TRAIN["w"], 3],
            "depths": TRAIN["dfull"], "dtype": "bfloat16", "remat_granularity": "cost_reg",
            "launches_per_step": launches, "checks": checks, "ms_per_step": ms, "iters": iters,
-           "warm_step_s": warm_s, "peak_mem_gb": peak_gb,
+           "first_step_ms": window[0].elapsed_time(window[1]), "peak_mem_gb": peak_gb,
            "params": {"trainable": len(trainable), "moved": len(moved),
-                      "with_nonzero_grad": len(nonzero_grad),
+                      "with_nonzero_grad_last_step": len(nonzero_grad),
                       "trainable_not_moved": sorted(trainable - moved)[:20],
                       "vit": sum(n.startswith("vit.") for n in params0)},
            "bn_stats": {"tensors": len(stats0), "moved": stats_moved},
@@ -832,17 +834,23 @@ def layer_ms(model, inputs) -> dict:
     return out
 
 
-def profile_run(fn, top=20) -> dict:
-    """torch.profiler over fn(): device time by kernel name, the share of
-    each hand-written kernel, and the device's idle share of the wall time
-    (one stream, so kernels do not overlap)."""
+def profile_run(fn, iters, top=20) -> dict:
+    """torch.profiler tracing CUDA activity only (no host op recording)
+    over `iters` calls of fn: device time by kernel name, the share of each
+    hand-written kernel, and the device's idle share of the CUDA-event wall
+    time around the same calls (one stream, so kernels do not overlap).
+    Returns the last call's result under "result"."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(iters):
+            result = fn()
+        end.record()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms = start.elapsed_time(end)
     by_name = {}
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
@@ -850,14 +858,17 @@ def profile_run(fn, top=20) -> dict:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    ours = {k: sum(ms for name, (ms, _) in by_name.items() if k in name.split("<")[0])
+    ours = {k: sum(ms for name, (ms, _) in by_name.items() if k in name.split("<")[0]) / iters
             for k in HAND_WRITTEN}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"iters": iters, "wall_ms_per_call": wall_ms / iters,
+            "device_busy_ms_per_call": busy_ms / iters,
             "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "hand_written_ms": ours, "hand_written_share": sum(ours.values()) / busy_ms
-            if busy_ms else None,
-            "top_kernels": [{"name": k[:160], "ms": ms, "count": n} for k, (ms, n) in ranked]}
+            "hand_written_ms_per_call": ours,
+            "hand_written_share": sum(ours.values()) * iters / busy_ms if busy_ms else None,
+            "top_kernels_per_call": [{"name": k[:160], "ms": ms / iters, "count": n / iters}
+                                     for k, (ms, n) in ranked],
+            "result": result}
 
 
 def profile_forward(model, inputs) -> dict:
@@ -865,13 +876,23 @@ def profile_forward(model, inputs) -> dict:
         with torch.inference_mode():
             model(*inputs)
 
-    return {"phase": "profile", "layer_ms": layer_ms(model, inputs), **profile_run(forward)}
+    prof = profile_run(forward, iters=2)
+    del prof["result"]
+    return {"phase": "profile", "layer_ms": layer_ms(model, inputs), **prof}
 
 
-def profile_train(model, opt, sched, batch) -> dict:
+def profile_train(model, opt, sched, batch, iters=3) -> dict:
+    """The traced window over `iters` more train steps; their last step's
+    losses and gradient norm must be finite."""
     from mvsformerplusplus_tpu_torch.train.step import train_step
 
-    return {"phase": "profile_train", **profile_run(lambda: train_step(model, opt, sched, batch))}
+    prof = profile_run(lambda: train_step(model, opt, sched, batch), iters)
+    logs = prof.pop("result")
+    finite = all(bool(torch.isfinite(v).all()) for k, v in logs.items()
+                 if k == "loss" or k == "grad_norm" or k.startswith("stage"))
+    if not finite:
+        raise SystemExit("profile_train: a loss or the gradient norm is not finite")
+    return {"phase": "profile_train", **prof}
 
 
 def main() -> int:

@@ -65,16 +65,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
-                train: bool = False, remat_stages: bool = True,
-                remat_granularity: str = "stage", **extra):
+                train: bool = False, **extra):
     """arch.args -> model on `device` with weights drawn from `seed`, in
     eval mode, or in train mode when `train` (the training entry point).
 
-    `remat_stages` / `remat_granularity` ("stage" or "cost_reg") choose the
-    gradient checkpointing of the cascade; `arch.args.freeze_vit` (default
-    true) freezes the ViT. The model runs on the card unless the caller
-    passes device="cpu"; without CUDA a CUDA device raises instead of
-    falling back to the CPU.
+    `arch.args.remat_stages` (default true) and `arch.args.remat_granularity`
+    ("cost_reg", the default and the repo's train protocol, or "stage")
+    choose the gradient checkpointing of the cascade, as the JAX package's
+    build_model reads them; `arch.args.freeze_vit` (default true) freezes
+    the ViT; `extra` overrides any model argument. The model runs on the
+    card unless the caller passes device="cpu"; without CUDA a CUDA device
+    raises instead of falling back to the CPU.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -110,8 +111,8 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
         decoder_cfg=dino_cfg.get("decoder_cfg"),
         fmt_config=args.get("FMT_config"),
         freeze_vit=args.get("freeze_vit", True),
-        remat_stages=remat_stages,
-        remat_granularity=remat_granularity,
+        remat_stages=args.get("remat_stages", True),
+        remat_granularity=args.get("remat_granularity", "cost_reg"),
         dtype=dtype,
     )
     kwargs.update(extra)

@@ -29,7 +29,7 @@ class CascadeDepth(nn.Module):
                  depth_type: Sequence[str] = ("ce",) * 4,
                  groups: Sequence[int] = (8, 8, 8, 8), use_pe3d: bool = True,
                  transformer_config: Optional[Sequence[dict]] = None,
-                 remat_stages: bool = True, remat_granularity: str = "stage",
+                 remat_stages: bool = True, remat_granularity: str = "cost_reg",
                  dtype=torch.float32):
         super().__init__()
         if remat_granularity not in ("stage", "cost_reg"):

@@ -35,7 +35,7 @@ class DINOv2MVSNet(nn.Module):
                                                  "Normal"),
                  transformer_config: Optional[Sequence[dict]] = None, use_pe3d: bool = True,
                  freeze_vit: bool = True, remat_stages: bool = True,
-                 remat_granularity: str = "stage", dtype=torch.float32):
+                 remat_granularity: str = "cost_reg", dtype=torch.float32):
         super().__init__()
         self.encoder = FPNEncoder(feat_chs, dtype)
         self.decoder = FPNDecoder(feat_chs, dtype)

@@ -4,11 +4,12 @@ make_train_step and make_accum_train_step).
 The model runs in train mode (batch-statistic BatchNorms whose running
 statistics move in place, argmax depth for CE stages), the multi-stage loss
 is backpropagated, the global gradient norm is taken before the optional
-clip, and AdamW and its schedule step once. The accumulating variant runs
-the micro-batches one after another, each backward adding loss / n_micro
-into the gradients, so one update applies their mean; the BatchNorm running
-statistics carry from micro-batch to micro-batch, as the JAX scan carries
-them.
+clip, and AdamW and its schedule step once. One code path serves both JAX
+functions: train_step_accum runs the micro-batches one after another, each
+backward adding loss / n_micro into the gradients, so one update applies
+their mean; the BatchNorm running statistics carry from micro-batch to
+micro-batch, as the JAX scan carries them. train_step is its one-micro-batch
+case.
 
 batch: {imgs [B, V, H, W, 3], cams {stageN: [B, V, 2, 4, 4]}, depth_values
 [B, D], depth_gt {stageN: [B, h, w]}, mask {stageN: [B, h, w]}} as tensors
@@ -47,19 +48,10 @@ def _update(optimizer, scheduler, grad_clip) -> Tensor:
     return norm
 
 
-def train_step(model, optimizer, scheduler, batch: dict,
-               depth_types: Sequence[str] = ("ce", "ce", "ce", "ce"),
-               dlossw: Sequence[float] = (1.0, 1.0, 1.0, 1.0), inverse_depth: bool = True,
-               clip_func: Optional[str] = "dynamic",
-               grad_clip: Optional[float] = None) -> Dict[str, Tensor]:
-    """One forward, backward and AdamW update on `batch`."""
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    total, loss_dict, depth = _loss(model, batch, depth_types, dlossw, inverse_depth, clip_func)
-    total.backward()
-    norm = _update(optimizer, scheduler, grad_clip)
-    return {"loss": total.detach(), **{k: v.detach() for k, v in loss_dict.items()},
-            "grad_norm": norm, "depth_est": depth}
+def train_step(model, optimizer, scheduler, batch: dict, **kwargs) -> Dict[str, Tensor]:
+    """One forward, backward and AdamW update on `batch`: train_step_accum
+    with one micro-batch."""
+    return train_step_accum(model, optimizer, scheduler, [batch], **kwargs)
 
 
 def train_step_accum(model, optimizer, scheduler, micro_batches: Sequence[dict],

@@ -4,8 +4,8 @@ mvsformerplusplus_tpu/train/trainer.py, on one device).
 Each loader step gives (batch, crop_hw). The crop height selects a
 micro-batch size from `scale_batch_map` (the reference's per-scale memory
 knob): a batch larger than it is split into equal micro-batches whose mean
-gradient makes one update (train_step_accum), else train_step runs on the
-whole batch. Every `logging_every` steps the loss, the per-stage losses and
+gradient makes one update (train_step_accum; one micro-batch when the
+batch fits). Every `logging_every` steps the loss, the per-stage losses and
 the gradient norm are logged, and `train` returns those entries.
 
 The loader interface is the JAX package's TrainLoader: `epoch(e)` yields
@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .step import train_step, train_step_accum
+from .step import train_step_accum
 
 log = logging.getLogger("mvsformerplusplus_tpu_torch")
 
@@ -86,12 +86,9 @@ class Trainer:
                     return logged
                 batch = to_device(batch, self.device)
                 n_micro = self._micro_count(crop_hw, batch["imgs"].shape[0])
-                kw = dict(self.loss_kwargs, grad_clip=self.grad_clip)
-                if n_micro > 1:
-                    logs = train_step_accum(self.model, self.optimizer, self.scheduler,
-                                            split_micro(batch, n_micro), **kw)
-                else:
-                    logs = train_step(self.model, self.optimizer, self.scheduler, batch, **kw)
+                logs = train_step_accum(self.model, self.optimizer, self.scheduler,
+                                        split_micro(batch, n_micro), grad_clip=self.grad_clip,
+                                        **self.loss_kwargs)
                 steps += 1
                 n_steps += 1
                 self.global_step += 1

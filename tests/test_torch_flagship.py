@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from mvsformerplusplus_tpu.config import build_model as jax_build_model
 from mvsformerplusplus_tpu.models.mvsformer import DINOv2MVSNet as JaxFlagship
-from mvsformerplusplus_tpu_torch.config import build_model, load_config
+from mvsformerplusplus_tpu_torch.config import Config, build_model, load_config
 from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
+from mvsformerplusplus_tpu_torch.testing import well_conditioned
 from tests.test_casmvs import make_inputs
 from tests.test_mvsformer import TINY_DECODER_CFG, TINY_FMT_CFG, TINY_TRANSFORMER_CFG
 from tests.torch_parity import assert_close, init_flax, load_port, t
@@ -38,14 +40,9 @@ def flagship_pair():
 
 
 def _well_conditioned(want, stage="stage4"):
-    """Pixels whose hypotheses are all positive and below 4x the scene's far
-    depth (8). With random weights the inverse-depth band of a later stage can
-    cross zero inverse depth (test_mvsformer notes it); there a hypothesis
-    1/inv is huge and the soft-argmax amplifies fp32 reassociation noise in
-    the probabilities by orders of magnitude, so depth is compared only where
-    it is well conditioned (the probabilities are compared everywhere)."""
-    dv = np.asarray(want[stage]["depth_values"])
-    mask = ((dv > 0) & (dv < 32.0)).all(axis=1)
+    """Depth is compared where testing.well_conditioned holds for the
+    scene's far depth (8); the probabilities are compared everywhere."""
+    mask = well_conditioned(want[stage]["depth_values"], far=8.0)
     assert mask.mean() > 0.5, mask.mean()
     return mask
 
@@ -104,3 +101,27 @@ def test_build_model_rejects_unported_casmvs():
     cfg = load_config(REPO / "configs" / "casmvs.json")
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
+
+
+TINY_ARCH_ARGS = dict(feat_chs=[4, 8, 16, 32], vit_ch=48, vit_depth=1, vit_num_heads=2, out_ch=32,
+                      ndepths=[8, 4, 4, 4], base_ch=[4, 4, 4, 4],
+                      dino_cfg=dict(decoder_cfg=TINY_DECODER_CFG), FMT_config=TINY_FMT_CFG,
+                      transformer_config=list(TINY_TRANSFORMER_CFG),
+                      cost_reg_type=["PureTransformerCostReg", "Normal", "Normal", "Normal"])
+
+
+@pytest.mark.parametrize("remat", [{}, {"remat_granularity": "stage"},
+                                   {"remat_granularity": "cost_reg", "remat_stages": False}],
+                         ids=["default", "stage", "off"])
+def test_build_model_reads_remat_from_the_config(remat):
+    """arch.args.remat_stages / remat_granularity choose the cascade's
+    checkpointing as the JAX build_model reads them ("cost_reg" unless the
+    config says otherwise), with no argument from the caller."""
+    cfg = Config({"arch": {"args": {**TINY_ARCH_ARGS, **remat}}})
+    jm = jax_build_model(cfg, remat_stages=remat.get("remat_stages", True))
+    tm = build_model(cfg, dtype=torch.float32, device="cpu", train=True)
+    want = (jm.remat_stages and jm.remat_granularity == "cost_reg",
+            jm.remat_stages and jm.remat_granularity == "stage")
+    assert (tm.cascade.stage1.remat_cost_reg, tm.cascade.remat_whole_stage) == want
+    assert tm.training and all(s.remat_cost_reg == want[0] for s in
+                               (tm.cascade.stage2, tm.cascade.stage3, tm.cascade.stage4))

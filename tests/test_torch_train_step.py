@@ -9,7 +9,7 @@ and the frozen ViT untouched.
 Conditioning. CE stages hand their argmax depth to the next stage, so a
 pixel whose two best hypotheses are within rounding of each other can pick
 another depth in the two frameworks and change the later stages. The batch
-(make_batch) is a scene 4-5 units away seen by in-view cameras, where every
+(testing.conditioned_train_batch) is a scene 4-5 units away seen by in-view cameras, where every
 hypothesis stays positive and no stage is near such a tie at the scale of
 the two frameworks' differences; the test asserts both before comparing.
 The JAX side on CPU sums the BatchNorm statistics in sequential fp32 (about
@@ -30,6 +30,7 @@ from mvsformerplusplus_tpu.train.optim import make_optimizer as jax_make_optimiz
 from mvsformerplusplus_tpu.train.step import TrainState, make_train_step
 from mvsformerplusplus_tpu_torch.convert import from_jax_variables
 from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
+from mvsformerplusplus_tpu_torch.testing import conditioned_train_batch
 from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
 from mvsformerplusplus_tpu_torch.train.step import train_step
 from tests.test_torch_flagship import TINY
@@ -37,32 +38,6 @@ from tests.torch_parity import init_flax, t
 
 LR = 1e-3
 OPT = dict(lr=LR, warmup_steps=0, total_steps=10)
-
-
-def make_batch(seed=0, b=1, v=3, h=64, w=64, dfull=48, near=4.0, far=5.0):
-    """Images, in-view cameras (principal point at the centre, baselines of
-    0.4 along x, depth range 4-5), per-stage ground truth and masks."""
-    rng = np.random.RandomState(seed)
-    imgs = rng.rand(b, v, h, w, 3).astype(np.float32)
-    cams = {}
-    for s in range(4):
-        scale = 0.125 * 2 ** s
-        cam = np.zeros((b, v, 2, 4, 4), np.float32)
-        for vi in range(v):
-            c, sn = np.cos(0.02 * vi), np.sin(0.02 * vi)
-            ext = np.eye(4, dtype=np.float32)
-            ext[:3, :3] = [[c, 0, sn], [0, 1, 0], [-sn, 0, c]]
-            ext[0, 3] = 0.4 * vi
-            cam[:, vi, 0] = ext
-            f = w * scale
-            cam[:, vi, 1, :3, :3] = [[f, 0, w * scale / 2], [0, f, h * scale / 2], [0, 0, 1]]
-        cams[f"stage{s + 1}"] = cam
-    gt = {f"stage{i + 1}": rng.uniform(near, far, (b, h >> (3 - i), w >> (3 - i))).astype(
-        np.float32) for i in range(4)}
-    return {"imgs": imgs, "cams": cams,
-            "depth_values": np.linspace(near, far, dfull, dtype=np.float32)[None].repeat(b, 0),
-            "depth_gt": gt,
-            "mask": {k: (rng.rand(*g.shape) > 0.2).astype(np.float32) for k, g in gt.items()}}
 
 
 def to_torch(batch):
@@ -77,7 +52,7 @@ def capture_grads():
 
 @pytest.fixture(scope="module")
 def jax_step():
-    batch = make_batch()
+    batch = conditioned_train_batch()
     jm = JaxFlagship(**TINY, remat_stages=False)
     variables = init_flax(jm, batch["imgs"], batch["cams"], batch["depth_values"], train=False)
     tx = optax.chain(capture_grads(), jax_make_optimizer(freeze_vit=True, **OPT))

@@ -14,8 +14,8 @@ from mvsformerplusplus_tpu_torch.losses import multi_stage_loss
 from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
 from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
 from mvsformerplusplus_tpu_torch.train.trainer import Trainer, split_micro, to_device
+from mvsformerplusplus_tpu_torch.testing import conditioned_train_batch
 from tests.test_torch_flagship import TINY
-from tests.test_torch_train_step import make_batch
 
 
 class Loader:
@@ -36,7 +36,7 @@ def test_trainer_accumulates_the_mean_of_micro_batches():
     model = DINOv2MVSNet(**TINY).train()
     init_weights(model, torch.Generator().manual_seed(0))
     ref = copy.deepcopy(model)
-    batches = [make_batch(seed=s, b=2) for s in (0, 1)]
+    batches = [conditioned_train_batch(seed=s, b=2) for s in (0, 1)]
     opt_kw = dict(lr=1e-3, warmup_steps=0, total_steps=10)
     opt, sched = make_optimizer(model, **opt_kw)
     trainer = Trainer(model, Loader(batches), opt, sched, scale_batch_map={"64": 1},
