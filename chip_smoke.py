@@ -8,8 +8,9 @@ Phases, one JSON line each:
               plain line of its own);
   build       nvcc builds of csrc/*.cu into build/kernels/ (all in parallel);
   kernel      each hand-written kernel against its plain PyTorch version at
-              every shape the two main paths give it (the DTU-eval forward
-              and the train step), element by element within
+              every shape the paths give it (the DTU-eval forward, the train
+              step, and the training CLI's train steps at 512 x 640 and
+              512 x 768 and its validation forwards), element by element within
               ops.cuda.tolerance, and the same check against a planted
               fault, which it must reject; the kernel's, the plain version's
               and one library call's time (CUDA events) and the least time
@@ -35,7 +36,19 @@ Phases, one JSON line each:
               loader: launches per step of every kernel, ms per step over 6
               steps with no host synchronisation, peak memory, losses,
               gradient norm and which parameters moved;
-  profile_train  the same trace over three more train steps.
+  profile_train  the same trace over three more train steps;
+  train_cli   the training command line (python -m mvsformerplusplus_tpu_torch.train)
+              in process with configs/mvsformerplusplus.json at full width on
+              a geometric DTU-format scan it writes (5 views x 7 lights at
+              576 x 800): two epochs at batch 2 over 512 x 640 and 512 x 768
+              crops with validation at 512 x 640, then -r to a third epoch;
+              the checkpoints, a bit-equal restore, the resumed epoch, step
+              and learning rate, steps and ms per step per crop bucket, the
+              host's wait on the loader, validation ms per map and peak
+              memory.
+Each path (main_path, train_step, train_cli) is run with every kernel's
+launch count set to 0 just before it and read just after; the kernel phase's
+cases must add up to those counts.
 Then the {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
@@ -120,17 +133,64 @@ def nbytes(*ts) -> int:
 
 
 # ---------------------------------------------------------------- kernel cases
-# Each `*_cases` yields (case, path, launches, args) for every shape a main
-# path gives the kernel: path "main_path" is the DTU-eval forward, path
-# "train_step" the train step; launches are how often that path calls the
-# kernel at that shape, so per path they sum to the kernel's launch count
-# there. Each `*_fault` computes the kernel's output with a planted
-# arithmetic fault (mostly as a change of the inputs), which the
-# kernel-vs-plain check must reject.
+# Each `*_cases` yields (case, launches, args, TPU rows) for every shape a
+# path gives the kernel; `launches` maps each path that gives it that shape to how
+# often one run of the path calls the kernel there, so per path they sum to
+# the kernel's launch count in that run. The paths: "main_path", the
+# DTU-eval forward; "train_step", the train step; "train_cli", the training
+# command line's whole run (CLI below: its train steps at two crop buckets
+# and its validation forwards). Each `*_fault` computes the kernel's output
+# with a planted arithmetic fault (mostly as a change of the inputs), which
+# # the kernel-vs-plain check must reject. The TPU rows are those of PERF.md's
+# kernel table that the JAX package runs at that shape.
 
 TRAIN = dict(b=2, v=5, h=512, w=640, dfull=192)
 TRAIN_NDEPTHS = (32, 16, 8, 4)
 TRAIN_STAGE_C = (64, 32, 16, 8)
+
+# the train_cli phase: configs/mvsformerplusplus.json on one geometric
+# DTU-format scan (5 views x 7 lights = 35 samples at 576 x 800), batch 2,
+# two epochs and a resumed third, validating each epoch on the 35 samples
+CLI = dict(samples=35, batch=2, scales=((512, 640), (512, 768)), val_hw=(512, 640), epochs=3,
+           hw=(576, 800))
+
+
+def cli_counts():
+    """Train steps per crop bucket over the CLI run's three epochs (the
+    loader's schedule, drawn from its seed) and its validation maps."""
+    from mvsformerplusplus_tpu_torch.data.mvs_dataset import ShapeBucketSchedule
+
+    sched = ShapeBucketSchedule(CLI["samples"], CLI["scales"], CLI["batch"], seed=0)
+    steps = {hw: 0 for hw in CLI["scales"]}
+    for epoch in range(CLI["epochs"]):
+        for _, hw in sched.epoch(epoch):
+            steps[tuple(hw)] += 1
+    return steps, CLI["samples"] * CLI["epochs"]
+
+
+def shape_configs():
+    """(name, 'eval' or 'train', (B, H, W), batch seed, {path: runs of that
+    shape per run of the path}): the DTU eval forward, the train step at
+    512 x 640 (the train_step path and the CLI's 512 x 640 bucket), the
+    CLI's 512 x 768 bucket and the CLI's validation forwards (B=1, 512 x
+    640, eval mode)."""
+    steps, val_maps = cli_counts()
+    return [
+        ("eval1152", "eval", (1, 1152, 1536), 0, {"main_path": 1}),
+        ("train640", "train", (2, 512, 640), 1,
+         {"train_step": 1, "train_cli": steps[(512, 640)]}),
+        ("train768", "train", (2, 512, 768), 1, {"train_cli": steps[(512, 768)]}),
+        ("eval640", "eval", (1, 512, 640), 1, {"train_cli": val_maps}),
+    ]
+
+
+def _config_batch(bhw, seed):
+    b, h, w = bhw
+    return to_device(make_dtu_eval_batch(b=b, h=h, w=w, seed=seed), "cuda")
+
+
+def _times(runs, n):
+    return {path: n * k for path, k in runs.items() if k}
 
 
 def make_train_batch(b=2, v=5, h=512, w=640, dfull=192, seed=1):
@@ -165,19 +225,36 @@ def _stage_shapes(h, w):
             for i, (nd, c) in enumerate(zip(TRAIN_NDEPTHS, TRAIN_STAGE_C))]
 
 
+def warp_tpu_rows(stage, nd, c, ww):
+    """The TPU kernel rows (PERF.md's table) the JAX package's StageNet plan
+    (models/stagenet.py resolve_warp_plan) gives this stage's warp: under
+    the default 'auto' mode (banded on a TPU: rows 1 and, with
+    banded_fused=False, 5 where W is a 128-multiple >= 384, else row 4, for
+    C up to 32 / 16; wider C falls back to XLA's gather) and under warp_mode
+    'pallas' (rows 10, and 12 where it folds the depth axis: the stages of 8
+    re-centered depths; C up to 16, W a 128-multiple)."""
+    blocked = ww % 128 == 0 and ww >= 384
+    rows = []
+    if c <= (32 if blocked else 16):
+        rows += [1, 5] if blocked else [4]
+    if c <= 16 and ww % 128 == 0:
+        rows.append(12 if stage > 1 and nd == 8 else 10)
+    return tuple(rows)
+
+
 def warp_cases():
-    """The four stage shapes of the flagship warp (source views batched), at
-    DTU eval (4 source views of one batch) and at the train crop (4 x 2);
-    the train stage 3 is the TPU's narrow-row banded_warp_rows shape."""
+    """The four stage warps (source views batched) at each shape config;
+    the train crop's stage 3 is the TPU's narrow-row banded_warp_rows shape,
+    the 512 x 768 crop's stage 3 the depth-folded blend's (row 12)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for path, batch in (("main_path", make_dtu_eval_batch()),
-                        ("train_step", make_dtu_eval_batch(b=2, h=512, w=640, seed=1))):
-        imgs, cams, dv = to_device(batch, "cuda")
+    for name, _, bhw, seed, runs in shape_configs():
+        imgs, cams, dv = _config_batch(bhw, seed)
         nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
         for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
             coords = stage_coords(cams, dv, stage, nd, hh, ww)
             src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
-            yield f"{path}_stage{stage}", path, 1, (src, coords)
+            yield (f"{name}_stage{stage}", _times(runs, 1), (src, coords),
+                   warp_tpu_rows(stage, nd, c, ww))
 
 
 def warp_fault(kernel, src, coords):
@@ -186,16 +263,24 @@ def warp_fault(kernel, src, coords):
 
 
 def warp_bwd_cases():
-    """The image gradient at the four train stages: the f32 cotangent of the
-    warped volume [8, D, H, W, C] (rows 6 and 7 of the TPU table: narrow-row
-    stage 3, wide-row stage 4)."""
+    """The image gradient at the four stages of each train crop: the f32
+    cotangent of the warped volume [8, D, H, W, C]. The TPU computes it with
+    the banded transposes (rows 6 and 7) at every stage; row 11, the
+    y-grouped blend's VJP, is its transpose where the pallas mode ran rows
+    10 and 12, and no model path reaches it."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    imgs, cams, dv = to_device(make_dtu_eval_batch(b=2, h=512, w=640, seed=1), "cuda")
-    nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
-    for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
-        coords = stage_coords(cams, dv, stage, nd, hh, ww)
-        g = torch.randn(nsrc, nd, hh, ww, c, generator=gen, device="cuda")
-        yield f"train_step_stage{stage}", "train_step", 1, (g, coords, (nsrc, hh, ww, c))
+    for name, kind, bhw, seed, runs in shape_configs():
+        if kind != "train":
+            continue
+        imgs, cams, dv = _config_batch(bhw, seed)
+        nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
+        for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
+            coords = stage_coords(cams, dv, stage, nd, hh, ww)
+            g = torch.randn(nsrc, nd, hh, ww, c, generator=gen, device="cuda")
+            rows = (7,) if ww % 128 == 0 and ww >= 384 else (6,)
+            if c <= 16 and ww % 128 == 0:
+                rows += (11,)  # the transpose of the pallas mode's blend there
+            yield f"{name}_stage{stage}", _times(runs, 1), (g, coords, (nsrc, hh, ww, c)), rows
 
 
 def warp_bwd_fault(kernel, g, coords, src_shape):
@@ -212,29 +297,32 @@ def warp_bwd_fault(kernel, g, coords, src_shape):
     return kernel(g, coords, src_shape) - 0.08 * share.reshape(b, h, w, c)
 
 
+def _tokens(h, w):
+    """ViT tokens per view (the 0.4375-rescaled image in 14-px patches, and
+    the class token) and CTA tokens per sample (the stage-1 volume, 32 x
+    H/8 x W/8, down by (2, 4, 4))."""
+    return ((h * 7 // 16 // 14) * (w * 7 // 16 // 14) + 1,
+            (32 // 2) * (h // 8 // 4) * (w // 8 // 4))
+
+
 def flash_cases():
-    """DTU eval: the 12 ViT blocks (1729 tokens: 36 x 48 patches of the
-    504 x 672 input, and the class token) and the 6 CTA blocks (the stage-1
-    volume, 32 x 144 x 192, down by (2, 4, 4) to 27648 tokens), no lse. Train
-    step: the frozen ViT (321 tokens of 10 views, no lse) and the CTA (5120
-    tokens of 2 samples, with lse, 6 forwards and 6 replays of the
-    checkpointed regularizer)."""
+    """Per forward: the 12 ViT blocks on every view (frozen, no lse) and the
+    6 CTA blocks on every sample; a train step with lse and 6 more CTA
+    forwards, the replays of the checkpointed regularizer."""
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    n_vit = (1152 * 7 // 16 // 14) * (1536 * 7 // 16 // 14) + 1
-    n_cta = (32 // 2) * (144 // 4) * (192 // 4)
-    n_vit_t = (512 * 7 // 16 // 14) * (640 * 7 // 16 // 14) + 1
-    n_cta_t = (32 // 2) * (64 // 4) * (80 // 4)
-    for name, path, count, (b, n, h, dh, sc), lse in (
-            ("vit", "main_path", 12, (5, n_vit, 12, 64, 64 ** -0.5), False),
-            ("cta", "main_path", 6, (1, n_cta, 4, 16, entropy_inv_scale(16, n_cta, 12185)), False),
-            ("vit_train", "train_step", 12, (10, n_vit_t, 12, 64, 64 ** -0.5), False),
-            ("cta_train", "train_step", 12,
-             (2, n_cta_t, 4, 16, entropy_inv_scale(16, n_cta_t, 12185)), True)):
-        q, k, v = (torch.randn(b, n, h, dh, generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        yield name, path, count, (q, k, v, sc, lse)
+    for name, kind, (b, h, w), _, runs in shape_configs():
+        v = TRAIN["v"]  # every config has 5 views
+        n_vit, n_cta = _tokens(h, w)
+        train = kind == "train"
+        for part, (bb, n, heads, dh, sc), lse, count in (
+                ("vit", (b * v, n_vit, 12, 64, 64 ** -0.5), False, 12),
+                ("cta", (b, n_cta, 4, 16, entropy_inv_scale(16, n_cta, 12185)), train,
+                 12 if train else 6)):
+            q, k, vv = (torch.randn(bb, n, heads, dh, generator=gen, device="cuda")
+                        .to(torch.bfloat16) for _ in range(3))
+            yield f"{name}_{part}", _times(runs, count), (q, k, vv, sc, lse), (2,)
 
 
 def flash_fault(kernel, q, k, v, scale, lse):
@@ -243,18 +331,22 @@ def flash_fault(kernel, q, k, v, scale, lse):
 
 
 def flash_bwd_cases():
-    """The CTA's backward at the train crop: 6 per step (one per block)."""
+    """The CTA's backward at each train crop: 6 per step (one per block)."""
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
     from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (attention_delta,
                                                                       flash_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    n = (32 // 2) * (64 // 4) * (80 // 4)
-    scale = entropy_inv_scale(16, n, 12185)
-    q, k, v, dout = (torch.randn(2, n, 4, 16, generator=gen, device="cuda").to(torch.bfloat16)
-                     for _ in range(4))
-    out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
-    yield "cta_train", "train_step", 6, (q, k, v, dout, lse, attention_delta(out, dout), scale)
+    for name, kind, (b, h, w), _, runs in shape_configs():
+        if kind != "train":
+            continue
+        n = _tokens(h, w)[1]
+        scale = entropy_inv_scale(16, n, 12185)
+        q, k, v, dout = (torch.randn(b, n, 4, 16, generator=gen, device="cuda")
+                         .to(torch.bfloat16) for _ in range(4))
+        out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+        yield (f"{name}_cta", _times(runs, 6),
+               (q, k, v, dout, lse, attention_delta(out, dout), scale), (8,))
 
 
 def flash_bwd_fault(kernel, q, k, v, dout, lse, delta, scale):
@@ -262,10 +354,11 @@ def flash_bwd_fault(kernel, q, k, v, dout, lse, delta, scale):
     return kernel(q, k, v, dout, lse, 0.92 * delta, scale)
 
 
-# (case, launches per forward, (batch, divisor of 1152 x 1536, Ci, Co, k)):
-# the FPN encoder's stride-1 convs and the decoder's heads on the 5 views, the
-# visibility net of each stage on the 4 source views, and the FMT smoothing
-# convs, run once per view at batch 1
+# (case, launches per forward, (batch at B=1, divisor of the image's H x W,
+# Ci, Co, k)): the FPN encoder's stride-1 convs and the decoder's heads on
+# the 5 views, the visibility net of each stage on the 4 source views, and
+# the FMT smoothing convs, run once per view at batch 1; B samples multiply
+# the batch
 CONV_SHAPES = ([("encoder_7x7_3to8", 1, (5, 1, 3, 8, 7)), ("encoder_5x5_8to8", 1, (5, 1, 8, 8, 5)),
                 ("encoder_16to16", 2, (5, 2, 16, 16, 3)), ("encoder_32to32", 2, (5, 4, 32, 32, 3)),
                 ("encoder_64to64", 2, (5, 8, 64, 64, 3)), ("decoder_64to32", 1, (5, 4, 64, 32, 3)),
@@ -275,28 +368,27 @@ CONV_SHAPES = ([("encoder_7x7_3to8", 1, (5, 1, 3, 8, 7)), ("encoder_5x5_8to8", 1
                + [(f"fmt_smooth_{c}", 5, (1, c // 8, c, c, 3)) for c in (32, 16, 8)])
 
 
-def _train_conv(shapes):
-    """The same convs at the train crop: the batch doubles (B = 2)."""
-    return [(name, n, (2 * b, div, ci, co, k)) for name, n, (b, div, ci, co, k) in shapes]
+def _batched_conv(shapes, b):
+    """The same convs on B samples: the batch of each grows B-fold."""
+    return [(name, n, (b * bb, div, ci, co, k)) for name, n, (bb, div, ci, co, k) in shapes]
 
 
 # the convs whose input needs a gradient on the train path, with their dx
 # launches per step: not the encoder's 7x7 on the images, not each stage's
 # first visibility conv on the detached entropy
-CONV_DX_SHAPES = [sh for sh in _train_conv(CONV_SHAPES)
+CONV_DX_SHAPES = [sh for sh in CONV_SHAPES
                   if sh[0] != "encoder_7x7_3to8" and "_1to16" not in sh[0]]
 
 
 def conv_cases():
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for path, (h, w), shapes in (("main_path", (1152, 1536), CONV_SHAPES),
-                                 ("train_step", (512, 640), _train_conv(CONV_SHAPES))):
-        for name, count, (b, div, ci, co, k) in shapes:
-            x = torch.randn(b, h // div, w // div, ci, generator=gen,
+    for name, _, (b, h, w), _, runs in shape_configs():
+        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b):
+            x = torch.randn(bb, h // div, w // div, ci, generator=gen,
                             device="cuda").to(torch.bfloat16)
             kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
                     * (k * k * ci) ** -0.5).to(torch.bfloat16)
-            yield f"{path}_{name}", path, count, (x, kern)
+            yield f"{name}_{conv}", _times(runs, count), (x, kern), (3,)
 
 
 def conv_fault(kernel, x, kern):
@@ -310,12 +402,15 @@ def conv_dx_cases():
     """dx = the conv kernel on the cotangent [B, H, W, Co] with the weights
     flipped and ci/co swapped, at each train conv whose input needs it."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for name, count, (b, div, ci, co, k) in CONV_DX_SHAPES:
-        g = torch.randn(b, 512 // div, 640 // div, co, generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
-                * (k * k * co) ** -0.5).to(torch.bfloat16)
-        yield f"train_step_{name}", "train_step", count, (g, kern)
+    for name, kind, (b, h, w), _, runs in shape_configs():
+        if kind != "train":
+            continue
+        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b):
+            g = torch.randn(bb, h // div, w // div, co, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
+                    * (k * k * co) ** -0.5).to(torch.bfloat16)
+            yield f"{name}_{conv}", _times(runs, count), (g, kern), (9,)
 
 
 def conv_dx_fault(kernel, g, kern):
@@ -421,11 +516,14 @@ def kernel_table():
 
     pallas = "mvsformerplusplus_tpu/ops/pallas/"
     return {
-        "warp_bilinear": ("csrc/warp.cu", f"{pallas}warp_band.py:395; {pallas}warp_band.py:195",
+        "warp_bilinear": ("csrc/warp.cu", f"{pallas}warp_band.py:395; {pallas}warp_band.py:195; "
+                          f"{pallas}warp_band.py:511; {pallas}warp_blend.py:132; "
+                          f"{pallas}warp_blend.py:153",
                           warp.warp_bilinear, warp.warp_bilinear_plain, warp_cases, warp_fault,
                           warp_library, warp_bound),
         "warp_bilinear_bwd": ("csrc/warp_bwd.cu",
-                              f"{pallas}warp_band.py:231; {pallas}warp_band.py:478",
+                              f"{pallas}warp_band.py:231; {pallas}warp_band.py:478; "
+                              f"{pallas}warp_blend.py:217",
                               warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
                               warp_bwd_cases, warp_bwd_fault, warp_bwd_library, warp_bwd_bound),
         "flash_attention_fwd": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
@@ -467,23 +565,23 @@ def err_over_tol(got, want) -> float:
 
 
 def run_kernel_phase():
-    """Each kernel against its plain version at every shape the main paths
-    give it, element by element within `ops.cuda.tolerance`; each case's
-    planted fault must fail the same check. The kernel's summary sums each
-    case's times and bound times its launches per run of its path (one DTU
-    eval forward, one train step)."""
-    results = {}
+    """Each kernel against its plain version at every shape the paths give
+    it, element by element within `ops.cuda.tolerance`; each case's planted
+    fault must fail the same check. A kernel's times and bound sum each
+    case's over the paths' runs (one DTU eval forward, one train step, the
+    CLI's whole run): the case's time x its launches there."""
+    results, all_rows = {}, []
     for name, (src, replaces, kernel, plain, cases, fault, library,
                bound) in kernel_table().items():
         rows = []
-        for case, path, count, args in cases():
+        for case, launches, args, tpu_rows in cases():
             want = plain(*args)
             got = kernel(*args)
             ratio = err_over_tol(got, want)
             fault_ratio = err_over_tol(fault(kernel, *args), want)
             bytes_s, ops_s = bound(*args, got)
-            row = {"phase": "kernel", "kernel": name, "case": case, "path": path,
-                   "launches_per_run": count,
+            row = {"phase": "kernel", "kernel": name, "case": case, "tpu_rows": list(tpu_rows),
+                   "launches_by_path": launches,
                    "shapes": [list(a.shape) for a in args if isinstance(a, torch.Tensor)],
                    "max_abs_err": max((g.float() - w.float()).abs().max().item()
                                       for g, w in zip(_tuple(got), _tuple(want))),
@@ -505,31 +603,54 @@ def run_kernel_phase():
             rows.append(row)
             del args
             torch.cuda.empty_cache()
-        cases_by_path = {}
-        for r in rows:
-            cases_by_path.setdefault(r["path"], {})[r["case"]] = r["launches_per_run"]
+        all_rows += rows
+        paths = sorted({p for r in rows for p in r["launches_by_path"]})
+
+        def total(key, path=None):
+            return sum(r[key] * n for r in rows for p, n in r["launches_by_path"].items()
+                       if path in (None, p))
+
         results[name] = {
             "name": name, "route": "cuda", "source": f"mvsformerplusplus_tpu_torch/{src}",
             "replaces": replaces, "launches": None,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: sum(r[k] * r["launches_per_run"] for r in rows)
-               for k in ("ms", "plain_ms", "bound_ms")},
-            "library_ms": (sum(r["library_ms"] * r["launches_per_run"] for r in rows)
-                           if library is not None else None),
-            "bound_by": max(rows, key=lambda r: r["bound_ms"] * r["launches_per_run"])[
-                "bound_by"],
-            "times": "per run of each main path it serves (one DTU eval forward, one train "
-                     "step): each case's time x its launches per run",
+            **{k: total(k) for k in ("ms", "plain_ms", "bound_ms")},
+            "library_ms": total("library_ms") if library is not None else None,
+            "bound_by": max(rows, key=lambda r: r["bound_ms"] * sum(
+                r["launches_by_path"].values()))["bound_by"],
+            "times": "summed over the runs of the paths it serves (one DTU eval forward, one "
+                     "train step, the CLI's run): each case's time x its launches there",
             "max_err_over_tol": max(r["err_over_tol"] for r in rows),
             "min_fault_err_over_tol": min(r["fault_err_over_tol"] for r in rows),
-            "cases": cases_by_path,
-            "by_path": {path: {k: (sum(r[k] * r["launches_per_run"] for r in rows
-                                       if r["path"] == path)
-                                   if library is not None or k != "library_ms" else None)
-                               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-                        for path in cases_by_path},
+            "cases": {p: {r["case"]: r["launches_by_path"][p] for r in rows
+                          if p in r["launches_by_path"]} for p in paths},
+            "by_path": {p: {k: (total(k, p) if library is not None or k != "library_ms"
+                                else None)
+                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                        for p in paths},
         }
+    emit(tpu_row_summary(all_rows))
     return results
+
+
+def tpu_row_summary(rows) -> dict:
+    """Per row of PERF.md's TPU kernel table: the port kernel that serves
+    it, the cases at the shapes where the JAX package runs that row, and
+    per path their launches per run and time, plain time, bound and library
+    time summed as the kernel summary sums them (case x its launches)."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    out = {}
+    for r in rows:
+        for tpu in r["tpu_rows"]:
+            t = out.setdefault(str(tpu), {"kernel": r["kernel"], "cases": {}, "by_path": {}})
+            t["cases"][r["case"]] = {k: r[k] for k in keys + ("launches_by_path",)}
+            for path, n in r["launches_by_path"].items():
+                p = t["by_path"].setdefault(path, {"launches": 0, **{k: 0.0 for k in keys}})
+                p["launches"] += n
+                for k in keys:
+                    if r[k] is not None:
+                        p[k] += r[k] * n
+    return {"phase": "tpu_rows", "rows": out}
 
 
 # ------------------------------------------------------------------- model runs
@@ -895,6 +1016,132 @@ def profile_train(model, opt, sched, batch, iters=3) -> dict:
     return {"phase": "profile_train", **prof}
 
 
+def _bucket_totals(epoch_stats):
+    """epoch_stats of one or more runs -> per crop bucket: steps, device ms
+    per step, host ms per step and the host's loader-wait share, over all
+    their epochs."""
+    out = {}
+    for stats in epoch_stats:
+        for hw, b in stats["buckets"].items():
+            t = out.setdefault(hw, {"steps": 0, "ms": 0.0, "host_ms": 0.0, "wait_ms": 0.0})
+            t["steps"] += b["steps"]
+            t["ms"] += b["ms_per_step"] * b["steps"]
+            t["host_ms"] += b["host_ms_per_step"] * b["steps"]
+            t["wait_ms"] += b["loader_wait_share"] * b["host_ms_per_step"] * b["steps"]
+    return {hw: {"steps": t["steps"], "ms_per_step": t["ms"] / t["steps"],
+                 "host_ms_per_step": t["host_ms"] / t["steps"],
+                 "loader_wait_share": t["wait_ms"] / t["host_ms"]} for hw, t in out.items()}
+
+
+def run_train_cli(counters):
+    """The training command line in process on the card
+    (`python -m mvsformerplusplus_tpu_torch.train`'s main) with
+    configs/mvsformerplusplus.json at full width, overriding only the data
+    paths and lists, the batch size (2), the epochs (2), the crop scales
+    (512 x 640 and 512 x 768) and the validation size (512 x 640), on one
+    geometric DTU-format scan written by the port's own writers (5 views x
+    7 lights at 576 x 800). Then the same command with -r --epochs 3. Checks
+    every logged loss and gradient norm and every validation metric finite,
+    model_last.pth and model_best.pth written, model_last.pth restoring bit
+    for bit into a fresh build_model(train=True), and the resumed run
+    starting at epoch 2 with the step count continued and the learning rate
+    of the uninterrupted 3-epoch schedule at that step; and the steps per
+    crop bucket equal to the loader's schedule."""
+    import gc
+    import tempfile
+
+    from mvsformerplusplus_tpu_torch.config import build_model, load_config
+    from mvsformerplusplus_tpu_torch.data.synthetic import make_geometric_dtu
+    from mvsformerplusplus_tpu_torch.train import cli
+    from mvsformerplusplus_tpu_torch.train.optim import warmup_cosine
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        data, save = Path(tmp) / "dtu", Path(tmp) / "saved"
+        t0 = time.perf_counter()
+        make_geometric_dtu(data, n_views=5, n_lights=7, h=CLI["hw"][0], w=CLI["hw"][1],
+                           ndepth=192)
+        write_s = time.perf_counter() - t0
+        args = "data_loader;0;args;"
+        argv = ["-c", str(CONFIG), "--save_dir", str(save), "--batch_size", str(CLI["batch"]),
+                "--epochs", "2",
+                "-o", f"{args}datapath={data}", "-o", f"{args}train_data_list={data / 'train.txt'}",
+                "-o", f"{args}val_data_list={data / 'train.txt'}",
+                "-o", f"{args}multi_scale_args;scales={json.dumps(CLI['scales'])}",
+                "-o", f"{args}height={CLI['val_hw'][0]}", "-o", f"{args}width={CLI['val_hw'][1]}"]
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = cli.main(argv)
+        first_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ck = save / "checkpoints"
+        files = {n: (ck / n).exists() for n in ("model_last.pth", "model_best.pth", "meta.json")}
+        fresh = build_model(load_config(CONFIG), dtype=torch.bfloat16, train=True)
+        payload = torch.load(ck / "model_last.pth", weights_only=True,
+                             map_location=next(fresh.parameters()).device)
+        fresh.load_state_dict(payload["state_dict"])
+        fresh_sd = fresh.state_dict()
+        restored = all(torch.equal(fresh_sd[k], v) for k, v in first.model.state_dict().items())
+        spe = first.train_loader.steps_per_epoch()
+        summary = {"logged": first.logged, "epoch_stats": first.epoch_stats,
+                   "val_stats": first.val_stats, "global_step": first.global_step}
+        del fresh, fresh_sd, first, payload
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        resumed = cli.main(argv + ["-r", "--epochs", "3"])
+        resumed_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+        opt_args = load_config(CONFIG)["optimizer"]["args"]
+        want_lr = opt_args["lr"] * warmup_cosine(2 * spe, opt_args["warmup_steps"], 3 * spe,
+                                                 opt_args["min_lr"])
+        logged = summary["logged"] + resumed.logged
+        val_stats = summary["val_stats"] + resumed.val_stats
+        epoch_stats = summary["epoch_stats"] + resumed.epoch_stats
+        resumed_first = resumed.logged[0] if resumed.logged else {}
+        resumed_stats = (resumed.epoch_stats, resumed.global_step)
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+    buckets = _bucket_totals(epoch_stats)
+    steps, val_maps = cli_counts()
+    checks = {
+        "losses_and_grad_norms_finite": bool(logged) and all(
+            np.isfinite(v) for e in logged for k, v in e.items()
+            if k in ("loss", "grad_norm") or k.startswith("stage")),
+        "val_metrics_finite": len(val_stats) == 3 and all(
+            np.isfinite(v) for s in val_stats for v in s["metrics"].values()),
+        "checkpoint_files": all(files.values()),
+        "model_last_restores_bit_equal": restored,
+        "resumed_at_epoch_2": [s["epoch"] for s in resumed_stats[0]] == [2],
+        "resumed_step_count_continued": (summary["global_step"] == 2 * spe
+                                         and resumed_first.get("step") == 2 * spe + 1
+                                         and resumed_stats[1] == 3 * spe),
+        "resumed_lr_on_the_3_epoch_schedule": abs(resumed_first.get("lr", -1) - want_lr)
+        <= 1e-12 * want_lr,
+        "steps_per_bucket_as_scheduled": {hw: b["steps"] for hw, b in buckets.items()}
+        == {f"{h}x{w}": n for (h, w), n in steps.items() if n},
+        "val_maps_as_counted": sum(s["maps"] for s in val_stats) == val_maps,
+        "every_kernel_launched": all(n > 0 for n in launches.values()),
+    }
+    row = {"phase": "train_cli", "config": str(CONFIG.relative_to(REPO)),
+           "argv": argv[4:], "data": {"views": 5, "lights": 7, "hw": list(CLI["hw"]),
+                                           "samples": CLI["samples"], "write_s": write_s},
+           "steps_per_epoch": spe, "buckets": buckets, "epochs": epoch_stats,
+           "val_ms_per_map": [s["ms_per_map"] for s in val_stats],
+           "val_metrics": [s["metrics"] for s in val_stats], "peak_mem_gb": peak_gb,
+           "run_s": [first_s, resumed_s], "launches": launches, "checks": checks,
+           "logged": logged}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"train_cli checks failed: {checks}")
+    return launches
+
+
 def main() -> int:
     if not (REPO / "mvsformerplusplus_tpu_torch").is_dir() or not CONFIG.is_file():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -934,6 +1181,8 @@ def main() -> int:
     by_path = {"main_path": run_main_path(counters)}
     torch.cuda.empty_cache()
     by_path["train_step"] = run_train_step(counters)
+    torch.cuda.empty_cache()
+    by_path["train_cli"] = run_train_cli(counters)
     for name, res in results.items():
         res["launches_by_path"] = {path: by_path[path][name] for path in by_path}
         res["launches"] = sum(res["launches_by_path"].values())

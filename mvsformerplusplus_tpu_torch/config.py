@@ -21,6 +21,22 @@ class Config(dict):
             raise AttributeError(k) from e
         return Config(v) if isinstance(v, dict) else v
 
+    def get_path(self, path: str, default=None):
+        """The value at 'a;b;c' (or 'a.b.c'; numeric segments index into
+        lists), or `default` where the path does not exist."""
+        node: Any = self
+        for k in path.replace(";", ".").split("."):
+            if isinstance(node, list) and k.lstrip("-").isdigit():
+                i = int(k)
+                if not -len(node) <= i < len(node):
+                    return default
+                node = node[i]
+            elif isinstance(node, dict) and k in node:
+                node = node[k]
+            else:
+                return default
+        return node
+
     def set_path(self, path: str, value):
         """Numeric segments index into lists ('data_loader;0;args;batch_size')."""
         keys = path.replace(";", ".").split(".")
@@ -43,8 +59,45 @@ def load_config(path, overrides: Optional[Dict[str, Any]] = None) -> Config:
     return cfg
 
 
+def parse_override(expr: str):
+    """'optimizer;args;lr=1e-4' -> (path, value): the value as JSON where it
+    parses, else the raw string."""
+    path, raw = expr.split("=", 1)
+    try:
+        value = json.loads(raw)
+    except json.JSONDecodeError:
+        value = raw
+    return path, value
+
+
 def _to_tuple(x):
     return tuple(x) if isinstance(x, (list, tuple)) else x
+
+
+WARP_MODES = ("auto", "banded", "pallas", "xgrouped", "grouped", "folded")
+
+
+def _check_warp_keys(args: dict, n_stages: int) -> None:
+    """The JAX package's warp plan keys: `warp_mode` (one of WARP_MODES or a
+    per-stage list), `fold_depth` ("auto", a bool or a per-stage list),
+    `warp_gy` ("auto", a positive int or a per-stage list) and `banded_bwd`
+    (a bool). Anything else raises ValueError."""
+    def per_stage(key, ok):
+        v = args.get(key, "auto")
+        vals = v if isinstance(v, (list, tuple)) else [v]
+        if isinstance(v, (list, tuple)) and len(v) != n_stages:
+            raise ValueError(f"arch.args.{key}: a per-stage list needs {n_stages} entries, "
+                             f"got {v!r}")
+        for x in vals:
+            if not ok(x):
+                raise ValueError(f"arch.args.{key}: unknown value {x!r}")
+
+    per_stage("warp_mode", lambda x: isinstance(x, str) and x in WARP_MODES)
+    per_stage("fold_depth", lambda x: x == "auto" or x in (True, False))
+    per_stage("warp_gy", lambda x: x == "auto" or (isinstance(x, int) and not isinstance(x, bool)
+                                                   and x > 0))
+    if args.get("banded_bwd", True) not in (True, False):
+        raise ValueError(f"arch.args.banded_bwd: unknown value {args['banded_bwd']!r}")
 
 
 @torch.no_grad()
@@ -76,6 +129,14 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
     the ViT; `extra` overrides any model argument. The model runs on the
     card unless the caller passes device="cpu"; without CUDA a CUDA device
     raises instead of falling back to the CPU.
+
+    The JAX package's warp plan keys (`warp_mode`, `fold_depth`, `warp_gy`,
+    `banded_bwd`) are read and checked: every value the JAX package accepts
+    passes, anything else raises ValueError. The port serves every mode with
+    its exact warp (`ops/cuda/warp.py`), which equals each windowed JAX mode
+    wherever no sample escapes its window (README, "Warp-window safety").
+    `log_var` (the CostRegNet3D uncertainty head) is not ported: a true
+    value, bare or in a per-stage list, raises NotImplementedError.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -87,12 +148,18 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
         if model_type == "casmvs":
             raise NotImplementedError("model_type 'casmvs' is not ported yet")
         raise ValueError(f"unknown model_type {model_type}")
+    log_var = args.get("log_var", False)
+    if any(log_var if isinstance(log_var, (list, tuple)) else [log_var]):
+        raise NotImplementedError("arch.args.log_var: the CostRegNet3D uncertainty head is "
+                                  "not ported yet")
+    ndepths = _to_tuple(args.get("ndepths", (32, 16, 8, 4)))
+    _check_warp_keys(args, len(ndepths))
     from .models.mvsformer import DINOv2MVSNet
 
     dino_cfg = args.get("dino_cfg", {})
     kwargs = dict(
         feat_chs=_to_tuple(args.get("feat_chs", (8, 16, 32, 64))),
-        ndepths=_to_tuple(args.get("ndepths", (32, 16, 8, 4))),
+        ndepths=ndepths,
         depth_intervals_ratio=_to_tuple(args.get("depth_interals_ratio", (4.0, 2.67, 1.5, 1.0))),
         inverse_depth=args.get("inverse_depth", True),
         depth_type=_to_tuple(args.get("depth_type", ("ce",) * 4)),

@@ -49,6 +49,33 @@ def _kernel(module: str, a: np.ndarray) -> np.ndarray:
     return a.transpose(nd + 1, nd, *spatial)
 
 
+def load_vit_npz(path, model: torch.nn.Module, prefix: str = "vit") -> int:
+    """Load pretrained DINOv2 weights from the flattened flax .npz (keys
+    'blocks_0/attn/qkv/kernel', ...; the converted checkpoint format of the
+    JAX package) into `model`'s `prefix` submodule through
+    from_jax_variables. Every key must map onto a parameter of the same
+    shape; the model's other weights are left alone. Returns the number of
+    tensors loaded."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    loaded = from_jax_variables({"params": {prefix: tree}})
+    target = model.state_dict()
+    for k, v in loaded.items():
+        if k not in target:
+            raise KeyError(f"{path}: {k} is not a parameter of the model")
+        if tuple(target[k].shape) != tuple(v.shape):
+            raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, the model's "
+                             f"{tuple(target[k].shape)}")
+    model.load_state_dict(loaded, strict=False)
+    return len(loaded)
+
+
 def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
     """flax variables {"params": ..., "batch_stats": ...} -> state_dict."""
     sd: Dict[str, torch.Tensor] = {}

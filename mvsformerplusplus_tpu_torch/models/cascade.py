@@ -32,10 +32,7 @@ class CascadeDepth(nn.Module):
                  remat_stages: bool = True, remat_granularity: str = "cost_reg",
                  dtype=torch.float32):
         super().__init__()
-        if remat_granularity not in ("stage", "cost_reg"):
-            raise ValueError(f"remat_granularity is 'stage' or 'cost_reg', got "
-                             f"{remat_granularity!r}")
-        self.remat_whole_stage = remat_stages and remat_granularity == "stage"
+        self.remat_stages = remat_stages
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
         self.inverse_depth = inverse_depth
@@ -46,8 +43,20 @@ class CascadeDepth(nn.Module):
             if cost_reg_type[i] == "PureTransformerCostReg" and transformer_config:
                 tc = transformer_config[min(i, len(transformer_config) - 1)]
             self.add_module(f"stage{i + 1}", StageNet(
-                nd, groups[i], cost_reg_type[i], depth_type[i], tc,
-                remat_cost_reg=remat_stages and remat_granularity == "cost_reg", dtype=dtype))
+                nd, groups[i], cost_reg_type[i], depth_type[i], tc, dtype=dtype))
+        self.set_remat_granularity(remat_granularity)
+
+    def set_remat_granularity(self, granularity: str) -> None:
+        """Checkpoint whole StageNets ("stage") or their regularizers
+        ("cost_reg") from the next forward on; nothing when remat_stages is
+        off. The trainer switches it per crop bucket (remat_map)."""
+        if granularity not in ("stage", "cost_reg"):
+            raise ValueError(f"remat_granularity is 'stage' or 'cost_reg', got {granularity!r}")
+        self.remat_granularity = granularity
+        self.remat_whole_stage = self.remat_stages and granularity == "stage"
+        for i in range(len(self.ndepths)):
+            getattr(self, f"stage{i + 1}").remat_cost_reg = (self.remat_stages
+                                                             and granularity == "cost_reg")
 
     def forward(self, features: Dict[str, Tensor], cams: Dict[str, Tensor],
                 depth_values: Tensor, tmp: Sequence[float] = (5.0, 5.0, 5.0, 1.0)) -> dict:

@@ -1,13 +1,14 @@
 """Plane-sweep warp: bilinear sampling of source features at homography-
 projected points (csrc/warp.cu), and its image gradient (csrc/warp_bwd.cu).
 
-Replaces the Pallas kernel mvsformerplusplus_tpu/ops/pallas/warp_band.py
-`banded_warp_blocked_fused` (the TPU's eval warp at stages 2-4; stage 1 used
-XLA's gather) and, on the train path, `banded_warp_rows` (narrow-row
-stages) forward and `banded_warp_rows_bwd` / `banded_warp_blocked_bwd`
-backward. The TPU kernels zero samples that escape their band window; these
-are exact grid_sample(bilinear, zeros, align_corners=True) in pixel units and
-its transpose, so they need no windows and serve all four stages.
+Every TPU warp kernel of the JAX package (mvsformerplusplus_tpu/ops/pallas/,
+the rows of PERF.md's kernel table) computes a windowed form of one of these
+two functions: the forward serves rows 1, 4, 5, 10 and 12, the backward rows
+6, 7 and 11 (see each wrapper). The TPU kernels zero samples that escape
+their band or patch window; these are exact grid_sample(bilinear, zeros,
+align_corners=True) in pixel units and its transpose, so they need no
+windows, equal each TPU form wherever no sample escapes it
+(tests/test_torch_warp_rows.py) and serve every stage and warp mode.
 
 Bound on the H100: memory. Each output element is one f32 write and the four
 corner reads mostly hit L1/L2 (neighbouring samples share corners), so the
@@ -82,7 +83,13 @@ def _check_coords(src: Tensor, coords: Tensor) -> None:
 def warp_bilinear(src: Tensor, coords: Tensor) -> Tensor:
     """Bilinear warp: src [B, H, W, C] bf16|f32, coords [B, D, H', W', 2] f32
     -> [B, D, H', W', C] f32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel (csrc/warp.cu).
+
+    Serves the TPU rows (mvsformerplusplus_tpu/ops/pallas/): 1
+    warp_band.py:395 banded_warp_blocked_fused and 4 :195 banded_warp_rows
+    (the banded warp mode), 5 :511 banded_warp_blocked (banded with
+    banded_fused=False), 10 warp_blend.py:132 _blend_fwd_impl and 12 :153
+    blend_ygrouped_dfold (the pallas warp mode, unfolded and depth-folded)."""
     if not src.is_cuda:
         return warp_bilinear_plain(src, coords)
     _check_coords(src, coords)
@@ -104,10 +111,14 @@ def warp_bilinear(src: Tensor, coords: Tensor) -> Tensor:
 def warp_bilinear_bwd(g: Tensor, coords: Tensor, src_shape) -> Tensor:
     """Image gradient of warp_bilinear: g [B, D, H', W', C] f32, coords
     [B, D, H', W', 2] f32 -> dsrc [B, H, W, C] f32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel. The kernel sums with
-    atomics, in an order that varies from run to run, so it matches the plain
-    version within fp32 summation noise (the f32 tolerance of
-    `ops.cuda.tolerance`), not bit for bit."""
+    plain version; CUDA tensors launch the kernel (csrc/warp_bwd.cu).
+
+    Serves the TPU rows (mvsformerplusplus_tpu/ops/pallas/): 6
+    warp_band.py:231 banded_warp_rows_bwd, 7 :478 banded_warp_blocked_bwd
+    and 11 warp_blend.py:217 _blend_bwd (the y-grouped blend's VJP). The
+    kernel sums with atomics, in an order that varies from run to run, so
+    it matches the plain version within fp32 summation noise (the f32
+    tolerance of `ops.cuda.tolerance`), not bit for bit."""
     if not g.is_cuda:
         return warp_bilinear_bwd_plain(g, coords, src_shape)
     b, h, w, c = src_shape

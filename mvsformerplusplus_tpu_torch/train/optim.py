@@ -56,6 +56,32 @@ def make_optimizer(model: nn.Module, lr: float = 1e-3, vit_lr: float = 3e-5,
     return opt, sched
 
 
+def refresh_lr(scheduler) -> None:
+    """Set each group's learning rate to the LambdaLR's schedule at its
+    current step (after its state or its base rates were replaced)."""
+    for group, base, fn in zip(scheduler.optimizer.param_groups, scheduler.base_lrs,
+                               scheduler.lr_lambdas):
+        group["lr"] = base * fn(scheduler.last_epoch)
+    scheduler._last_lr = [g["lr"] for g in scheduler.optimizer.param_groups]
+
+
+def scale_vit_grads_by_layer(model: nn.Module, layer_decay: float, depth: int = 12) -> int:
+    """Multiply the gradient of every trainable ViT parameter by its layer's
+    scale from vit_layer_decay_scales (as scale_vit_grads_by_layer of the
+    JAX package scales the gradients before the clip and the update), with a
+    gradient hook on each. Returns the number of parameters hooked: none when
+    the ViT is frozen."""
+    scales = vit_layer_decay_scales(layer_decay, depth)
+    n = 0
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if _is_vit(name) and p.requires_grad and len(parts) > 1:
+            s = scales.get(parts[1], 1.0)
+            p.register_hook(lambda g, s=s: g * s)
+            n += 1
+    return n
+
+
 def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) over the gradients of `params`, fp32."""
     grads = [p.grad.float() for p in params if p.grad is not None]

@@ -1,5 +1,6 @@
-"""One optimizer step (counterpart of mvsformerplusplus_tpu/train/step.py's
-make_train_step and make_accum_train_step).
+"""One optimizer step and one validation step (counterpart of
+mvsformerplusplus_tpu/train/step.py's make_train_step, make_accum_train_step
+and make_eval_step).
 
 The model runs in train mode (batch-statistic BatchNorms whose running
 statistics move in place, argmax depth for CE stages), the multi-stage loss
@@ -23,6 +24,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..losses import multi_stage_loss
+from .metrics import depth_metrics
 from .optim import clip_by_global_norm, global_norm
 
 Tensor = torch.Tensor
@@ -73,3 +75,31 @@ def train_step_accum(model, optimizer, scheduler, micro_batches: Sequence[dict],
             sums[k] = sums.get(k, 0.0) + v.detach()
     norm = _update(optimizer, scheduler, grad_clip)
     return {**{k: v / n for k, v in sums.items()}, "grad_norm": norm, "depth_est": depth}
+
+
+def eval_step(model, batch: dict, tmp: Sequence[float] = (5.0, 5.0, 5.0, 1.0),
+              thresholds: Sequence[float] = (2.0, 4.0, 8.0, 14.0, 20.0),
+              interval_norm: str = "dtu") -> Dict[str, Tensor]:
+    """Validation metrics of one batch (make_eval_step of the JAX package):
+    the eval-mode forward at temperatures `tmp`, its refined depth against
+    the last stage's ground truth where mask > 0.5, the nominal thresholds
+    scaled per sample by the depth interval di ('dtu': di / 2.65, 'blended':
+    di). Also returns the depth and the confidence. The model is in eval mode
+    during the call and back in its mode after."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            out = model(batch["imgs"], batch["cams"], batch["depth_values"], tmp=tuple(tmp))
+    finally:
+        model.train(was_training)
+    key = f"stage{len(tmp)}"
+    dv = batch["depth_values"]
+    di = (dv[:, 1] - dv[:, 0]).float()
+    scale = di if interval_norm == "blended" else di / 2.65
+    depth = out["refined_depth"].float()
+    m = depth_metrics(depth, batch["depth_gt"][key], batch["mask"][key] > 0.5, thresholds,
+                      scale=scale)
+    m["depth"] = depth
+    m["confidence"] = out["photometric_confidence"]
+    return m

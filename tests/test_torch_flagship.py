@@ -2,6 +2,7 @@
 package on CPU, on weights converted by convert.from_jax_variables; plus the
 port's import boundary and its card-by-default entry point."""
 import ast
+import json
 from pathlib import Path
 
 import jax
@@ -9,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from mvsformerplusplus_tpu.config import Config as JaxConfig
 from mvsformerplusplus_tpu.config import build_model as jax_build_model
+from mvsformerplusplus_tpu.config import parse_override as jax_parse_override
 from mvsformerplusplus_tpu.models.mvsformer import DINOv2MVSNet as JaxFlagship
-from mvsformerplusplus_tpu_torch.config import Config, build_model, load_config
+from mvsformerplusplus_tpu_torch.config import Config, build_model, load_config, parse_override
 from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
 from mvsformerplusplus_tpu_torch.testing import well_conditioned
 from tests.test_casmvs import make_inputs
@@ -75,9 +78,10 @@ def _port_sources():
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
-    """No module of the port and no line of chip_smoke.py imports jax, flax or
-    the JAX package."""
-    banned = ("jax", "flax", "mvsformerplusplus_tpu")
+    """No module of the port and no line of chip_smoke.py imports jax, flax,
+    the JAX package or the repo's tools, nor PIL or OpenCV (the card's
+    machine has neither)."""
+    banned = ("jax", "flax", "mvsformerplusplus_tpu", "tools", "PIL", "cv2")
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -125,3 +129,55 @@ def test_build_model_reads_remat_from_the_config(remat):
     assert (tm.cascade.stage1.remat_cost_reg, tm.cascade.remat_whole_stage) == want
     assert tm.training and all(s.remat_cost_reg == want[0] for s in
                                (tm.cascade.stage2, tm.cascade.stage3, tm.cascade.stage4))
+
+
+@pytest.mark.parametrize("log_var", [True, [False, False, True, False]], ids=["bare", "per_stage"])
+def test_build_model_rejects_unported_log_var(log_var):
+    """arch.args.log_var builds the JAX package's uncertainty head; the port
+    has none yet and must say so instead of training another model."""
+    cfg = Config({"arch": {"args": {**TINY_ARCH_ARGS, "log_var": log_var}}})
+    with pytest.raises(NotImplementedError, match="log_var"):
+        build_model(cfg, dtype=torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("keys", [
+    {}, {"warp_mode": "auto"}, {"warp_mode": "banded", "fold_depth": False, "warp_gy": 8},
+    {"warp_mode": "pallas", "fold_depth": True, "warp_gy": 16, "banded_bwd": False},
+    {"warp_mode": "xgrouped"}, {"warp_mode": "grouped"}, {"warp_mode": "folded"},
+    {"warp_mode": ["banded", "pallas", "folded", "auto"], "fold_depth": [False, True, True, False],
+     "warp_gy": [8, 16, 8, "auto"], "log_var": False}], ids=lambda k: str(k))
+def test_build_model_accepts_every_jax_warp_key(keys):
+    """Every value the JAX build_model takes passes (each is served by the
+    exact warp); the JAX factory builds the same config."""
+    cfg = Config({"arch": {"args": {**TINY_ARCH_ARGS, **keys}}})
+    jax_build_model(JaxConfig(cfg))
+    model = build_model(cfg, dtype=torch.float32, device="cpu")
+    assert isinstance(model, DINOv2MVSNet)
+
+
+@pytest.mark.parametrize("keys", [{"warp_mode": "bilinear"}, {"warp_mode": ["banded"] * 3},
+                                  {"fold_depth": "yes"}, {"warp_gy": 0}, {"warp_gy": 2.5},
+                                  {"banded_bwd": "true"}, {"warp_mode": ["banded", "nope",
+                                                                         "folded", "auto"]}],
+                         ids=lambda k: str(k))
+def test_build_model_rejects_unknown_warp_keys(keys):
+    cfg = Config({"arch": {"args": {**TINY_ARCH_ARGS, **keys}}})
+    with pytest.raises(ValueError, match="arch.args"):
+        build_model(cfg, dtype=torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("expr", ["optimizer;args;lr=1e-4", "trainer.epochs=3", "a;b=[1, 2]",
+                                  "data_loader;0;args;datapath=/data/dtu", "x=true", "y=null",
+                                  "z=a=b", 'w={"k": 1}'])
+def test_parse_override_and_get_path_match_jax(expr):
+    assert parse_override(expr) == jax_parse_override(expr)
+    cfg = {"optimizer": {"args": {"lr": 1e-3}}, "data_loader": [{"args": {"datapath": "x"}}],
+           "trainer": {"epochs": 1}}
+    path, value = parse_override(expr)
+    got, want = Config(json.loads(json.dumps(cfg))), JaxConfig(json.loads(json.dumps(cfg)))
+    got.set_path(path, value)
+    want.set_path(path, value)
+    assert got == want
+    for query in (path, "data_loader;0;args;datapath", "data_loader;-1;args", "data_loader;5",
+                  "optimizer;nope;lr", "trainer;epochs;deeper"):
+        assert got.get_path(query, "d") == want.get_path(query, "d")

@@ -85,3 +85,41 @@ def test_adamw_steps(freeze_vit, grad_clip):
         assert len(opt.param_groups) == 1
     assert opt.param_groups[0]["weight_decay"] == 0.0
     assert math.isclose(opt.param_groups[0]["lr"], 1e-2 * topt.warmup_cosine(5, 2, 8, 0.01))
+
+
+def test_vit_grads_scaled_by_layer():
+    """scale_vit_grads_by_layer hooks each trainable ViT parameter's
+    gradient with the JAX package's per-layer scale (the same gradients the
+    JAX wrapper hands its inner optimizer); a frozen ViT gets no hook."""
+    class ViT(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.patch_embed = nn.Linear(3, 3)
+            self.blocks_0 = nn.Linear(3, 3)
+            self.blocks_1 = nn.Linear(3, 3)
+            self.norm = nn.LayerNorm(3)
+            self.cls_token = nn.Parameter(torch.ones(1, 1, 3))
+
+        def forward(self, x):
+            return self.norm(self.blocks_1(self.blocks_0(self.patch_embed(x)))) + self.cls_token
+
+    model = nn.Module()
+    model.vit, model.head = ViT(), nn.Linear(3, 1)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 1, 3).astype(np.float32))
+
+    def grads():
+        model.zero_grad()
+        model.head(model.vit(x)).sum().backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    plain = grads()
+    assert topt.scale_vit_grads_by_layer(model, 0.6, depth=2) == len(plain) - 2
+    scaled = grads()
+    scales = jopt.vit_layer_decay_scales(0.6, 2)
+    for n, g in plain.items():
+        parts = n.split(".")
+        want = g * scales[parts[1]] if parts[0] == "vit" else g
+        torch.testing.assert_close(scaled[n], want, rtol=1e-6, atol=0, msg=n)
+    frozen = Toy()
+    frozen.vit.requires_grad_(False)
+    assert topt.scale_vit_grads_by_layer(frozen, 0.6) == 0
