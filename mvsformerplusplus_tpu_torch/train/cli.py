@@ -177,7 +177,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         scale_batch_map=msa.scale_batch_map, remat_map=tcfg.get("remat_map", {}),
         logging_every=tcfg.get("logging_every", 100), grad_clip=tcfg.get("grad_norm"),
         save_dir=args.save_dir or tcfg.get("save_dir", "saved"), config=dict(cfg),
-        monitor=tcfg.get("monitor", "min mean_error"), early_stop=tcfg.get("early_stop", 10))
+        monitor=tcfg.get("monitor", "min mean_error"), early_stop=tcfg.get("early_stop", 10),
+        # BlendedMVS scenes have no metric scale (the JAX CLI picks "blended"
+        # for them); the DTU-format loaders this CLI takes are in mm
+        interval_norm="dtu")
     if tcfg.get("log_images", True) or tcfg.get("tensorboard", False):
         log.info("image panels and TensorBoard are not ported (ROADMAP.md §1 item 8): "
                  "scalars go to this log only")

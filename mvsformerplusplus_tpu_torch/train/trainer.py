@@ -10,7 +10,8 @@ Every `logging_every` steps the loss, the per-stage losses, the gradient
 norm and the learning rate are logged; `train` returns those entries.
 
 With a validation loader, each epoch ends with `validate` (metric means over
-the validation batches, eval_step with DTU-scaled thresholds); `monitor` ("min mean_error") picks the
+the validation batches, eval_step with its thresholds scaled by
+`interval_norm`); `monitor` ("min mean_error") picks the
 best epoch and drives the early stop. With a `save_dir`, each epoch is
 checkpointed (train/checkpoints.py); `resume` continues from the last one,
 running an interrupted epoch again. SIGTERM and SIGINT during `train` set a
@@ -107,7 +108,7 @@ class Trainer:
                  remat_map: Optional[Dict[str, str]] = None,
                  logging_every: int = 100, grad_clip: Optional[float] = None,
                  save_dir=None, config: Optional[dict] = None, monitor: str = "min mean_error",
-                 early_stop: int = 10):
+                 early_stop: int = 10, interval_norm: str = "dtu"):
         self.model = model
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -121,6 +122,7 @@ class Trainer:
         self.config = config
         self.monitor_mode, self.monitor_key = monitor.split()
         self.early_stop = early_stop
+        self.interval_norm = interval_norm
         self.device = next(model.parameters()).device
         cascade = getattr(model, "cascade", None)
         self.remat_default = getattr(cascade, "remat_granularity", None)
@@ -269,7 +271,7 @@ class Trainer:
         for batch, _ in self.val_loader.epoch(0):
             batch = to_device(batch, self.device)
             start = clock.mark()
-            m = eval_step(self.model, batch)  # DTU-format data: thresholds in mm
+            m = eval_step(self.model, batch, interval_norm=self.interval_norm)
             times.append((start, clock.mark(), batch["imgs"].shape[0]))
             for k, v in m.items():
                 if k not in ("depth", "confidence"):

@@ -117,7 +117,7 @@ def test_early_stop(monkeypatch):
     run stops after epoch 2."""
     monkeypatch.setattr(trainer_mod, "train_step_accum", _step)
     validations = []
-    monkeypatch.setattr(trainer_mod, "eval_step", lambda model, batch: {
+    monkeypatch.setattr(trainer_mod, "eval_step", lambda model, batch, interval_norm: {
         "mean_error": torch.tensor(float(len(validations)))})
 
     class Val:
