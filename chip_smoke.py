@@ -11,10 +11,13 @@ Phases, one JSON line each:
               every shape the paths give it (the DTU-eval forward, the train
               step, and the training CLI's train steps at 512 x 640 and
               512 x 768 and its validation forwards), element by element within
-              ops.cuda.tolerance, and the same check against a planted
-              fault, which it must reject; the kernel's, the plain version's
-              and one library call's time (CUDA events) and the least time
-              the card could take;
+              ops.cuda.tolerance (the bf16 tensor-core flash kernels within
+              their rounding budget, flash_attention.budget_tolerance), and
+              the same check against a planted fault, which it must reject by
+              2x or more; the f32 SIMT flash kernels, which only the fp32
+              model runs, at the tiny flagship's shapes; the kernel's, the
+              plain version's and one library call's time (CUDA events) and
+              the least time the card could take;
   reference   the port on the card (kernels, fp32) against the port on the
               CPU (plain versions, fp32) on a small flagship: the eval
               forward, then one train step (per-stage losses, every
@@ -28,7 +31,8 @@ Phases, one JSON line each:
               torch.profiler, tracing CUDA activity only, over two more
               forwards: device time by kernel, the hand-written kernels'
               share, and the device's idle share of the CUDA-event wall time
-              of the same forwards;
+              of the same forwards; every flash kernel in the trace must be a
+              tensor-core (mma) one;
   train_step  the full-width flagship train step (B=2, 5 views, 512 x 640,
               192 depths, bf16, frozen ViT, remat of the regularizers, CE at
               all stages, two-group AdamW with warmup-cosine) through
@@ -36,7 +40,8 @@ Phases, one JSON line each:
               loader: launches per step of every kernel, ms per step over 6
               steps with no host synchronisation, peak memory, losses,
               gradient norm and which parameters moved;
-  profile_train  the same trace over three more train steps;
+  profile_train  the same trace over three more train steps (the same
+              check of the flash kernels' names);
   train_cli   the training command line (python -m mvsformerplusplus_tpu_torch.train)
               in process with configs/mvsformerplusplus.json at full width on
               a geometric DTU-format scan it writes (5 views x 7 lights at
@@ -48,7 +53,8 @@ Phases, one JSON line each:
               memory.
 Each path (main_path, train_step, train_cli) is run with every kernel's
 launch count set to 0 just before it and read just after; the kernel phase's
-cases must add up to those counts.
+cases must add up to those counts (so the f32 flash kernels, whose cases
+belong to no path, must not launch there).
 Then the {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
@@ -330,8 +336,46 @@ def flash_fault(kernel, q, k, v, scale, lse):
     return kernel(q, k, v, 0.92 * scale, lse)
 
 
+# the tiny flagship's flash calls (TINY on the reference phase's 3 x 128 x
+# 256 batch, fp32): the ViT's blocks on 3 views of 33 tokens (4 heads of 16)
+# and the CTA's on 128 tokens (2 heads of 16), with its entropy scale
+TINY_VIT, TINY_CTA = (3, 33, 4, 16), (1, 128, 2, 16)
+
+
+def _tiny_scales():
+    from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
+
+    return 16 ** -0.5, entropy_inv_scale(16, TINY_CTA[1], 12185)
+
+
+def flash_f32_cases():
+    """The f32 SIMT forward at the tiny flagship's shapes; no path runs it
+    (the fp32 model of the reference phases does)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    vit_scale, cta_scale = _tiny_scales()
+    for part, (b, n, h, dh), sc, lse in (("vit", TINY_VIT, vit_scale, False),
+                                         ("cta", TINY_CTA, cta_scale, True)):
+        q, k, v = (torch.randn(b, n, h, dh, generator=gen, device="cuda") for _ in range(3))
+        yield f"tiny_{part}", {}, (q, k, v, sc, lse), (2,)
+
+
+def flash_tolerance(q, k, v, scale, lse, want):
+    """The forward's rounding budget for out; lse at atol 1e-4."""
+    from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (budget_tolerance,
+                                                                      flash_fwd_budget)
+
+    want = _tuple(want)
+    tol = [budget_tolerance(want[0], flash_fwd_budget(q, k, v, scale))]
+    if lse:
+        tol.append(1e-4 + 1e-5 * want[1].abs())
+    return tol
+
+
 def flash_bwd_cases():
-    """The CTA's backward at each train crop: 6 per step (one per block)."""
+    """The CTA's backward at each train crop: 6 per step (one per block), one
+    fused launch each. q and k are drawn at std 1.5: at std 1 the CTA's
+    scale leaves the attention nearly uniform over its 5-6k keys, O and
+    delta near 0, and no check could see an error in delta."""
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
     from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (attention_delta,
                                                                       flash_attention_plain)
@@ -342,8 +386,9 @@ def flash_bwd_cases():
             continue
         n = _tokens(h, w)[1]
         scale = entropy_inv_scale(16, n, 12185)
-        q, k, v, dout = (torch.randn(b, n, 4, 16, generator=gen, device="cuda")
-                         .to(torch.bfloat16) for _ in range(4))
+        q, k, v, dout = (torch.randn(b, n, 4, 16, generator=gen, device="cuda") * std
+                         for std in (1.5, 1.5, 1, 1))
+        q, k, v, dout = (x.to(torch.bfloat16) for x in (q, k, v, dout))
         out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
         yield (f"{name}_cta", _times(runs, 6),
                (q, k, v, dout, lse, attention_delta(out, dout), scale), (8,))
@@ -352,6 +397,29 @@ def flash_bwd_cases():
 def flash_bwd_fault(kernel, q, k, v, dout, lse, delta, scale):
     """delta = rowsum(dO * O) 8% low."""
     return kernel(q, k, v, dout, lse, 0.92 * delta, scale)
+
+
+def flash_bwd_f32_cases():
+    """The f32 SIMT backward at the tiny flagship's CTA shape; no path runs
+    it (the fp32 model of reference_train does)."""
+    from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (attention_delta,
+                                                                      flash_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, n, h, dh = TINY_CTA
+    scale = _tiny_scales()[1]
+    q, k, v, dout = (torch.randn(b, n, h, dh, generator=gen, device="cuda") for _ in range(4))
+    out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+    yield "tiny_cta", {}, (q, k, v, dout, lse, attention_delta(out, dout), scale), (8,)
+
+
+def flash_bwd_tolerance(q, k, v, dout, lse, delta, scale, want):
+    """The backward's rounding budgets of dq, dk and dv."""
+    from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (budget_tolerance,
+                                                                      flash_bwd_budget)
+
+    budgets = flash_bwd_budget(q, k, v, dout, lse, delta, scale)
+    return [budget_tolerance(w, b_) for w, b_ in zip(want, budgets)]
 
 
 # (case, launches per forward, (batch at B=1, divisor of the image's H x W,
@@ -479,24 +547,32 @@ def warp_bwd_bound(g, coords, src_shape, out):
     return nbytes(g, coords, out) / HBM_BYTES_S, 12 * g.numel() / FP32_FLOPS
 
 
+def _product_rate(t):
+    """Peak rate of the products on t's type: bf16 tensor cores, or fp32
+    FMAs outside them (the f32 kernels use no TF32)."""
+    return BF16_FLOPS if t.dtype == torch.bfloat16 else FP32_FLOPS
+
+
 def flash_bound(q, k, v, scale, lse, out):
-    """Bytes of q, k, v and out, against the two products on bf16 tensor cores
-    and the N*M exponentials on the SFUs, whichever takes longer."""
+    """Bytes of q, k, v and out, against the two products at their type's
+    peak and the N*M exponentials on the SFUs, whichever takes longer."""
     b, n, h, dh = q.shape
     m = k.shape[1]
     return (nbytes(q, k, v, *_tuple(out)) / HBM_BYTES_S,
-            max(4 * b * h * n * m * dh / BF16_FLOPS, b * h * n * m / EXP_S))
+            max(4 * b * h * n * m * dh / _product_rate(q), b * h * n * m / EXP_S))
 
 
 def _flash_bwd_bound(n_products):
     def bound(q, k, v, dout, lse, delta, scale, out):
-        """Bytes of the inputs and outputs, against this kernel's products on
-        bf16 tensor cores (dK/dV: q.k, dO.v, P.dO, dS.q; dQ: q.k, dO.v, dS.k)
-        and its N*M exponentials on the SFUs, whichever takes longer."""
+        """Bytes of the inputs and outputs, against this kernel's products at
+        their type's peak (fused: q.k, dO.v, P.dO, dS.q, dS.k; f32 dK/dV: the
+        first four; f32 dQ: q.k, dO.v, dS.k) and its N*M exponentials on the
+        SFUs, whichever takes longer."""
         b, n, h, dh = q.shape
         m = k.shape[1]
         return (nbytes(q, k, v, dout, lse, delta, *_tuple(out)) / HBM_BYTES_S,
-                max(2 * n_products * b * h * n * m * dh / BF16_FLOPS, b * h * n * m / EXP_S))
+                max(2 * n_products * b * h * n * m * dh / _product_rate(q),
+                    b * h * n * m / EXP_S))
     return bound
 
 
@@ -512,7 +588,10 @@ def _tuple(x):
 
 
 def kernel_table():
-    from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention, warp
+    """name -> (source, TPU kernel it replaces, kernel, plain, cases, fault,
+    library, bound, tolerance): `tolerance(*args, want)` gives the
+    element-wise tolerance of each output, or None for ops.cuda.tolerance."""
+    from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention as fa, warp
 
     pallas = "mvsformerplusplus_tpu/ops/pallas/"
     return {
@@ -520,65 +599,108 @@ def kernel_table():
                           f"{pallas}warp_band.py:511; {pallas}warp_blend.py:132; "
                           f"{pallas}warp_blend.py:153",
                           warp.warp_bilinear, warp.warp_bilinear_plain, warp_cases, warp_fault,
-                          warp_library, warp_bound),
+                          warp_library, warp_bound, None),
         "warp_bilinear_bwd": ("csrc/warp_bwd.cu",
                               f"{pallas}warp_band.py:231; {pallas}warp_band.py:478; "
                               f"{pallas}warp_blend.py:217",
                               warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
-                              warp_bwd_cases, warp_bwd_fault, warp_bwd_library, warp_bwd_bound),
+                              warp_bwd_cases, warp_bwd_fault, warp_bwd_library, warp_bwd_bound,
+                              None),
         "flash_attention_fwd": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
-                                flash_attention.flash_attention_fwd,
-                                flash_attention.flash_attention_plain, flash_cases, flash_fault,
-                                flash_library, flash_bound),
-        "flash_attention_bwd_dkv": ("csrc/flash_attention_bwd.cu",
-                                    f"{pallas}flash_attention.py:263",
-                                    flash_attention.flash_attention_bwd_dkv,
-                                    flash_attention.flash_attention_bwd_dkv_plain,
-                                    flash_bwd_cases, flash_bwd_fault, flash_bwd_library,
-                                    _flash_bwd_bound(4)),
-        "flash_attention_bwd_dq": ("csrc/flash_attention_bwd.cu",
-                                   f"{pallas}flash_attention.py:263",
-                                   flash_attention.flash_attention_bwd_dq,
-                                   flash_attention.flash_attention_bwd_dq_plain,
-                                   flash_bwd_cases, flash_bwd_fault, None, _flash_bwd_bound(3)),
+                                fa.flash_attention_fwd, fa.flash_attention_plain, flash_cases,
+                                flash_fault, flash_library, flash_bound, flash_tolerance),
+        "flash_attention_fwd_f32": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
+                                    fa.flash_attention_fwd, fa.flash_attention_plain,
+                                    flash_f32_cases, flash_fault, flash_library, flash_bound,
+                                    None),
+        "flash_attention_bwd": ("csrc/flash_attention_bwd.cu", f"{pallas}flash_attention.py:263",
+                                fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
+                                flash_bwd_cases, flash_bwd_fault, flash_bwd_library,
+                                _flash_bwd_bound(5), flash_bwd_tolerance),
+        "flash_attention_bwd_dkv_f32": ("csrc/flash_attention_bwd.cu",
+                                        f"{pallas}flash_attention.py:263",
+                                        fa.flash_attention_bwd_dkv,
+                                        fa.flash_attention_bwd_dkv_plain, flash_bwd_f32_cases,
+                                        flash_bwd_fault, None, _flash_bwd_bound(4), None),
+        "flash_attention_bwd_dq_f32": ("csrc/flash_attention_bwd.cu",
+                                       f"{pallas}flash_attention.py:263",
+                                       fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain,
+                                       flash_bwd_f32_cases, flash_bwd_fault, None,
+                                       _flash_bwd_bound(3), None),
         "conv2d_same": ("csrc/conv2d.cu", f"{pallas}conv2d.py:176",
                         conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_cases, conv_fault,
-                        conv_library, conv_bound),
+                        conv_library, conv_bound, None),
         "conv2d_same_dx": ("csrc/conv2d.cu", f"{pallas}conv2d.py:224",
                            conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, conv_dx_cases,
                            conv_dx_fault, conv_dx_library,
-                           lambda g, kern, out: conv_bound(g, conv2d.dx_kernel(kern), out)),
+                           lambda g, kern, out: conv_bound(g, conv2d.dx_kernel(kern), out), None),
     }
 
 
-def err_over_tol(got, want) -> float:
-    """max over outputs of max |got - want| / (atol + rtol |want|), with
-    (rtol, atol) from ops.cuda.tolerance: at most 1 where they agree."""
+def launch_counters():
+    """Each kernel of kernel_table() -> (wrapper, the attribute counting its
+    launches): the flash wrappers count each kernel they choose apart."""
+    from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention as fa, warp
+
+    return {"warp_bilinear": (warp.warp_bilinear, "launches"),
+            "warp_bilinear_bwd": (warp.warp_bilinear_bwd, "launches"),
+            "flash_attention_fwd": (fa.flash_attention_fwd, "launches_mma"),
+            "flash_attention_fwd_f32": (fa.flash_attention_fwd, "launches_f32"),
+            "flash_attention_bwd": (fa.flash_attention_bwd, "launches_mma"),
+            "flash_attention_bwd_dkv_f32": (fa.flash_attention_bwd_dkv, "launches"),
+            "flash_attention_bwd_dq_f32": (fa.flash_attention_bwd_dq, "launches"),
+            "conv2d_same": (conv2d.conv2d_same, "launches"),
+            "conv2d_same_dx": (conv2d.conv2d_same_dx, "launches")}
+
+
+def zero_counts(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(counters) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+
+# the kernels only the fp32 model launches: no path may
+F32_ONLY = ("flash_attention_fwd_f32", "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
+
+
+def err_over_tol(got, want, tol=None) -> float:
+    """max over outputs of max |got - want| / tolerance, element by element:
+    `tol`, one tensor per output, or else (atol + rtol |want|) with (rtol,
+    atol) from ops.cuda.tolerance; at most 1 where they agree."""
     from mvsformerplusplus_tpu_torch.ops.cuda import tolerance
 
     ratio = 0.0
-    for g, w in zip(_tuple(got), _tuple(want)):
-        rtol, atol = tolerance(w)
+    for i, (g, w) in enumerate(zip(_tuple(got), _tuple(want))):
         wf = w.float()
-        ratio = max(ratio, ((g.float() - wf).abs() / (atol + rtol * wf.abs())).max().item())
+        if tol is None:
+            rtol, atol = tolerance(w)
+            t = atol + rtol * wf.abs()
+        else:
+            t = tol[i]
+        ratio = max(ratio, ((g.float() - wf).abs() / t).max().item())
     return ratio
 
 
 def run_kernel_phase():
     """Each kernel against its plain version at every shape the paths give
-    it, element by element within `ops.cuda.tolerance`; each case's planted
-    fault must fail the same check. A kernel's times and bound sum each
-    case's over the paths' runs (one DTU eval forward, one train step, the
-    CLI's whole run): the case's time x its launches there."""
+    it, element by element within its tolerance (`ops.cuda.tolerance`, or
+    the table's own); each case's planted fault must fail the same check by
+    2x or more. A kernel's times and bound sum each case's over the paths'
+    runs (one DTU eval forward, one train step, the CLI's whole run): the
+    case's time x its launches there."""
     results, all_rows = {}, []
-    for name, (src, replaces, kernel, plain, cases, fault, library,
-               bound) in kernel_table().items():
+    for name, (src, replaces, kernel, plain, cases, fault, library, bound,
+               tolerance) in kernel_table().items():
         rows = []
         for case, launches, args, tpu_rows in cases():
             want = plain(*args)
             got = kernel(*args)
-            ratio = err_over_tol(got, want)
-            fault_ratio = err_over_tol(fault(kernel, *args), want)
+            tol = tolerance(*args, want) if tolerance is not None else None
+            ratio = err_over_tol(got, want, tol)
+            fault_ratio = err_over_tol(fault(kernel, *args), want, tol)
             bytes_s, ops_s = bound(*args, got)
             row = {"phase": "kernel", "kernel": name, "case": case, "tpu_rows": list(tpu_rows),
                    "launches_by_path": launches,
@@ -586,10 +708,11 @@ def run_kernel_phase():
                    "max_abs_err": max((g.float() - w.float()).abs().max().item()
                                       for g, w in zip(_tuple(got), _tuple(want))),
                    "max_abs_ref": max(w.float().abs().max().item() for w in _tuple(want)),
+                   "tolerance": "rounding budget" if tolerance else "ops.cuda.tolerance",
                    "err_over_tol": ratio, "fault_err_over_tol": fault_ratio,
                    "bound_ms": max(bytes_s, ops_s) * 1e3,
                    "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
-            del got, want
+            del got, want, tol
             row["ms"] = time_ms(lambda: kernel(*args))
             row["plain_ms"] = time_ms(lambda: plain(*args), iters=2)
             row["library_ms"] = time_ms(library(*args)) if library is not None else None
@@ -597,9 +720,9 @@ def run_kernel_phase():
             if not ratio <= 1:
                 raise SystemExit(f"{name}[{case}] disagrees with its plain version: "
                                  f"error {ratio} x its tolerance")
-            if not fault_ratio > 1:
-                raise SystemExit(f"{name}[{case}]: the check passes a planted fault "
-                                 f"({fault.__doc__})")
+            if not fault_ratio >= 2:
+                raise SystemExit(f"{name}[{case}]: the check rejects a planted fault "
+                                 f"({fault.__doc__}) by {fault_ratio}x, less than 2x")
             rows.append(row)
             del args
             torch.cuda.empty_cache()
@@ -607,6 +730,8 @@ def run_kernel_phase():
         paths = sorted({p for r in rows for p in r["launches_by_path"]})
 
         def total(key, path=None):
+            if not paths:  # a kernel no path runs: each case once
+                return sum(r[key] for r in rows)
             return sum(r[key] * n for r in rows for p, n in r["launches_by_path"].items()
                        if path in (None, p))
 
@@ -618,8 +743,9 @@ def run_kernel_phase():
             "library_ms": total("library_ms") if library is not None else None,
             "bound_by": max(rows, key=lambda r: r["bound_ms"] * sum(
                 r["launches_by_path"].values()))["bound_by"],
-            "times": "summed over the runs of the paths it serves (one DTU eval forward, one "
-                     "train step, the CLI's run): each case's time x its launches there",
+            "times": ("summed over the runs of the paths it serves (one DTU eval forward, one "
+                      "train step, the CLI's run): each case's time x its launches there"
+                      if paths else "no path runs it: one launch of each case, summed"),
             "max_err_over_tol": max(r["err_over_tol"] for r in rows),
             "min_fault_err_over_tol": min(r["fault_err_over_tol"] for r in rows),
             "cases": {p: {r["case"]: r["launches_by_path"][p] for r in rows
@@ -777,18 +903,24 @@ def run_reference_train_phase():
         raise SystemExit("the port's train step on the card disagrees with its plain CPU path")
 
 
+def flash_through_mma(launches) -> bool:
+    """Every flash launch of a path went through the tensor-core kernels: no
+    f32 flash kernel launched, and both mma ones did where the path runs
+    them (checked by every_*kernel_launched)."""
+    return not any(launches[k] for k in F32_ONLY)
+
+
 def run_main_path(counters, iters=3):
     from mvsformerplusplus_tpu_torch.config import build_model, load_config
 
     model = build_model(load_config(CONFIG), dtype=torch.bfloat16)  # device defaults to cuda
     imgs, cams, dv = to_device(make_dtu_eval_batch(), "cuda")
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         out = model(imgs, cams, dv)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = read_counts(counters)
         depth = out["refined_depth"].float()
         conf = out["photometric_confidence"].float()
         hypo = out["stage4"]["depth_values"].float()
@@ -803,6 +935,7 @@ def run_main_path(counters, iters=3):
             "every_forward_kernel_launched": all(
                 launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd",
                                           "conv2d_same")),
+            "flash_through_mma_kernels": flash_through_mma(launches),
         }
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         del out
@@ -864,7 +997,7 @@ def run_train_step(counters, iters=6):
 
     def mark(i):
         if i == 1:
-            window["launches"] = {name: fn.launches for name, fn in counters.items()}
+            window["launches"] = read_counts(counters)
         window[i] = torch.cuda.Event(enable_timing=True)
         window[i].record()
 
@@ -874,8 +1007,7 @@ def run_train_step(counters, iters=6):
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats0 = {k: v.clone() for k, v in model.state_dict().items()
               if k.endswith(("running_mean", "running_var"))}
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     logs = trainer.train(epochs=1)
@@ -899,7 +1031,8 @@ def run_train_step(counters, iters=6):
         "vit_unchanged": not any(n.startswith("vit.") for n in moved),
         "only_trainable_params_moved": moved <= trainable,
         "batch_norm_stats_moved": stats_moved == len(stats0),
-        "every_kernel_launched": all(n > 0 for n in launches.values()),
+        "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in F32_ONLY),
+        "flash_through_mma_kernels": flash_through_mma(launches),
     }
     row = {"phase": "train_step", "config": str(CONFIG.relative_to(REPO)),
            "shape": [TRAIN["b"], TRAIN["v"], TRAIN["h"], TRAIN["w"], 3],
@@ -921,8 +1054,18 @@ def run_train_step(counters, iters=6):
 
 LAYERS = ("encoder", "vit", "decoder_vit", "decoder", "fmt", "cascade.stage1",
           "cascade.stage2", "cascade.stage3", "cascade.stage4")
-HAND_WRITTEN = ("warp_bilinear_kernel", "warp_bilinear_bwd_kernel", "flash_fwd_kernel",
-                "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "conv2d_same_kernel")
+HAND_WRITTEN = ("warp_bilinear_kernel", "warp_bilinear_bwd_kernel", "flash_fwd_mma_kernel",
+                "flash_bwd_mma_kernel", "flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel",
+                "flash_bwd_dq_f32_kernel", "conv2d_same_kernel")
+FLASH_F32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
+
+
+def check_flash_names(prof, phase, mma) -> None:
+    """By name in the trace: the flash kernels that ran are the mma ones
+    named, and no f32 one."""
+    ours = prof["hand_written_ms_per_call"]
+    if not (all(ours[k] > 0 for k in mma) and not any(ours[k] for k in FLASH_F32_KERNELS)):
+        raise SystemExit(f"{phase}: flash kernels in the trace are not the mma ones: {ours}")
 
 
 def layer_ms(model, inputs) -> dict:
@@ -999,6 +1142,7 @@ def profile_forward(model, inputs) -> dict:
 
     prof = profile_run(forward, iters=2)
     del prof["result"]
+    check_flash_names(prof, "profile", ("flash_fwd_mma_kernel",))
     return {"phase": "profile", "layer_ms": layer_ms(model, inputs), **prof}
 
 
@@ -1013,6 +1157,7 @@ def profile_train(model, opt, sched, batch, iters=3) -> dict:
                  if k == "loss" or k == "grad_norm" or k.startswith("stage"))
     if not finite:
         raise SystemExit("profile_train: a loss or the gradient norm is not finite")
+    check_flash_names(prof, "profile_train", ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel"))
     return {"phase": "profile_train", **prof}
 
 
@@ -1068,8 +1213,7 @@ def run_train_cli(counters):
                 "-o", f"{args}val_data_list={data / 'train.txt'}",
                 "-o", f"{args}multi_scale_args;scales={json.dumps(CLI['scales'])}",
                 "-o", f"{args}height={CLI['val_hw'][0]}", "-o", f"{args}width={CLI['val_hw'][1]}"]
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         first = cli.main(argv)
@@ -1094,7 +1238,7 @@ def run_train_cli(counters):
         resumed = cli.main(argv + ["-r", "--epochs", "3"])
         resumed_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = read_counts(counters)
         peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
         opt_args = load_config(CONFIG)["optimizer"]["args"]
         want_lr = opt_args["lr"] * warmup_cosine(2 * spe, opt_args["warmup_steps"], 3 * spe,
@@ -1126,7 +1270,8 @@ def run_train_cli(counters):
         "steps_per_bucket_as_scheduled": {hw: b["steps"] for hw, b in buckets.items()}
         == {f"{h}x{w}": n for (h, w), n in steps.items() if n},
         "val_maps_as_counted": sum(s["maps"] for s in val_stats) == val_maps,
-        "every_kernel_launched": all(n > 0 for n in launches.values()),
+        "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in F32_ONLY),
+        "flash_through_mma_kernels": flash_through_mma(launches),
     }
     row = {"phase": "train_cli", "config": str(CONFIG.relative_to(REPO)),
            "argv": argv[4:], "data": {"views": 5, "lights": 7, "hw": list(CLI["hw"]),
@@ -1154,7 +1299,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from mvsformerplusplus_tpu_torch.ops import cuda as kernels
-    from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention, warp
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1173,11 +1317,8 @@ def main() -> int:
     results = run_kernel_phase()
     run_reference_phase()
     run_reference_train_phase()
-    counters = {"warp_bilinear": warp.warp_bilinear, "warp_bilinear_bwd": warp.warp_bilinear_bwd,
-                "flash_attention_fwd": flash_attention.flash_attention_fwd,
-                "flash_attention_bwd_dkv": flash_attention.flash_attention_bwd_dkv,
-                "flash_attention_bwd_dq": flash_attention.flash_attention_bwd_dq,
-                "conv2d_same": conv2d.conv2d_same, "conv2d_same_dx": conv2d.conv2d_same_dx}
+    counters = launch_counters()
+    assert set(counters) == set(results)
     by_path = {"main_path": run_main_path(counters)}
     torch.cuda.empty_cache()
     by_path["train_step"] = run_train_step(counters)

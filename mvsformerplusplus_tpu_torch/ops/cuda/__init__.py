@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 Each source compiles with nvcc into its own shared library with a plain C
-interface under <repo>/build/kernels/, named by a hash of the source so an
-edited kernel rebuilds. Libraries are loaded with ctypes; every C entry point
+interface under <repo>/build/kernels/, named by a hash of the source and of
+every header in csrc/ so an edited kernel or header rebuilds. Libraries are loaded with ctypes; every C entry point
 returns cudaGetLastError() and `check` raises when it is not 0. Nothing is
 built or loaded at import time.
 """
@@ -40,8 +40,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    return BUILD_DIR / f"{name}_{hashlib.sha1(src).hexdigest()[:12]}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict:

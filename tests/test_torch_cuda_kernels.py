@@ -1,7 +1,9 @@
 """Each hand-written CUDA kernel of the PyTorch port against its plain
 PyTorch version, forward and backward, on the card (marker `cuda`; skipped
-without one), with a planted fault per backward kernel that the same check
-must reject. Imports
+without one), with a planted fault per backward kernel and per flash kernel
+that the same check must reject. The bf16 flash kernels (tensor cores) are
+held within their rounding budget (flash_attention.budget_tolerance), the
+f32 ones within `tolerance`. Imports
 no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
@@ -44,17 +46,88 @@ def test_conv_kernel_matches_plain(dev, dtype, k, ci, co, h, w):
     _close(got, conv2d.conv2d_same_plain(x, kern))
 
 
+def _flash_close(got, want, budget):
+    """bf16 flash outputs within their rounding budget of the fp32 plain
+    version (flash_attention.budget_tolerance), f32 within `tolerance`."""
+    if got.dtype == torch.bfloat16:
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= flash_attention.budget_tolerance(want, budget)).all()), err.max()
+    else:
+        _close(got, want)
+
+
+def _flash_fails(got, want, budget):
+    if got.dtype != torch.bfloat16:
+        return _fails(got, want)
+    err = (got.float() - want.float()).abs()
+    return bool((err > 2 * flash_attention.budget_tolerance(want, budget)).any())
+
+
+def _flash_fwd_check(q, k, v, scale):
+    """One forward launch through the kernel the dtype selects (by its
+    counter), against the plain version; the scale 8% low must fail."""
+    fa = flash_attention.flash_attention_fwd
+    counter = "launches_mma" if q.dtype == torch.bfloat16 else "launches_f32"
+    before = (fa.launches_mma, fa.launches_f32)
+    got, lse = fa(q, k, v, scale, return_lse=True)
+    step = (1, 0) if counter == "launches_mma" else (0, 1)
+    assert (fa.launches_mma, fa.launches_f32) == (before[0] + step[0], before[1] + step[1])
+    want, want_lse, budget = flash_attention.flash_attention_plain(q, k, v, scale, return_lse=True,
+                                                                   with_budget=True)
+    _flash_close(got, want, budget)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    assert _flash_fails(fa(q, k, v, 0.92 * scale), want, budget)
+    return got
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh,n,m", [(16, 200, 333), (64, 77, 129), (64, 1729, 1729)])
 def test_flash_kernel_matches_plain(dev, dtype, dh, n, m):
     g = torch.Generator(device=dev).manual_seed(dh + n)
     q, k, v = (torch.randn(2, s, 3, dh, generator=g, device=dev).to(dtype) for s in (n, m, m))
-    before = flash_attention.flash_attention_fwd.launches
-    got, lse = flash_attention.flash_attention_fwd(q, k, v, 0.3, return_lse=True)
-    assert flash_attention.flash_attention_fwd.launches == before + 1
-    want, want_lse = flash_attention.flash_attention_plain(q, k, v, 0.3, return_lse=True)
-    _close(got, want)
-    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    _flash_fwd_check(q, k, v, 0.3)
+
+
+def _key_tile(dh, dtype):
+    """Keys per K/V tile of the forward kernel the dtype selects."""
+    return (128 if dh == 16 else 64) if dtype == torch.bfloat16 else 64
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("tail", [1, 7, 63])
+def test_flash_key_and_query_tails(dev, dtype, dh, tail):
+    """Keys 1, 7 and 63 past a whole tile, queries as many past 64 rows."""
+    m, n = 2 * _key_tile(dh, dtype) + tail, 64 + tail
+    g = torch.Generator(device=dev).manual_seed(dh * tail)
+    q, k, v = (torch.randn(2, s, 2, dh, generator=g, device=dev).to(dtype) for s in (n, m, m))
+    _flash_fwd_check(q, k, v, dh ** -0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64])
+def test_flash_reads_no_key_past_m(dev, dtype, dh):
+    """At B=1, k and v are the first m rows of larger tensors whose later
+    rows hold NaN: a read past m would show as NaN, in the forward and in
+    the backward."""
+    n, m = 70, _key_tile(dh, dtype) + 9
+    g = torch.Generator(device=dev).manual_seed(dh)
+    q, dout = (torch.randn(1, n, 2, dh, generator=g, device=dev).to(dtype) for _ in range(2))
+    big = [torch.randn(1, m + 64, 2, dh, generator=g, device=dev).to(dtype) for _ in range(2)]
+    for t in big:
+        t[:, m:] = float("nan")
+    k, v = (t[:, :m] for t in big)
+    assert k.is_contiguous() and k.data_ptr() == big[0].data_ptr()
+    out = _flash_fwd_check(q, k, v, 0.25)
+    assert bool(torch.isfinite(out).all())
+    _, lse = flash_attention.flash_attention_plain(q, k, v, 0.25, return_lse=True)
+    delta = flash_attention.attention_delta(out, dout)
+    grads = flash_attention.flash_attention_bwd(q, k, v, dout, lse, delta, 0.25)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, dout, lse, delta, 0.25)
+    budgets = flash_attention.flash_bwd_budget(q, k, v, dout, lse, delta, 0.25)
+    for got, w, b in zip(grads, want, budgets):
+        assert bool(torch.isfinite(got).all())
+        _flash_close(got, w, b)
 
 
 def _camera(angle, tx, h, w):
@@ -116,27 +189,51 @@ def test_warp_bwd_kernel_matches_plain(dev, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh,n,m", [(16, 200, 333), (64, 77, 129), (16, 1000, 700)])
+@pytest.mark.parametrize("dh,n,m", [(16, 200, 333), (64, 77, 129), (16, 1000, 700),
+                                    (64, 300, 129), (16, 5, 64)])
 def test_flash_bwd_kernels_match_plain(dev, dtype, dh, n, m):
+    """flash_attention_bwd: bf16 through the fused tensor-core kernel within
+    the rounding budget, f32 through the dK/dV and dQ SIMT kernels within
+    `tolerance` (by their counters); delta 8% low must fail."""
     g = torch.Generator(device=dev).manual_seed(dh + n)
     q, dout = (torch.randn(2, n, 3, dh, generator=g, device=dev).to(dtype) for _ in range(2))
     k, v = (torch.randn(2, m, 3, dh, generator=g, device=dev).to(dtype) for _ in range(2))
     out, lse = flash_attention.flash_attention_plain(q, k, v, 0.3, return_lse=True)
     delta = flash_attention.attention_delta(out, dout)
     args = (q, k, v, dout, lse, delta, 0.3)
-    before = (flash_attention.flash_attention_bwd_dkv.launches,
-              flash_attention.flash_attention_bwd_dq.launches)
-    dk, dv = flash_attention.flash_attention_bwd_dkv(*args)
-    dq = flash_attention.flash_attention_bwd_dq(*args)
-    assert (flash_attention.flash_attention_bwd_dkv.launches,
-            flash_attention.flash_attention_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
-    want_dk, want_dv = flash_attention.flash_attention_bwd_dkv_plain(*args)
-    want_dq = flash_attention.flash_attention_bwd_dq_plain(*args)
-    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
-        _close(got, want)
-    bad = (q, k, v, dout, lse, 0.92 * delta, 0.3)
-    assert _fails(flash_attention.flash_attention_bwd_dq(*bad), want_dq)
-    assert _fails(flash_attention.flash_attention_bwd_dkv(*bad)[0], want_dk)
+    counters = (flash_attention.flash_attention_bwd, "launches_mma"), \
+        (flash_attention.flash_attention_bwd_dkv, "launches"), \
+        (flash_attention.flash_attention_bwd_dq, "launches")
+    before = [getattr(f, a) for f, a in counters]
+    grads = flash_attention.flash_attention_bwd(*args)
+    step = [1, 0, 0] if dtype == torch.bfloat16 else [0, 1, 1]
+    assert [getattr(f, a) for f, a in counters] == [b + s for b, s in zip(before, step)]
+    want = flash_attention.flash_attention_bwd_plain(*args)
+    budgets = flash_attention.flash_bwd_budget(*args)
+    for got, w, b in zip(grads, want, budgets):
+        assert got.dtype == dtype and got.shape == w.shape
+        _flash_close(got, w, b)
+    bad = flash_attention.flash_attention_bwd(q, k, v, dout, lse, 0.92 * delta, 0.3)
+    assert _flash_fails(bad[0], want[0], budgets[0])
+    assert _flash_fails(bad[1], want[1], budgets[1])
+
+
+def test_flash_autograd_in_bf16_runs_the_mma_kernels(dev):
+    """FlashAttention on bf16 CUDA tensors: one mma forward and one fused
+    mma backward, no SIMT launch; gradients only where asked."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(1, 90, 2, 16, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    fa, fb = flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd
+    f32 = (fa.launches_f32, flash_attention.flash_attention_bwd_dkv.launches,
+           flash_attention.flash_attention_bwd_dq.launches)
+    before = (fa.launches_mma, fb.launches_mma)
+    qr, kr = q.requires_grad_(True), k.requires_grad_(True)
+    flash_attention.FlashAttention.apply(qr, kr, v, 0.25).float().sum().backward()
+    assert (fa.launches_mma, fb.launches_mma) == (before[0] + 1, before[1] + 1)
+    assert (fa.launches_f32, flash_attention.flash_attention_bwd_dkv.launches,
+            flash_attention.flash_attention_bwd_dq.launches) == f32
+    assert qr.grad is not None and kr.grad is not None and v.grad is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -196,3 +293,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     lse = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_bwd_dq(q, q, q, q, lse, lse, 0.2)
+    qb = torch.randn(1, 8, 2, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_bwd_dkv(qb, qb, qb, qb, lse, lse, 0.2)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_fwd(qb.half(), qb.half(), qb.half(), 0.2)

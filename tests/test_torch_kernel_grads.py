@@ -17,7 +17,7 @@ from mvsformerplusplus_tpu.ops.pallas.conv2d import conv2d_p, conv2d_viable
 from mvsformerplusplus_tpu.ops.pallas.flash_attention import flash_attention
 from mvsformerplusplus_tpu_torch.ops.cuda.conv2d import Conv2dSame
 from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (
-    FlashAttention, flash_attention_bwd_plain, flash_attention_plain)
+    FlashAttention, attention_delta, flash_attention_bwd_plain, flash_attention_plain)
 from mvsformerplusplus_tpu_torch.ops.cuda.warp import WarpBilinear
 from tests.torch_parity import assert_close, t
 
@@ -64,13 +64,13 @@ def test_flash_grad_matches_pallas_vjp(dh, n, m):
 
 
 def test_flash_bwd_plain_is_the_autograd_of_its_forward():
-    """flash_attention_bwd_plain from the saved out/lse equals autograd
-    through flash_attention_plain, in f32 at 1e-5."""
+    """flash_attention_bwd_plain from the saved lse and delta (from out)
+    equals autograd through flash_attention_plain, in f32 at 1e-5."""
     rng = np.random.RandomState(5)
     q, k, v = (t(rng.randn(1, s, 2, 16).astype(np.float32)) for s in (50, 70, 70))
     g = t(rng.randn(1, 50, 2, 16).astype(np.float32))
     out, lse = flash_attention_plain(q, k, v, 0.3, return_lse=True)
-    got = flash_attention_bwd_plain(q, k, v, out, lse, g, 0.3)
+    got = flash_attention_bwd_plain(q, k, v, g, lse, attention_delta(out, g), 0.3)
     want = _vjp(lambda a, b_, c: flash_attention_plain(a, b_, c, 0.3), (q, k, v), g)
     for a, b_ in zip(got, want):
         torch.testing.assert_close(a, b_, atol=1e-5, rtol=1e-5)
