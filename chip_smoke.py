@@ -6,7 +6,9 @@
 Phases, one JSON line each:
   device      the card (and its name and power limit from nvidia-smi, as a
               plain line of its own);
-  build       nvcc builds of csrc/*.cu into build/kernels/ (all in parallel);
+  build       nvcc builds of csrc/*.cu into build/kernels/ (all in parallel),
+              each kernel's ptxas line (registers, spills) and the warp
+              kernels' SASS instruction counts (cuobjdump);
   kernel      each hand-written kernel against its plain PyTorch version at
               every shape the paths give it (the DTU-eval forward, the train
               step, and the training CLI's train steps at 512 x 640 and
@@ -14,8 +16,11 @@ Phases, one JSON line each:
               ops.cuda.tolerance (the bf16 tensor-core flash kernels within
               their rounding budget, flash_attention.budget_tolerance), and
               the same check against a planted fault, which it must reject by
-              2x or more; the f32 SIMT flash kernels, which only the fp32
-              model runs, at the tiny flagship's shapes; the kernel's, the
+              2x or more, each checked call launching that kernel alone (by
+              the counters; a warp case records its variant); the f32 SIMT
+              flash kernels, which only the fp32 model runs, at the tiny
+              flagship's shapes, and the warps' scalar kernels, which no
+              path runs, on misaligned train-shape views; the kernel's, the
               plain version's and one library call's time (CUDA events) and
               the least time the card could take;
   reference   the port on the card (kernels, fp32) against the port on the
@@ -32,7 +37,7 @@ Phases, one JSON line each:
               forwards: device time by kernel, the hand-written kernels'
               share, and the device's idle share of the CUDA-event wall time
               of the same forwards; every flash kernel in the trace must be a
-              tensor-core (mma) one;
+              tensor-core (mma) one and every warp kernel a vector one;
   train_step  the full-width flagship train step (B=2, 5 views, 512 x 640,
               192 depths, bf16, frozen ViT, remat of the regularizers, CE at
               all stages, two-group AdamW with warmup-cosine) through
@@ -41,7 +46,7 @@ Phases, one JSON line each:
               steps with no host synchronisation, peak memory, losses,
               gradient norm and which parameters moved;
   profile_train  the same trace over three more train steps (the same
-              check of the flash kernels' names);
+              check of the flash and warp kernels' names);
   train_cli   the training command line (python -m mvsformerplusplus_tpu_torch.train)
               in process with configs/mvsformerplusplus.json at full width on
               a geometric DTU-format scan it writes (5 views x 7 lights at
@@ -53,8 +58,8 @@ Phases, one JSON line each:
               memory.
 Each path (main_path, train_step, train_cli) is run with every kernel's
 launch count set to 0 just before it and read just after; the kernel phase's
-cases must add up to those counts (so the f32 flash kernels, whose cases
-belong to no path, must not launch there).
+cases must add up to those counts (so the f32 flash kernels and the warps'
+scalar kernels, whose cases belong to no path, must not launch there).
 Then the {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
@@ -263,6 +268,34 @@ def warp_cases():
                    warp_tpu_rows(stage, nd, c, ww))
 
 
+def misaligned(t):
+    """t's values in a contiguous view one element off a 16-byte boundary."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _train640_stages(stages):
+    """(stage, nd, c, hh, ww, coords, source views) of the train crop's
+    warps at `stages`."""
+    imgs, cams, dv = _config_batch((TRAIN["b"], TRAIN["h"], TRAIN["w"]), 1)
+    nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
+    for stage, nd, c, hh, ww in _stage_shapes(TRAIN["h"], TRAIN["w"]):
+        if stage in stages:
+            yield stage, nd, c, hh, ww, stage_coords(cams, dv, stage, nd, hh, ww), nsrc
+
+
+def warp_scalar_cases():
+    """The scalar kernel, which no path runs (a C that is no multiple of the
+    16-byte vector, or a source off a 16-byte boundary): the train crop's
+    stage-1 and stage-4 warps with the source one element off."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for stage, nd, c, hh, ww, coords, nsrc in _train640_stages((1, 4)):
+        src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
+        yield f"train640_stage{stage}_misaligned", {}, (misaligned(src), coords), ()
+
+
 def warp_fault(kernel, src, coords):
     """Sample positions off by 1/256 pixel."""
     return kernel(src, coords + 1 / 256)
@@ -287,6 +320,15 @@ def warp_bwd_cases():
             if c <= 16 and ww % 128 == 0:
                 rows += (11,)  # the transpose of the pallas mode's blend there
             yield f"{name}_stage{stage}", _times(runs, 1), (g, coords, (nsrc, hh, ww, c)), rows
+
+
+def warp_bwd_scalar_cases():
+    """The backward's scalar kernel, which no path runs: the train crop's
+    stage-1 and stage-4 gradients with the cotangent one element off."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for stage, nd, c, hh, ww, coords, nsrc in _train640_stages((1, 4)):
+        g = torch.randn(nsrc, nd, hh, ww, c, generator=gen, device="cuda")
+        yield f"train640_stage{stage}_misaligned", {}, (misaligned(g), coords, (nsrc, hh, ww, c)), ()
 
 
 def warp_bwd_fault(kernel, g, coords, src_shape):
@@ -400,17 +442,17 @@ def flash_bwd_fault(kernel, q, k, v, dout, lse, delta, scale):
 
 
 def flash_bwd_f32_cases():
-    """The f32 SIMT backward at the tiny flagship's CTA shape; no path runs
-    it (the fp32 model of reference_train does)."""
+    """The f32 SIMT backward at the tiny flagship's two flash shapes (the
+    CTA's, which the fp32 model of reference_train runs, and the ViT's); no
+    path runs it."""
     from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (attention_delta,
                                                                       flash_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    b, n, h, dh = TINY_CTA
-    scale = _tiny_scales()[1]
-    q, k, v, dout = (torch.randn(b, n, h, dh, generator=gen, device="cuda") for _ in range(4))
-    out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
-    yield "tiny_cta", {}, (q, k, v, dout, lse, attention_delta(out, dout), scale), (8,)
+    for part, (b, n, h, dh), scale in zip(("vit", "cta"), (TINY_VIT, TINY_CTA), _tiny_scales()):
+        q, k, v, dout = (torch.randn(b, n, h, dh, generator=gen, device="cuda") for _ in range(4))
+        out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+        yield f"tiny_{part}", {}, (q, k, v, dout, lse, attention_delta(out, dout), scale), (8,)
 
 
 def flash_bwd_tolerance(q, k, v, dout, lse, delta, scale, want):
@@ -535,16 +577,46 @@ def conv_dx_library(g, kern):
     return lambda: torch.nn.grad.conv2d_input(size, wc, gc, padding=kern.shape[0] // 2)
 
 
+def corner_use(coords, h, w):
+    """What a warp's coordinates need of the data: (samples with a corner
+    inside the image, inside corners, distinct source pixels those corners
+    touch), over the batch."""
+    b = coords.shape[0]
+    xy = coords.reshape(b, -1, 2)
+    x0, y0 = torch.floor(xy[..., 0]), torch.floor(xy[..., 1])
+    rows = torch.arange(b, device=coords.device)[:, None].expand_as(x0)
+    any_in = torch.zeros_like(x0, dtype=torch.bool)
+    touched = torch.zeros(b, h * w, dtype=torch.bool, device=coords.device)
+    corners = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            cx, cy = x0 + dx, y0 + dy
+            inside = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
+            any_in |= inside
+            corners += int(inside.sum())
+            touched[rows[inside], (cy * w + cx)[inside].long()] = True
+    return int(any_in.sum()), corners, int(touched.sum())
+
+
 def warp_bound(src, coords, out):
-    """Each input read once and the output written once, against 4 corners x
-    (weight multiply + fma) fp32 operations per output element."""
-    return nbytes(src, coords, out) / HBM_BYTES_S, 12 * out.numel() / FP32_FLOPS
+    """What these coordinates need: the source pixels their inside corners
+    touch read once, the coordinates read once, the output written once,
+    against a multiply and an add per inside corner and channel."""
+    b, h, w, c = src.shape
+    _, corners, pixels = corner_use(coords, h, w)
+    return ((pixels * c * src.element_size() + nbytes(coords, out)) / HBM_BYTES_S,
+            2 * corners * c / FP32_FLOPS)
 
 
 def warp_bwd_bound(g, coords, src_shape, out):
-    """The f32 cotangent and the coordinates read once, dsrc written once,
-    against 4 corners x (weight multiply + multiply + add) per element."""
-    return nbytes(g, coords, out) / HBM_BYTES_S, 12 * g.numel() / FP32_FLOPS
+    """What these coordinates need: the cotangent of the samples with a
+    corner inside the image read once (the others add nothing), the
+    coordinates read once, dsrc written once, against a multiply and an add
+    per inside corner and channel."""
+    b, h, w, c = src_shape
+    samples, corners, _ = corner_use(coords, h, w)
+    return ((samples * c * g.element_size() + nbytes(coords, out)) / HBM_BYTES_S,
+            2 * corners * c / FP32_FLOPS)
 
 
 def _product_rate(t):
@@ -606,6 +678,13 @@ def kernel_table():
                               warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
                               warp_bwd_cases, warp_bwd_fault, warp_bwd_library, warp_bwd_bound,
                               None),
+        "warp_bilinear_scalar": ("csrc/warp.cu", f"{pallas}warp_band.py:395",
+                                 warp.warp_bilinear, warp.warp_bilinear_plain, warp_scalar_cases,
+                                 warp_fault, warp_library, warp_bound, None),
+        "warp_bilinear_bwd_scalar": ("csrc/warp_bwd.cu", f"{pallas}warp_band.py:231",
+                                     warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
+                                     warp_bwd_scalar_cases, warp_bwd_fault, warp_bwd_library,
+                                     warp_bwd_bound, None),
         "flash_attention_fwd": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
                                 fa.flash_attention_fwd, fa.flash_attention_plain, flash_cases,
                                 flash_fault, flash_library, flash_bound, flash_tolerance),
@@ -621,11 +700,12 @@ def kernel_table():
                                         f"{pallas}flash_attention.py:263",
                                         fa.flash_attention_bwd_dkv,
                                         fa.flash_attention_bwd_dkv_plain, flash_bwd_f32_cases,
-                                        flash_bwd_fault, None, _flash_bwd_bound(4), None),
+                                        flash_bwd_fault, flash_bwd_library, _flash_bwd_bound(4),
+                                        None),
         "flash_attention_bwd_dq_f32": ("csrc/flash_attention_bwd.cu",
                                        f"{pallas}flash_attention.py:263",
                                        fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain,
-                                       flash_bwd_f32_cases, flash_bwd_fault, None,
+                                       flash_bwd_f32_cases, flash_bwd_fault, flash_bwd_library,
                                        _flash_bwd_bound(3), None),
         "conv2d_same": ("csrc/conv2d.cu", f"{pallas}conv2d.py:176",
                         conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_cases, conv_fault,
@@ -639,11 +719,14 @@ def kernel_table():
 
 def launch_counters():
     """Each kernel of kernel_table() -> (wrapper, the attribute counting its
-    launches): the flash wrappers count each kernel they choose apart."""
+    launches): the flash and warp wrappers count each kernel they choose
+    apart."""
     from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention as fa, warp
 
-    return {"warp_bilinear": (warp.warp_bilinear, "launches"),
-            "warp_bilinear_bwd": (warp.warp_bilinear_bwd, "launches"),
+    return {"warp_bilinear": (warp.warp_bilinear, "launches_vec"),
+            "warp_bilinear_bwd": (warp.warp_bilinear_bwd, "launches_vec"),
+            "warp_bilinear_scalar": (warp.warp_bilinear, "launches_scalar"),
+            "warp_bilinear_bwd_scalar": (warp.warp_bilinear_bwd, "launches_scalar"),
             "flash_attention_fwd": (fa.flash_attention_fwd, "launches_mma"),
             "flash_attention_fwd_f32": (fa.flash_attention_fwd, "launches_f32"),
             "flash_attention_bwd": (fa.flash_attention_bwd, "launches_mma"),
@@ -662,8 +745,11 @@ def read_counts(counters) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
-# the kernels only the fp32 model launches: no path may
+# the kernels only the fp32 model launches, and the warps' scalar kernels:
+# no path may launch them
 F32_ONLY = ("flash_attention_fwd_f32", "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
+WARP_SCALAR = ("warp_bilinear_scalar", "warp_bilinear_bwd_scalar")
+OFF_PATH = F32_ONLY + WARP_SCALAR
 
 
 def err_over_tol(got, want, tol=None) -> float:
@@ -684,39 +770,46 @@ def err_over_tol(got, want, tol=None) -> float:
     return ratio
 
 
-def run_kernel_phase():
+def run_kernel_phase(counters):
     """Each kernel against its plain version at every shape the paths give
     it, element by element within its tolerance (`ops.cuda.tolerance`, or
     the table's own); each case's planted fault must fail the same check by
-    2x or more. A kernel's times and bound sum each case's over the paths'
-    runs (one DTU eval forward, one train step, the CLI's whole run): the
-    case's time x its launches there."""
+    2x or more, and the checked call must have launched that kernel and no
+    other (by the counters: a warp case records the variant it ran). A
+    kernel's times and bound sum each case's over the paths' runs (one DTU
+    eval forward, one train step, the CLI's whole run): the case's time x
+    its launches there."""
     results, all_rows = {}, []
     for name, (src, replaces, kernel, plain, cases, fault, library, bound,
                tolerance) in kernel_table().items():
         rows = []
         for case, launches, args, tpu_rows in cases():
             want = plain(*args)
+            before = read_counts(counters)
             got = kernel(*args)
+            launched = [k for k, n in read_counts(counters).items() if n != before[k]]
             tol = tolerance(*args, want) if tolerance is not None else None
             ratio = err_over_tol(got, want, tol)
             fault_ratio = err_over_tol(fault(kernel, *args), want, tol)
             bytes_s, ops_s = bound(*args, got)
             row = {"phase": "kernel", "kernel": name, "case": case, "tpu_rows": list(tpu_rows),
-                   "launches_by_path": launches,
+                   "launches_by_path": launches, "launched": launched,
                    "shapes": [list(a.shape) for a in args if isinstance(a, torch.Tensor)],
                    "max_abs_err": max((g.float() - w.float()).abs().max().item()
                                       for g, w in zip(_tuple(got), _tuple(want))),
                    "max_abs_ref": max(w.float().abs().max().item() for w in _tuple(want)),
                    "tolerance": "rounding budget" if tolerance else "ops.cuda.tolerance",
                    "err_over_tol": ratio, "fault_err_over_tol": fault_ratio,
-                   "bound_ms": max(bytes_s, ops_s) * 1e3,
+                   "bound_ms": max(bytes_s, ops_s) * 1e3, "bound_bytes_ms": bytes_s * 1e3,
+                   "bound_ops_ms": ops_s * 1e3,
                    "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
             del got, want, tol
             row["ms"] = time_ms(lambda: kernel(*args))
             row["plain_ms"] = time_ms(lambda: plain(*args), iters=2)
             row["library_ms"] = time_ms(library(*args)) if library is not None else None
             emit(row)
+            if launched != [name]:
+                raise SystemExit(f"{name}[{case}] launched {launched}, not {name} alone")
             if not ratio <= 1:
                 raise SystemExit(f"{name}[{case}] disagrees with its plain version: "
                                  f"error {ratio} x its tolerance")
@@ -903,11 +996,12 @@ def run_reference_train_phase():
         raise SystemExit("the port's train step on the card disagrees with its plain CPU path")
 
 
-def flash_through_mma(launches) -> bool:
-    """Every flash launch of a path went through the tensor-core kernels: no
-    f32 flash kernel launched, and both mma ones did where the path runs
-    them (checked by every_*kernel_launched)."""
-    return not any(launches[k] for k in F32_ONLY)
+def none_launched(launches, kernels) -> bool:
+    """No kernel of `kernels` launched in a path's run: with F32_ONLY, every
+    flash launch went through the tensor-core kernels; with WARP_SCALAR,
+    every warp and warp-backward launch through the vector ones (that those
+    did launch is checked by every_*kernel_launched)."""
+    return not any(launches[k] for k in kernels)
 
 
 def run_main_path(counters, iters=3):
@@ -935,7 +1029,8 @@ def run_main_path(counters, iters=3):
             "every_forward_kernel_launched": all(
                 launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd",
                                           "conv2d_same")),
-            "flash_through_mma_kernels": flash_through_mma(launches),
+            "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+            "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         }
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         del out
@@ -1031,8 +1126,9 @@ def run_train_step(counters, iters=6):
         "vit_unchanged": not any(n.startswith("vit.") for n in moved),
         "only_trainable_params_moved": moved <= trainable,
         "batch_norm_stats_moved": stats_moved == len(stats0),
-        "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in F32_ONLY),
-        "flash_through_mma_kernels": flash_through_mma(launches),
+        "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
     }
     row = {"phase": "train_step", "config": str(CONFIG.relative_to(REPO)),
            "shape": [TRAIN["b"], TRAIN["v"], TRAIN["h"], TRAIN["w"], 3],
@@ -1054,18 +1150,22 @@ def run_train_step(counters, iters=6):
 
 LAYERS = ("encoder", "vit", "decoder_vit", "decoder", "fmt", "cascade.stage1",
           "cascade.stage2", "cascade.stage3", "cascade.stage4")
-HAND_WRITTEN = ("warp_bilinear_kernel", "warp_bilinear_bwd_kernel", "flash_fwd_mma_kernel",
-                "flash_bwd_mma_kernel", "flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel",
-                "flash_bwd_dq_f32_kernel", "conv2d_same_kernel")
-FLASH_F32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
+HAND_WRITTEN = ("warp_bilinear_vec_kernel", "warp_bilinear_bwd_vec_kernel",
+                "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel",
+                "flash_fwd_mma_kernel", "flash_bwd_mma_kernel", "flash_fwd_f32_kernel",
+                "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_same_kernel")
+# the hand-written kernels no path may run: the f32 flash ones, the warps' scalar ones
+OFF_PATH_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel",
+                    "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel")
 
 
-def check_flash_names(prof, phase, mma) -> None:
-    """By name in the trace: the flash kernels that ran are the mma ones
-    named, and no f32 one."""
+def check_kernel_names(prof, phase, want) -> None:
+    """By name in the trace: the flash and warp kernels that ran are the mma
+    and vector ones named, and no off-path one."""
     ours = prof["hand_written_ms_per_call"]
-    if not (all(ours[k] > 0 for k in mma) and not any(ours[k] for k in FLASH_F32_KERNELS)):
-        raise SystemExit(f"{phase}: flash kernels in the trace are not the mma ones: {ours}")
+    if not (all(ours[k] > 0 for k in want) and not any(ours[k] for k in OFF_PATH_KERNELS)):
+        raise SystemExit(f"{phase}: flash or warp kernels in the trace are not the mma and "
+                         f"vector ones: {ours}")
 
 
 def layer_ms(model, inputs) -> dict:
@@ -1142,7 +1242,7 @@ def profile_forward(model, inputs) -> dict:
 
     prof = profile_run(forward, iters=2)
     del prof["result"]
-    check_flash_names(prof, "profile", ("flash_fwd_mma_kernel",))
+    check_kernel_names(prof, "profile", ("flash_fwd_mma_kernel", "warp_bilinear_vec_kernel"))
     return {"phase": "profile", "layer_ms": layer_ms(model, inputs), **prof}
 
 
@@ -1157,7 +1257,9 @@ def profile_train(model, opt, sched, batch, iters=3) -> dict:
                  if k == "loss" or k == "grad_norm" or k.startswith("stage"))
     if not finite:
         raise SystemExit("profile_train: a loss or the gradient norm is not finite")
-    check_flash_names(prof, "profile_train", ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel"))
+    check_kernel_names(prof, "profile_train", ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
+                                               "warp_bilinear_vec_kernel",
+                                               "warp_bilinear_bwd_vec_kernel"))
     return {"phase": "profile_train", **prof}
 
 
@@ -1270,8 +1372,9 @@ def run_train_cli(counters):
         "steps_per_bucket_as_scheduled": {hw: b["steps"] for hw, b in buckets.items()}
         == {f"{h}x{w}": n for (h, w), n in steps.items() if n},
         "val_maps_as_counted": sum(s["maps"] for s in val_stats) == val_maps,
-        "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in F32_ONLY),
-        "flash_through_mma_kernels": flash_through_mma(launches),
+        "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
     }
     row = {"phase": "train_cli", "config": str(CONFIG.relative_to(REPO)),
            "argv": argv[4:], "data": {"views": 5, "lights": 7, "hw": list(CLI["hw"]),
@@ -1285,6 +1388,41 @@ def run_train_cli(counters):
     if not all(checks.values()):
         raise SystemExit(f"train_cli checks failed: {checks}")
     return launches
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """nvcc -Xptxas -v output -> {kernel (mangled): its registers, shared
+    memory and spills}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            out[name] = "; ".join(filter(None, (out.get(name), line.split(":", 1)[-1].strip())))
+    return out
+
+
+def sass_counts(kernels, name: str, ops=("LDG", "STG", "RED", "ATOM", "IMAD", "FFMA")):
+    """Per kernel of csrc/<name>.cu: the SASS instructions cuobjdump lists
+    (a static count over all branches) and those whose opcode starts with
+    each of `ops` (RED covers REDG, ATOM ATOMG)."""
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        return "cuobjdump not found"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(kernels._lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            cur = out.setdefault(line.split("Function : ")[1].strip(),
+                                 {"total": 0, **{op: 0 for op in ops}})
+        elif cur is not None and line.strip().startswith("/*") and ";" in line:
+            words = line.split("*/", 1)[1].split()
+            opcode = words[1] if words[0].startswith("@") else words[0]  # after a guard
+            cur["total"] += 1
+            for op in ops:
+                cur[op] += opcode.startswith(op)
+    return out
 
 
 def main() -> int:
@@ -1310,15 +1448,15 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = kernels.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s,
+          "ptxas": {name: ptxas_by_kernel(log) for name, log in logs.items()},
+          "sass": {name: sass_counts(kernels, name) for name in ("warp", "warp_bwd")}})
 
-    results = run_kernel_phase()
+    counters = launch_counters()
+    results = run_kernel_phase(counters)
+    assert set(counters) == set(results)
     run_reference_phase()
     run_reference_train_phase()
-    counters = launch_counters()
-    assert set(counters) == set(results)
     by_path = {"main_path": run_main_path(counters)}
     torch.cuda.empty_cache()
     by_path["train_step"] = run_train_step(counters)

@@ -8,55 +8,111 @@
 // Replaces mvsformerplusplus_tpu/ops/pallas/warp_band.py
 // banded_warp_rows_bwd (narrow-row train stages) and banded_warp_blocked_bwd
 // (wide rows): the TPU kernels build the transpose as one-hot band matmuls;
-// here it is exact for every sample. Bound on the H100: the f32 cotangent
-// read (4 bytes per output element of the forward) and the four reductions
-// per element into dsrc. One thread per (sample, channel), channel fastest
-// like the forward: the cotangent read is coalesced and the C threads of a
-// sample reduce into contiguous channel runs of each corner pixel with
-// fire-and-forget f32 atomics (RED), whose order varies from run to run.
+// here it is exact for every sample.
+//
+// Bound on the H100: the bytes (the f32 cotangent read, dsrc written), with
+// four reductions per element into L2 on top, provided each element costs
+// few instructions. The vector variant maps work as the forward does: one
+// thread per (sample, 4-channel vector), C a template parameter, the batch
+// from blockIdx.y, 32-bit indices up to the final pointer offset. A sample
+// whose four corners all lie outside returns before it reads g, a zero
+// cotangent vector before the atomics, and each inside corner takes one
+// 16-byte vector reduction (atomicAdd(float4*), sm_90): a quarter of the
+// atomic instructions and requests of scalar f32 atomics. Sums land in an
+// order that varies from run to run. The scalar variant (one thread per
+// sample, a loop over channels, scalar atomics) takes any C that is not a
+// multiple of 4 or a g not on a 16-byte boundary; no full-width path
+// reaches it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__global__ void warp_bilinear_bwd_kernel(const float* __restrict__ g,
-                                         const float* __restrict__ coords,
-                                         float* __restrict__ dsrc, int h, int w, int c,
-                                         int64_t nsamp, int64_t total) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const float gv = g[i];
-  if (gv == 0.f) return;
-  int ch = (int)(i % c);
-  int64_t s = i / c;  // flat (b, n) sample index
-  int64_t b = s / nsamp;
-  float x = coords[2 * s];
-  float y = coords[2 * s + 1];
-  float x0 = floorf(x), y0 = floorf(y);
-  float fx = x - x0, fy = y - y0;
-  float* img = dsrc + b * (int64_t)h * w * c + ch;
+#include "warp_corners.cuh"
+
+template <int C>
+__global__ void __launch_bounds__(256) warp_bilinear_bwd_vec_kernel(
+    const float* __restrict__ g, const float2* __restrict__ coords, float* __restrict__ dsrc,
+    int h, int w, int nsamp) {
+  constexpr unsigned G = C / 4;  // threads per sample, a power of two
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (unsigned)nsamp * G) return;
+  const unsigned s = i / G, v = i % G;
+  const int64_t sample = (int64_t)blockIdx.y * nsamp + s;
+  const float2 xy = __ldg(coords + sample);
+  const Corners k = bilinear_corners(xy.x, xy.y, h, w);
+  if (!any_inside(k)) return;
+  const float4 gv = __ldcs(reinterpret_cast<const float4*>(g + sample * C + v * 4));
+  if (gv.x == 0.f && gv.y == 0.f && gv.z == 0.f && gv.w == 0.f) return;
+  float* img = dsrc + (int64_t)blockIdx.y * h * w * C + v * 4;
 #pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-    float cy = y0 + dy;
-    float wy = dy ? fy : 1.f - fy;
-    bool yin = cy >= 0.f && cy <= (float)(h - 1);
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      float cx = x0 + dx;
-      float wx = dx ? fx : 1.f - fx;
-      if (yin && cx >= 0.f && cx <= (float)(w - 1)) {
-        int64_t off = ((int64_t)cy * w + (int64_t)cx) * c;
-        atomicAdd(img + off, gv * (wy * wx));
-      }
+  for (int q = 0; q < 4; ++q) {
+    if (k.pix[q] >= 0) {
+      const float wt = k.wt[q];
+      atomicAdd(reinterpret_cast<float4*>(img + k.pix[q] * C),
+                make_float4(gv.x * wt, gv.y * wt, gv.z * wt, gv.w * wt));
     }
   }
 }
 
-extern "C" int warp_bilinear_bwd(const void* g, const void* coords, void* dsrc, int b, int h,
-                                 int w, int c, int nsamp, void* stream) {
-  int64_t total = (int64_t)b * nsamp * c;
-  if (total == 0) return 0;
+__global__ void __launch_bounds__(256) warp_bilinear_bwd_scalar_kernel(
+    const float* __restrict__ g, const float* __restrict__ coords, float* __restrict__ dsrc,
+    int h, int w, int c, int nsamp) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= nsamp) return;
+  const int64_t sample = (int64_t)blockIdx.y * nsamp + s;
+  const Corners k = bilinear_corners(coords[2 * sample], coords[2 * sample + 1], h, w);
+  if (!any_inside(k)) return;
+  const float* gs = g + sample * c;
+  float* img = dsrc + (int64_t)blockIdx.y * h * w * c;
+  for (int ch = 0; ch < c; ++ch) {
+    const float gv = gs[ch];
+    if (gv == 0.f) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (k.pix[q] >= 0) atomicAdd(img + k.pix[q] * c + ch, gv * k.wt[q]);
+    }
+  }
+}
+
+static unsigned int blocks_for(int64_t threads_needed, int threads) {
+  return (unsigned int)((threads_needed + threads - 1) / threads);
+}
+
+template <int C>
+static int launch_vec(const void* g, const void* coords, void* dsrc, int b, int h, int w,
+                      int nsamp, cudaStream_t st) {
   const int threads = 256;
-  unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
-  warp_bilinear_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)coords, (float*)dsrc, h, w, c, nsamp, total);
+  const dim3 grid(blocks_for((int64_t)nsamp * (C / 4), threads), b);
+  warp_bilinear_bwd_vec_kernel<C><<<grid, threads, 0, st>>>(
+      (const float*)g, (const float2*)coords, (float*)dsrc, h, w, nsamp);
+  return (int)cudaGetLastError();
+}
+
+// The channel counts the vector variant is built for; ops/cuda/warp.py
+// VEC_CHANNELS[float32] lists the same (a CPU test reads these lines).
+#define WARP_BWD_VEC_CASE(C) \
+  case C:                    \
+    return launch_vec<C>(g, coords, dsrc, b, h, w, nsamp, st);
+
+extern "C" int warp_bilinear_bwd_vec(const void* g, const void* coords, void* dsrc, int b, int h,
+                                     int w, int c, int nsamp, void* stream) {
+  if (b == 0 || nsamp == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (c) {
+    WARP_BWD_VEC_CASE(4)
+    WARP_BWD_VEC_CASE(8)
+    WARP_BWD_VEC_CASE(16)
+    WARP_BWD_VEC_CASE(32)
+    WARP_BWD_VEC_CASE(64)
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int warp_bilinear_bwd_scalar(const void* g, const void* coords, void* dsrc, int b,
+                                        int h, int w, int c, int nsamp, void* stream) {
+  if (b == 0 || nsamp == 0) return 0;
+  const int threads = 256;
+  const dim3 grid(blocks_for(nsamp, threads), b);
+  warp_bilinear_bwd_scalar_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)coords, (float*)dsrc, h, w, c, nsamp);
   return (int)cudaGetLastError();
 }

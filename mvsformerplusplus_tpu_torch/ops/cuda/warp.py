@@ -10,13 +10,17 @@ align_corners=True) in pixel units and its transpose, so they need no
 windows, equal each TPU form wherever no sample escapes it
 (tests/test_torch_warp_rows.py) and serve every stage and warp mode.
 
-Bound on the H100: memory. Each output element is one f32 write and the four
-corner reads mostly hit L1/L2 (neighbouring samples share corners), so the
-least time is the f32 output over 3.35 TB/s (stage 4 at DTU eval: 226 MB per
-source view). Design: one thread per (sample, channel), channel fastest, so
-the output write is fully coalesced and the coordinate load is shared by the
-C threads of a sample through L1. The backward reads the f32 cotangent the
-same way and reduces it into the four corners with f32 atomics.
+Bound on the H100: the bytes (the f32 output or cotangent and the
+coordinates; stage 4 at DTU eval writes 906 MB for the four source views),
+provided each element costs few instructions: work spread one thread per
+(sample, channel), with the sample's coordinate work repeated per channel,
+is instruction-bound, its time set by the element count. Design: sample-major,
+one thread per (sample, 16-byte channel vector), C a template parameter,
+16-byte loads of each corner and 16-byte stores or vector atomics (see each
+source's note). `variant` picks the vector kernels or the scalar ones (any
+C, any alignment, still by hand and 32-bit indexed) from the dtype, C and
+the pointer's alignment; each wrapper counts its launches per variant
+(`.launches_vec`, `.launches_scalar`) and in all (`.launches`).
 """
 from __future__ import annotations
 
@@ -74,16 +78,57 @@ def warp_bilinear_bwd_plain(g: Tensor, coords: Tensor, src_shape) -> Tensor:
     return dsrc.reshape(b, h, w, c)
 
 
+# the channel counts the vector kernels are built for, per element type: the
+# multiples of one 16-byte vector (8 bf16, 4 f32) up to 64 (the WARP_VEC_CASE
+# and WARP_BWD_VEC_CASE lines of csrc/warp.cu and csrc/warp_bwd.cu)
+VEC_CHANNELS = {torch.bfloat16: (8, 16, 32, 64), torch.float32: (4, 8, 16, 32, 64)}
+
+
+def variant(t: Tensor, c: int) -> str:
+    """'vec' where the vector kernels take t (the warp's source, or the
+    backward's cotangent) at C = c channels: c built for t's dtype and t
+    starting on a 16-byte boundary; else 'scalar'."""
+    return "vec" if c in VEC_CHANNELS.get(t.dtype, ()) and t.data_ptr() % 16 == 0 else "scalar"
+
+
 def _check_coords(src: Tensor, coords: Tensor) -> None:
     if coords.dtype != torch.float32 or coords.shape[-1] != 2 or coords.shape[0] != src.shape[0]:
         raise ValueError(f"coords must be f32 [B, ..., 2] matching src batch, got "
                          f"{tuple(coords.shape)} {coords.dtype}")
 
 
+def _launch_args(t: Tensor, coords: Tensor, h: int, w: int, c: int):
+    """coords contiguous on an 8-byte boundary (the vector kernels read each
+    sample's (x, y) as one float2) and the samples per batch; raises where a
+    32-bit index would overflow."""
+    coords = coords.contiguous()
+    if coords.data_ptr() % 8:
+        coords = coords.clone()
+    nsamp = coords.numel() // (2 * t.shape[0])
+    if max(nsamp, h * w) * c >= 2 ** 31:
+        raise ValueError(f"warp kernels index in 32 bits: {nsamp} samples or {h} x {w} pixels "
+                         f"of {c} channels is too many")
+    return coords, nsamp
+
+
+def _c_fn(lib: str, name: str, n_ints: int):
+    """A C entry point (3 pointers, n_ints ints, stream) -> cudaError."""
+    fn = getattr(load(lib), name)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _count(wrapper, kind: str) -> None:
+    """One launch of the `kind` kernel: its counter and the total."""
+    setattr(wrapper, f"launches_{kind}", getattr(wrapper, f"launches_{kind}") + 1)
+    wrapper.launches += 1
+
+
 def warp_bilinear(src: Tensor, coords: Tensor) -> Tensor:
     """Bilinear warp: src [B, H, W, C] bf16|f32, coords [B, D, H', W', 2] f32
     -> [B, D, H', W', C] f32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (csrc/warp.cu).
+    tensors launch the kernel `variant(src, C)` names (csrc/warp.cu).
 
     Serves the TPU rows (mvsformerplusplus_tpu/ops/pallas/): 1
     warp_band.py:395 banded_warp_blocked_fused and 4 :195 banded_warp_rows
@@ -94,24 +139,23 @@ def warp_bilinear(src: Tensor, coords: Tensor) -> Tensor:
         return warp_bilinear_plain(src, coords)
     _check_coords(src, coords)
     src = src.contiguous()
-    coords = coords.contiguous()
+    code = dtype_code(src)
     b, h, w, c = src.shape
-    nsamp = coords.numel() // (2 * b)
+    coords, nsamp = _launch_args(src, coords, h, w, c)
     out = torch.empty(coords.shape[:-1] + (c,), dtype=torch.float32, device=src.device)
-    lib = load("warp")
-    fn = lib.warp_bilinear
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    check(fn(ptr(src), ptr(coords), ptr(out), b, h, w, c, nsamp, dtype_code(src), stream()),
-          "warp_bilinear")
-    warp_bilinear.launches += 1
+    kind = variant(src, c)
+    fn = _c_fn("warp", f"warp_bilinear_{kind}", 6)
+    check(fn(ptr(src), ptr(coords), ptr(out), b, h, w, c, nsamp, code, stream()),
+          f"warp_bilinear_{kind}")
+    _count(warp_bilinear, kind)
     return out
 
 
 def warp_bilinear_bwd(g: Tensor, coords: Tensor, src_shape) -> Tensor:
     """Image gradient of warp_bilinear: g [B, D, H', W', C] f32, coords
     [B, D, H', W', 2] f32 -> dsrc [B, H, W, C] f32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (csrc/warp_bwd.cu).
+    plain version; CUDA tensors launch the kernel `variant(g, C)` names
+    (csrc/warp_bwd.cu).
 
     Serves the TPU rows (mvsformerplusplus_tpu/ops/pallas/): 6
     warp_band.py:231 banded_warp_rows_bwd, 7 :478 banded_warp_blocked_bwd
@@ -127,20 +171,18 @@ def warp_bilinear_bwd(g: Tensor, coords: Tensor, src_shape) -> Tensor:
         raise ValueError(f"cotangent must be f32 {tuple(coords.shape[:-1]) + (c,)}, got "
                          f"{tuple(g.shape)} {g.dtype}")
     g = g.contiguous()
-    coords = coords.contiguous()
-    nsamp = coords.numel() // (2 * b)
+    coords, nsamp = _launch_args(g, coords, h, w, c)
     dsrc = torch.zeros(b, h, w, c, dtype=torch.float32, device=g.device)
-    lib = load("warp_bwd")
-    fn = lib.warp_bilinear_bwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    check(fn(ptr(g), ptr(coords), ptr(dsrc), b, h, w, c, nsamp, stream()), "warp_bilinear_bwd")
-    warp_bilinear_bwd.launches += 1
+    kind = variant(g, c)
+    fn = _c_fn("warp_bwd", f"warp_bilinear_bwd_{kind}", 5)
+    check(fn(ptr(g), ptr(coords), ptr(dsrc), b, h, w, c, nsamp, stream()),
+          f"warp_bilinear_bwd_{kind}")
+    _count(warp_bilinear_bwd, kind)
     return dsrc
 
 
-warp_bilinear.launches = 0
-warp_bilinear_bwd.launches = 0
+warp_bilinear.launches = warp_bilinear.launches_vec = warp_bilinear.launches_scalar = 0
+warp_bilinear_bwd.launches = warp_bilinear_bwd.launches_vec = warp_bilinear_bwd.launches_scalar = 0
 
 
 class WarpBilinear(torch.autograd.Function):

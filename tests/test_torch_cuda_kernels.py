@@ -142,10 +142,45 @@ def _camera(angle, tx, h, w):
     return cam
 
 
+def _launched(fn, call):
+    """Run call(); return the variant whose counter moved on fn (exactly
+    one, by one, and the total with it)."""
+    before = {k: getattr(fn, f"launches_{k}") for k in ("vec", "scalar")}
+    total = fn.launches
+    out = call()
+    moved = [k for k, n in before.items() if getattr(fn, f"launches_{k}") != n]
+    assert len(moved) == 1 and getattr(fn, f"launches_{moved[0]}") == before[moved[0]] + 1
+    assert fn.launches == total + 1
+    return out, moved[0]
+
+
+def _misaligned(t):
+    """t's values in a contiguous view one element off a 16-byte boundary."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _check_warp(src, coords):
+    """One launch, through the variant `warp.variant` names (by its
+    counter), against the plain version; coords off by 1/256 px must fail."""
+    b, h, w, c = src.shape
+    got, kind = _launched(warp.warp_bilinear, lambda: warp.warp_bilinear(src, coords))
+    assert kind == warp.variant(src, c)
+    want = warp.warp_bilinear_plain(src, coords)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert _fails(warp.warp_bilinear(src, coords + 1 / 256), want)
+    return kind
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [1, 8, 64])
+@pytest.mark.parametrize("c", [1, 3, 8, 16, 32, 64])
 def test_warp_kernel_matches_plain(dev, dtype, c):
-    """Geometry where many samples leave the image (partial border blends)."""
+    """Geometry where many samples leave the image (partial border blends);
+    2 x 6 x 13 x 19 samples, no multiple of the 256-thread block. C 1 and 3
+    run the scalar kernel, the rest the vector one (f32 and bf16)."""
     b, h, w, d = 2, 13, 19, 6
     cams = torch.from_numpy(np.stack([_camera(0.0, 0.0, h, w), _camera(0.3, 0.8, h, w)]))
     projs = compose_projection(cams)
@@ -154,11 +189,43 @@ def test_warp_kernel_matches_plain(dev, dtype, c):
                                    h, w)
     g = torch.Generator(device=dev).manual_seed(c)
     src = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
-    coords = coords.to(dev)
-    before = warp.warp_bilinear.launches
-    got = warp.warp_bilinear(src, coords)
-    assert warp.warp_bilinear.launches == before + 1
-    torch.testing.assert_close(got, warp.warp_bilinear_plain(src, coords), atol=1e-5, rtol=1e-5)
+    kind = _check_warp(src, coords.to(dev))
+    assert kind == ("scalar" if c in (1, 3) else "vec")
+
+
+def _border_coords(g, b, d, hh, ww, h, w):
+    """Sample positions past every border and far outside the image: uniform
+    over [-1.6, W + 0.6] x [-1.6, H + 0.6], with some rows and columns moved
+    to +-1e6 px, exactly on -1 and W or H, and to 1e30."""
+    xs = torch.rand(b, d, hh, ww, generator=g, device=g.device) * (w + 2.2) - 1.6
+    ys = torch.rand(b, d, hh, ww, generator=g, device=g.device) * (h + 2.2) - 1.6
+    xs[:, :, 0], ys[:, :, 1] = 1e6, -1e6
+    xs[:, :, :, 0], ys[:, :, :, 1] = -1.0, float(h)
+    xs[:, :, 2, 2], ys[:, :, 3, 3] = float(w), 1e30
+    return torch.stack([xs, ys], -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 8, 64])
+def test_warp_kernel_at_every_border_and_far_outside(dev, dtype, c):
+    b, h, w = 3, 21, 37
+    g = torch.Generator(device=dev).manual_seed(100 + c)
+    coords = _border_coords(g, b, 5, 17, 29, h, w)
+    src = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
+    _check_warp(src, coords)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 64])
+def test_warp_misaligned_source_takes_the_scalar_kernel(dev, dtype, c):
+    """A source view off a 16-byte boundary at a vector width runs the
+    scalar kernel, with the same result."""
+    b, h, w = 2, 11, 23
+    g = torch.Generator(device=dev).manual_seed(200 + c)
+    coords = _border_coords(g, b, 3, 9, 14, h, w)
+    src = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
+    assert _check_warp(_misaligned(src), coords) == "scalar"
+    assert _check_warp(src, coords) == "vec"
 
 
 def _fails(got, want):
@@ -166,26 +233,45 @@ def _fails(got, want):
     return not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("c", [1, 8, 16, 64])
-def test_warp_bwd_kernel_matches_plain(dev, c):
-    """Samples straddling every border; f32 atomics, so within the f32
-    tolerance, not bit for bit. A corner weight 8% low must fail."""
-    b, h, w, d = 3, 21, 37, 5
-    g = torch.Generator(device=dev).manual_seed(c)
-    xs = torch.rand(b, d, 17, 29, generator=g, device=dev) * (w + 2.2) - 1.6
-    ys = torch.rand(b, d, 17, 29, generator=g, device=dev) * (h + 2.2) - 1.6
-    coords = torch.stack([xs, ys], -1)
-    cot = torch.randn(b, d, 17, 29, c, generator=g, device=dev)
-    before = warp.warp_bilinear_bwd.launches
-    got = warp.warp_bilinear_bwd(cot, coords, (b, h, w, c))
-    assert warp.warp_bilinear_bwd.launches == before + 1
-    want = warp.warp_bilinear_bwd_plain(cot, coords, (b, h, w, c))
+def _check_warp_bwd(cot, coords, src_shape):
+    """One launch, through the variant `warp.variant` names (by its
+    counter), against the plain version within the f32 tolerance (atomics:
+    not bit for bit); the top-left corner's weight 8% low must fail."""
+    b, h, w, c = src_shape
+    got, kind = _launched(warp.warp_bilinear_bwd,
+                          lambda: warp.warp_bilinear_bwd(cot, coords, src_shape))
+    assert kind == warp.variant(cot, c)
+    want = warp.warp_bilinear_bwd_plain(cot, coords, src_shape)
     _close(got, want)
     idx, wt = next(warp.bilinear_corners(coords.reshape(b, -1, 2), h, w))
-    share = torch.zeros(b * h * w, c, device=dev)
-    share.index_add_(0, (idx + (torch.arange(b, device=dev) * h * w)[:, None]).reshape(-1),
+    share = torch.zeros(b * h * w, c, device=cot.device)
+    share.index_add_(0, (idx + (torch.arange(b, device=cot.device) * h * w)[:, None]).reshape(-1),
                      (cot.reshape(b, -1, c) * wt[..., None]).reshape(-1, c))
     assert _fails(got - 0.08 * share.reshape(b, h, w, c), want)
+    return kind
+
+
+@pytest.mark.parametrize("c", [1, 3, 8, 16, 32, 64])
+def test_warp_bwd_kernel_matches_plain(dev, c):
+    """Samples past every border and far outside the image; C 1 and 3 run
+    the scalar kernel, the rest the vector one."""
+    b, h, w, d = 3, 21, 37, 5
+    g = torch.Generator(device=dev).manual_seed(c)
+    coords = _border_coords(g, b, d, 17, 29, h, w)
+    cot = torch.randn(b, d, 17, 29, c, generator=g, device=dev)
+    cot[:, :, 5] = 0.0  # whole zero vectors skip the atomics
+    kind = _check_warp_bwd(cot, coords, (b, h, w, c))
+    assert kind == ("scalar" if c in (1, 3) else "vec")
+
+
+@pytest.mark.parametrize("c", [8, 64])
+def test_warp_bwd_misaligned_cotangent_takes_the_scalar_kernel(dev, c):
+    b, h, w = 2, 15, 26
+    g = torch.Generator(device=dev).manual_seed(300 + c)
+    coords = _border_coords(g, b, 3, 11, 13, h, w)
+    cot = torch.randn(b, 3, 11, 13, c, generator=g, device=dev)
+    assert _check_warp_bwd(_misaligned(cot), coords, (b, h, w, c)) == "scalar"
+    assert _check_warp_bwd(cot, coords, (b, h, w, c)) == "vec"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
