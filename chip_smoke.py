@@ -7,8 +7,9 @@ Phases, one JSON line each:
   device      the card (and its name and power limit from nvidia-smi, as a
               plain line of its own);
   build       nvcc builds of csrc/*.cu into build/kernels/ (all in parallel),
-              each kernel's ptxas line (registers, spills) and the warp
-              kernels' SASS instruction counts (cuobjdump);
+              each kernel's ptxas line (registers, spills) and the warp and
+              conv kernels' SASS instruction counts (cuobjdump; the conv's
+              with its tensor-core HMMA, ldmatrix LDSM and cp.async LDGSTS);
   kernel      each hand-written kernel against its plain PyTorch version at
               every shape the paths give it (the DTU-eval forward, the train
               step, and the training CLI's train steps at 512 x 640 and
@@ -18,11 +19,15 @@ Phases, one JSON line each:
               the same check against a planted fault, which it must reject by
               2x or more, each checked call launching that kernel alone (by
               the counters; a warp case records its variant); the f32 SIMT
-              flash kernels, which only the fp32 model runs, at the tiny
-              flagship's shapes, and the warps' scalar kernels, which no
+              flash and conv kernels, which only the fp32 model runs, at the
+              tiny flagship's shapes, and the warps' scalar kernels, which no
               path runs, on misaligned train-shape views; the kernel's, the
-              plain version's and one library call's time (CUDA events) and
-              the least time the card could take;
+              plain version's and one library call's device time (CUDA events
+              around calls queued behind a device spin, so the host's time to
+              issue them does not count; `wall_ms`: the kernel's calls
+              without the spin, host included) and the least time the card
+              could take, and for the conv cases the SIMT kernel's time on
+              the same input (`simt_ms`);
   reference   the port on the card (kernels, fp32) against the port on the
               CPU (plain versions, fp32) on a small flagship: the eval
               forward, then one train step (per-stage losses, every
@@ -36,8 +41,9 @@ Phases, one JSON line each:
               torch.profiler, tracing CUDA activity only, over two more
               forwards: device time by kernel, the hand-written kernels'
               share, and the device's idle share of the CUDA-event wall time
-              of the same forwards; every flash kernel in the trace must be a
-              tensor-core (mma) one and every warp kernel a vector one;
+              of the same forwards; every flash and conv kernel in the trace
+              must be a tensor-core (mma) one and every warp kernel a vector
+              one;
   train_step  the full-width flagship train step (B=2, 5 views, 512 x 640,
               192 depths, bf16, frozen ViT, remat of the regularizers, CE at
               all stages, two-group AdamW with warmup-cosine) through
@@ -46,7 +52,7 @@ Phases, one JSON line each:
               steps with no host synchronisation, peak memory, losses,
               gradient norm and which parameters moved;
   profile_train  the same trace over three more train steps (the same
-              check of the flash and warp kernels' names);
+              check of the flash, conv and warp kernels' names);
   train_cli   the training command line (python -m mvsformerplusplus_tpu_torch.train)
               in process with configs/mvsformerplusplus.json at full width on
               a geometric DTU-format scan it writes (5 views x 7 lights at
@@ -58,8 +64,8 @@ Phases, one JSON line each:
               memory.
 Each path (main_path, train_step, train_cli) is run with every kernel's
 launch count set to 0 just before it and read just after; the kernel phase's
-cases must add up to those counts (so the f32 flash kernels and the warps'
-scalar kernels, whose cases belong to no path, must not launch there).
+cases must add up to those counts (so the f32 flash and conv kernels and the
+warps' scalar kernels, whose cases belong to no path, must not launch there).
 Then the {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
@@ -131,6 +137,28 @@ def time_ms(fn, iters=5) -> float:
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=5) -> float:
+    """Device ms per call of fn: after a warm call, `iters` calls queued
+    behind a spin of the device (torch.cuda._sleep) that outlasts the host's
+    time to queue them, between CUDA events, so that a call the device
+    finishes faster than the host issues it is timed at its device time, not
+    at the host's (Python, the wrapper's checks, the launches)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * host_s * iters + 1e-3) * 2e9))  # cycles at up to 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -501,6 +529,24 @@ def conv_cases():
             yield f"{name}_{conv}", _times(runs, count), (x, kern), (3,)
 
 
+# the tiny flagship's convs (TINY on the reference phase's 3 x 128 x 256
+# batch, fp32) as (batch, H, W, Ci, k, Co): the encoder's 7x7 and 5x5, the
+# decoder's heads, the FMT smoothing and a visibility net's three convs
+TINY_CONV = [(3, 128, 256, 3, 7, 4), (3, 128, 256, 4, 5, 4), (3, 64, 128, 32, 3, 8),
+             (3, 32, 64, 16, 3, 16), (3, 16, 32, 32, 3, 32), (2, 128, 256, 1, 3, 16),
+             (2, 128, 256, 16, 3, 16), (2, 128, 256, 16, 3, 8)]
+
+
+def conv_f32_cases():
+    """The SIMT kernel at the tiny flagship's conv shapes; no path runs it
+    (the fp32 model of the reference phases does)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for b, h, w, ci, k, co in TINY_CONV:
+        x = torch.randn(b, h, w, ci, generator=gen, device="cuda")
+        kern = torch.randn(k, k, ci, co, generator=gen, device="cuda") * (k * k * ci) ** -0.5
+        yield f"tiny_{k}x{k}_{ci}to{co}_{h}x{w}", {}, (x, kern), (3,)
+
+
 def conv_fault(kernel, x, kern):
     """The top row of taps weighted 8% low."""
     kern = kern.clone()
@@ -521,6 +567,26 @@ def conv_dx_cases():
             kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
                     * (k * k * co) ** -0.5).to(torch.bfloat16)
             yield f"{name}_{conv}", _times(runs, count), (g, kern), (9,)
+
+
+def conv_dx_f32_cases():
+    """The SIMT kernel's dx at the tiny flagship's convs whose input needs a
+    gradient (not the 7x7 on the images, not a visibility net's first conv);
+    no path runs it."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for b, h, w, ci, k, co in TINY_CONV:
+        if k == 7 or ci == 1:
+            continue
+        g = torch.randn(b, h, w, co, generator=gen, device="cuda")
+        kern = torch.randn(k, k, ci, co, generator=gen, device="cuda") * (k * k * co) ** -0.5
+        yield f"tiny_{k}x{k}_{ci}to{co}_{h}x{w}", {}, (g, kern), (9,)
+
+
+def conv_simt(kernel, x, kern):
+    """The conv's SIMT kernel (the only one before the tensor-core kernel)
+    on the same values: a copy of x off a 16-byte boundary takes it."""
+    xm = misaligned(x)
+    return lambda: kernel(xm, kern)
 
 
 def conv_dx_fault(kernel, g, kern):
@@ -649,10 +715,18 @@ def _flash_bwd_bound(n_products):
 
 
 def conv_bound(x, kern, out):
+    """Bytes of x, the weights and out, against the products at their type's
+    peak."""
     b, hh, ww, ci = x.shape
     ky, kx, _, co = kern.shape
     return (nbytes(x, kern, out) / HBM_BYTES_S,
-            2 * b * hh * ww * ky * kx * ci * co / BF16_FLOPS)
+            2 * b * hh * ww * ky * kx * ci * co / _product_rate(x))
+
+
+def conv_dx_bound(g, kern, out):
+    from mvsformerplusplus_tpu_torch.ops.cuda.conv2d import dx_kernel
+
+    return conv_bound(g, dx_kernel(kern), out)
 
 
 def _tuple(x):
@@ -661,8 +735,10 @@ def _tuple(x):
 
 def kernel_table():
     """name -> (source, TPU kernel it replaces, kernel, plain, cases, fault,
-    library, bound, tolerance): `tolerance(*args, want)` gives the
-    element-wise tolerance of each output, or None for ops.cuda.tolerance."""
+    library, bound, tolerance, earlier): `tolerance(*args, want)` gives the
+    element-wise tolerance of each output, or None for ops.cuda.tolerance;
+    `earlier(kernel, *args)`, where given, a call of the kernel the path ran
+    before this one on the same values, timed beside it (`simt_ms`)."""
     from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention as fa, warp
 
     pallas = "mvsformerplusplus_tpu/ops/pallas/"
@@ -671,56 +747,62 @@ def kernel_table():
                           f"{pallas}warp_band.py:511; {pallas}warp_blend.py:132; "
                           f"{pallas}warp_blend.py:153",
                           warp.warp_bilinear, warp.warp_bilinear_plain, warp_cases, warp_fault,
-                          warp_library, warp_bound, None),
+                          warp_library, warp_bound, None, None),
         "warp_bilinear_bwd": ("csrc/warp_bwd.cu",
                               f"{pallas}warp_band.py:231; {pallas}warp_band.py:478; "
                               f"{pallas}warp_blend.py:217",
                               warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
                               warp_bwd_cases, warp_bwd_fault, warp_bwd_library, warp_bwd_bound,
-                              None),
+                              None, None),
         "warp_bilinear_scalar": ("csrc/warp.cu", f"{pallas}warp_band.py:395",
                                  warp.warp_bilinear, warp.warp_bilinear_plain, warp_scalar_cases,
-                                 warp_fault, warp_library, warp_bound, None),
+                                 warp_fault, warp_library, warp_bound, None, None),
         "warp_bilinear_bwd_scalar": ("csrc/warp_bwd.cu", f"{pallas}warp_band.py:231",
                                      warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
                                      warp_bwd_scalar_cases, warp_bwd_fault, warp_bwd_library,
-                                     warp_bwd_bound, None),
+                                     warp_bwd_bound, None, None),
         "flash_attention_fwd": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
                                 fa.flash_attention_fwd, fa.flash_attention_plain, flash_cases,
-                                flash_fault, flash_library, flash_bound, flash_tolerance),
+                                flash_fault, flash_library, flash_bound, flash_tolerance, None),
         "flash_attention_fwd_f32": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
                                     fa.flash_attention_fwd, fa.flash_attention_plain,
                                     flash_f32_cases, flash_fault, flash_library, flash_bound,
-                                    None),
+                                    None, None),
         "flash_attention_bwd": ("csrc/flash_attention_bwd.cu", f"{pallas}flash_attention.py:263",
                                 fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
                                 flash_bwd_cases, flash_bwd_fault, flash_bwd_library,
-                                _flash_bwd_bound(5), flash_bwd_tolerance),
+                                _flash_bwd_bound(5), flash_bwd_tolerance, None),
         "flash_attention_bwd_dkv_f32": ("csrc/flash_attention_bwd.cu",
                                         f"{pallas}flash_attention.py:263",
                                         fa.flash_attention_bwd_dkv,
                                         fa.flash_attention_bwd_dkv_plain, flash_bwd_f32_cases,
                                         flash_bwd_fault, flash_bwd_library, _flash_bwd_bound(4),
-                                        None),
+                                        None, None),
         "flash_attention_bwd_dq_f32": ("csrc/flash_attention_bwd.cu",
                                        f"{pallas}flash_attention.py:263",
                                        fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain,
                                        flash_bwd_f32_cases, flash_bwd_fault, flash_bwd_library,
-                                       _flash_bwd_bound(3), None),
+                                       _flash_bwd_bound(3), None, None),
         "conv2d_same": ("csrc/conv2d.cu", f"{pallas}conv2d.py:176",
                         conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_cases, conv_fault,
-                        conv_library, conv_bound, None),
+                        conv_library, conv_bound, None, conv_simt),
         "conv2d_same_dx": ("csrc/conv2d.cu", f"{pallas}conv2d.py:224",
                            conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, conv_dx_cases,
-                           conv_dx_fault, conv_dx_library,
-                           lambda g, kern, out: conv_bound(g, conv2d.dx_kernel(kern), out), None),
+                           conv_dx_fault, conv_dx_library, conv_dx_bound, None, conv_simt),
+        "conv2d_same_f32": ("csrc/conv2d.cu", f"{pallas}conv2d.py:176",
+                            conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_f32_cases,
+                            conv_fault, conv_library, conv_bound, None, None),
+        "conv2d_same_dx_f32": ("csrc/conv2d.cu", f"{pallas}conv2d.py:224",
+                               conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain,
+                               conv_dx_f32_cases, conv_dx_fault, conv_dx_library, conv_dx_bound,
+                               None, None),
     }
 
 
 def launch_counters():
     """Each kernel of kernel_table() -> (wrapper, the attribute counting its
-    launches): the flash and warp wrappers count each kernel they choose
-    apart."""
+    launches): the flash, warp and conv wrappers count each kernel they
+    choose apart."""
     from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention as fa, warp
 
     return {"warp_bilinear": (warp.warp_bilinear, "launches_vec"),
@@ -732,8 +814,10 @@ def launch_counters():
             "flash_attention_bwd": (fa.flash_attention_bwd, "launches_mma"),
             "flash_attention_bwd_dkv_f32": (fa.flash_attention_bwd_dkv, "launches"),
             "flash_attention_bwd_dq_f32": (fa.flash_attention_bwd_dq, "launches"),
-            "conv2d_same": (conv2d.conv2d_same, "launches"),
-            "conv2d_same_dx": (conv2d.conv2d_same_dx, "launches")}
+            "conv2d_same": (conv2d.conv2d_same, "launches_mma"),
+            "conv2d_same_dx": (conv2d.conv2d_same_dx, "launches_mma"),
+            "conv2d_same_f32": (conv2d.conv2d_same, "launches_simt"),
+            "conv2d_same_dx_f32": (conv2d.conv2d_same_dx, "launches_simt")}
 
 
 def zero_counts(counters) -> None:
@@ -745,11 +829,12 @@ def read_counts(counters) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
-# the kernels only the fp32 model launches, and the warps' scalar kernels:
-# no path may launch them
+# the kernels only the fp32 model launches (the flash and conv SIMT kernels),
+# and the warps' scalar kernels: no path may launch them
 F32_ONLY = ("flash_attention_fwd_f32", "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
+CONV_SIMT = ("conv2d_same_f32", "conv2d_same_dx_f32")
 WARP_SCALAR = ("warp_bilinear_scalar", "warp_bilinear_bwd_scalar")
-OFF_PATH = F32_ONLY + WARP_SCALAR
+OFF_PATH = F32_ONLY + CONV_SIMT + WARP_SCALAR
 
 
 def err_over_tol(got, want, tol=None) -> float:
@@ -780,8 +865,8 @@ def run_kernel_phase(counters):
     eval forward, one train step, the CLI's whole run): the case's time x
     its launches there."""
     results, all_rows = {}, []
-    for name, (src, replaces, kernel, plain, cases, fault, library, bound,
-               tolerance) in kernel_table().items():
+    for name, (src, replaces, kernel, plain, cases, fault, library, bound, tolerance,
+               earlier) in kernel_table().items():
         rows = []
         for case, launches, args, tpu_rows in cases():
             want = plain(*args)
@@ -804,9 +889,12 @@ def run_kernel_phase(counters):
                    "bound_ops_ms": ops_s * 1e3,
                    "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
             del got, want, tol
-            row["ms"] = time_ms(lambda: kernel(*args))
-            row["plain_ms"] = time_ms(lambda: plain(*args), iters=2)
-            row["library_ms"] = time_ms(library(*args)) if library is not None else None
+            row["ms"] = device_ms(lambda: kernel(*args))
+            row["wall_ms"] = time_ms(lambda: kernel(*args))
+            row["plain_ms"] = device_ms(lambda: plain(*args), iters=2)
+            row["library_ms"] = device_ms(library(*args)) if library is not None else None
+            if earlier is not None:
+                row["simt_ms"] = device_ms(earlier(kernel, *args))
             emit(row)
             if launched != [name]:
                 raise SystemExit(f"{name}[{case}] launched {launched}, not {name} alone")
@@ -834,6 +922,7 @@ def run_kernel_phase(counters):
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: total(k) for k in ("ms", "plain_ms", "bound_ms")},
             "library_ms": total("library_ms") if library is not None else None,
+            **({"simt_ms": total("simt_ms")} if earlier is not None else {}),
             "bound_by": max(rows, key=lambda r: r["bound_ms"] * sum(
                 r["launches_by_path"].values()))["bound_by"],
             "times": ("summed over the runs of the paths it serves (one DTU eval forward, one "
@@ -845,7 +934,8 @@ def run_kernel_phase(counters):
                           if p in r["launches_by_path"]} for p in paths},
             "by_path": {p: {k: (total(k, p) if library is not None or k != "library_ms"
                                 else None)
-                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+                            + (("simt_ms",) if earlier is not None else ())}
                         for p in paths},
         }
     emit(tpu_row_summary(all_rows))
@@ -998,9 +1088,10 @@ def run_reference_train_phase():
 
 def none_launched(launches, kernels) -> bool:
     """No kernel of `kernels` launched in a path's run: with F32_ONLY, every
-    flash launch went through the tensor-core kernels; with WARP_SCALAR,
-    every warp and warp-backward launch through the vector ones (that those
-    did launch is checked by every_*kernel_launched)."""
+    flash launch went through the tensor-core kernels; with CONV_SIMT, every
+    conv and conv-dx launch; with WARP_SCALAR, every warp and warp-backward
+    launch through the vector ones (that those did launch is checked by
+    every_*kernel_launched)."""
     return not any(launches[k] for k in kernels)
 
 
@@ -1030,6 +1121,7 @@ def run_main_path(counters, iters=3):
                 launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd",
                                           "conv2d_same")),
             "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+            "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
             "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         }
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1128,6 +1220,7 @@ def run_train_step(counters, iters=6):
         "batch_norm_stats_moved": stats_moved == len(stats0),
         "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
     }
     row = {"phase": "train_step", "config": str(CONFIG.relative_to(REPO)),
@@ -1153,19 +1246,22 @@ LAYERS = ("encoder", "vit", "decoder_vit", "decoder", "fmt", "cascade.stage1",
 HAND_WRITTEN = ("warp_bilinear_vec_kernel", "warp_bilinear_bwd_vec_kernel",
                 "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel",
                 "flash_fwd_mma_kernel", "flash_bwd_mma_kernel", "flash_fwd_f32_kernel",
-                "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_same_kernel")
-# the hand-written kernels no path may run: the f32 flash ones, the warps' scalar ones
+                "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_mma_kernel",
+                "conv2d_same_kernel")
+# the hand-written kernels no path may run: the f32 flash ones, the conv's
+# SIMT one, the warps' scalar ones
 OFF_PATH_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel",
-                    "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel")
+                    "conv2d_same_kernel", "warp_bilinear_scalar_kernel",
+                    "warp_bilinear_bwd_scalar_kernel")
 
 
 def check_kernel_names(prof, phase, want) -> None:
-    """By name in the trace: the flash and warp kernels that ran are the mma
-    and vector ones named, and no off-path one."""
+    """By name in the trace: the flash, conv and warp kernels that ran are
+    the mma and vector ones named, and no off-path one."""
     ours = prof["hand_written_ms_per_call"]
     if not (all(ours[k] > 0 for k in want) and not any(ours[k] for k in OFF_PATH_KERNELS)):
-        raise SystemExit(f"{phase}: flash or warp kernels in the trace are not the mma and "
-                         f"vector ones: {ours}")
+        raise SystemExit(f"{phase}: flash, conv or warp kernels in the trace are not the mma "
+                         f"and vector ones: {ours}")
 
 
 def layer_ms(model, inputs) -> dict:
@@ -1242,7 +1338,8 @@ def profile_forward(model, inputs) -> dict:
 
     prof = profile_run(forward, iters=2)
     del prof["result"]
-    check_kernel_names(prof, "profile", ("flash_fwd_mma_kernel", "warp_bilinear_vec_kernel"))
+    check_kernel_names(prof, "profile", ("flash_fwd_mma_kernel", "conv2d_mma_kernel",
+                                         "warp_bilinear_vec_kernel"))
     return {"phase": "profile", "layer_ms": layer_ms(model, inputs), **prof}
 
 
@@ -1258,7 +1355,7 @@ def profile_train(model, opt, sched, batch, iters=3) -> dict:
     if not finite:
         raise SystemExit("profile_train: a loss or the gradient norm is not finite")
     check_kernel_names(prof, "profile_train", ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
-                                               "warp_bilinear_vec_kernel",
+                                               "conv2d_mma_kernel", "warp_bilinear_vec_kernel",
                                                "warp_bilinear_bwd_vec_kernel"))
     return {"phase": "profile_train", **prof}
 
@@ -1374,6 +1471,7 @@ def run_train_cli(counters):
         "val_maps_as_counted": sum(s["maps"] for s in val_stats) == val_maps,
         "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
     }
     row = {"phase": "train_cli", "config": str(CONFIG.relative_to(REPO)),
@@ -1400,6 +1498,11 @@ def ptxas_by_kernel(log: str) -> dict:
         elif name and ("registers" in line or "spill" in line):
             out[name] = "; ".join(filter(None, (out.get(name), line.split(":", 1)[-1].strip())))
     return out
+
+
+# the conv's counted opcodes: the tensor cores (HMMA), ldmatrix (LDSM),
+# cp.async (LDGSTS); LDG also counts LDGSTS, LDS also LDSM
+CONV_SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "LDG", "LDS", "STS", "STG", "FFMA", "IMAD")
 
 
 def sass_counts(kernels, name: str, ops=("LDG", "STG", "RED", "ATOM", "IMAD", "FFMA")):
@@ -1450,7 +1553,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s,
           "ptxas": {name: ptxas_by_kernel(log) for name, log in logs.items()},
-          "sass": {name: sass_counts(kernels, name) for name in ("warp", "warp_bwd")}})
+          "sass": {**{name: sass_counts(kernels, name) for name in ("warp", "warp_bwd")},
+                   "conv2d": sass_counts(kernels, "conv2d", CONV_SASS_OPS)}})
 
     counters = launch_counters()
     results = run_kernel_phase(counters)

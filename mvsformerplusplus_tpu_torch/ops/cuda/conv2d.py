@@ -9,19 +9,24 @@ cotangent with the weights flipped in space and ci/co swapped
 (`conv2d_same_dx`), and whose weight gradient is a per-tap fp32 reduction
 that the JAX package leaves to XLA (here torch matmuls).
 
-Bound on the H100: memory for the narrow-channel full-resolution convs of
-the FPN, the visibility heads and the FMT smoothing (the decoder's 64->8 head
-at 5x1152x1536 moves ~1.3 GB), arithmetic only for the widest 3x3s. Design:
-a block computes an 8x32 tile of output pixels for up to 32 output channels;
-it stages the input halo tile for 8 input channels at a time ([ci][y][x]
-in shared memory, so neighbouring threads read neighbouring words) and the
-matching weights (read as broadcasts), and each thread accumulates its
-pixel's outputs in registers. The TPU kernel's W-folding and VMEM-driven
-channel split answer TPU limits and are not carried over.
+Bound on the H100: bytes. Every path case's arithmetic intensity is below
+the bf16 tensor cores' ridge (the decoder's 64->8 head at 5x1152x1536 moves
+~1.3 GB for 82 GFLOP). Two kernels, chosen by `variant` (dtype, widths,
+alignment): the bf16 one ("mma") is an implicit GEMM on the tensor cores
+(mma.sync m16n8k16, fp32 accumulators; products of bf16 values are exact in
+fp32, so it differs from the plain version only in summation order) over a
+double-buffered halo tile fed by cp.async, with the weights packed here into
+its B-fragment order (`pack_weights`) and resident in shared memory; the fp32
+one ("simt", also any width or alignment the mma kernel does not take) runs
+fp32 FMAs. csrc/conv2d.cu's note gives both designs. The TPU kernel's
+W-folding and VMEM-driven channel split answer TPU limits and are not
+carried over. Each wrapper counts its launches per kernel
+(`.launches_mma`, `.launches_simt`) and in all (`.launches`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +78,78 @@ def conv2d_same_dk(x: Tensor, g: Tensor, ky: int, kx: int) -> Tensor:
     return torch.stack([torch.stack(row) for row in taps])
 
 
+# the (k, channel pad, Co tile) instantiations of the mma kernel: the
+# CONV_MMA_CASE lines of csrc/conv2d.cu (every one whose shared memory fits a
+# block; the 7x7 and 5x5 at 64 channels with wide Co tiles do not)
+MMA_CASES = frozenset(
+    [(3, cp, cot) for cp in (8, 16, 32, 64) for cot in (8, 16, 32, 64)]
+    + [(5, cp, cot) for cp in (8, 16, 32, 64) for cot in (8, 16, 32, 64) if (cp, cot) != (64, 64)]
+    + [(7, cp, cot) for cp in (8, 16, 32) for cot in (8, 16, 32, 64) if (cp, cot) != (32, 64)]
+    + [(7, 64, 8)])
+
+
+def channel_pad(ci: int) -> int:
+    """The input channels the mma kernel stages per pixel: 1-8 zero-padded
+    to 8, else Ci itself (it takes 16, 32 and 64)."""
+    return 8 if ci <= 8 else ci
+
+
+def co_tile(co: int) -> int:
+    """The mma kernel's Co tile: the widest of 64, 32, 16 and 8 dividing Co
+    (0 when none does)."""
+    return next((c for c in (64, 32, 16, 8) if co % c == 0), 0)
+
+
+def variant(x: Tensor, kernel: Tensor) -> str:
+    """'mma' where the tensor-core kernel takes the conv of x by kernel
+    [k, k, Ci, Co]: x bf16 on a 16-byte boundary, Co a multiple of 8 and
+    (k, channel_pad(Ci), co_tile(Co)) instantiated; else 'simt'."""
+    k, _, ci, co = kernel.shape
+    if x.dtype != torch.bfloat16 or x.data_ptr() % 16:
+        return "simt"
+    return "mma" if (k, channel_pad(ci), co_tile(co)) in MMA_CASES else "simt"
+
+
+def _fragment_order(t: Tensor) -> Tensor:
+    """t [k, k, Ci, Co] -> [Co / COT, KSTEPS, COT / 8, 32, 4] in the mma
+    kernel's B-fragment order (see pack_weights), 0 where the order pads."""
+    k, _, ci, co = t.shape
+    cp, cot = channel_pad(ci), co_tile(co)
+    rows = k * k * cp
+    ksteps = -(-rows // 16)
+    w2 = F.pad(F.pad(t, (0, 0, 0, cp - ci)).reshape(rows, co), (0, 0, 0, ksteps * 16 - rows))
+    # rows (step, half, q, pair), columns (tile, j, g) -> (tile, step, j, g, q, half, pair)
+    frag = w2.reshape(ksteps, 2, 4, 2, co // cot, cot // 8, 8).permute(4, 0, 5, 6, 2, 1, 3)
+    return frag.reshape(co // cot, ksteps, cot // 8, 32, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(k: int, ci: int, co: int, dx: bool, device: torch.device) -> Tensor:
+    """Per packed element of the conv's weights (the stored kernel [k, k, Ci,
+    Co], or with dx dx_kernel of it, [k, k, Co, Ci]): its flat index into
+    the stored kernel (0, its first weight, where the order pads)."""
+    y, x, c, o = torch.meshgrid(*(torch.arange(n) for n in (k, k, ci, co)), indexing="ij")
+    flat = ((y * k + x) * ci + c) * co + o
+    return _fragment_order(dx_kernel(flat) if dx else flat).to(device)
+
+
+def pack_weights(kernel: Tensor, dx: bool = False) -> Tensor:
+    """The mma kernel's weights, bf16 [Co / COT, KSTEPS, COT / 8, 32, 4], for
+    the conv by kernel [k, k, Ci, Co] (with dx: by dx_kernel(kernel)), in
+    one gather from kernel as it lies (strided, not flipped). The B-fragment
+    order: K is row r = tap * CP + c (tap = dy * k + dx, CP =
+    channel_pad(Ci)) in k16 steps; fragment (step s, n8 tile j) gives lane
+    (g, q) = (lane / 4, lane % 4) the rows 16 s + 2 q, + 1, + 8, + 9 of
+    column COT * tile + 8 j + g (mma.sync m16n8k16's B layout,
+    csrc/flash_mma.cuh). The rows of channels past Ci and past k*k*CP, which
+    the kernel multiplies by zero A (zero-filled channels, a zero chunk),
+    repeat a weight of the kernel instead of a zero, so that the gather is
+    the only operation."""
+    k, _, ci, co = kernel.shape
+    packed = torch.take(kernel, _pack_index(k, ci, co, dx, kernel.device))
+    return packed if packed.dtype == torch.bfloat16 else packed.to(torch.bfloat16)
+
+
 def _check_conv(x: Tensor, kernel: Tensor) -> None:
     ky, kx, ci, _ = kernel.shape
     if ky != kx or ky not in KERNEL_SIZES or x.shape[-1] != ci:
@@ -80,46 +157,60 @@ def _check_conv(x: Tensor, kernel: Tensor) -> None:
                          f"got x {tuple(x.shape)} kernel {tuple(kernel.shape)}")
 
 
-def _launch(x: Tensor, kernel: Tensor, what: str) -> Tensor:
-    ky, _, ci, co = kernel.shape
+@functools.lru_cache(maxsize=None)
+def _c_fn(name: str, n_ints: int):
+    """A C entry point of csrc/conv2d.cu (3 pointers, n_ints ints, stream)."""
+    fn = getattr(load("conv2d"), name)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x: Tensor, kernel: Tensor, wrapper, dx: bool = False) -> Tensor:
+    """The conv of x by kernel (with dx: by dx_kernel(kernel)) through the
+    kernel `variant` names, counted on `wrapper`."""
+    weights = kernel.transpose(2, 3) if dx else kernel  # the conv's weight shape
+    _check_conv(x, weights)
+    ky, _, ci, co = weights.shape
     x = x.contiguous()
-    kernel = kernel.to(x.dtype).contiguous()
     b, h, w, _ = x.shape
     out = torch.empty(b, h, w, co, dtype=x.dtype, device=x.device)
-    fn = load("conv2d").conv2d_same
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    check(fn(ptr(x), ptr(kernel), ptr(out), b, h, w, ci, co, ky, dtype_code(x), stream()), what)
+    kind = variant(x, weights)
+    what = f"{wrapper.__name__} ({kind})"
+    if kind == "mma":
+        wpack = pack_weights(kernel, dx)
+        check(_c_fn("conv2d_same_mma", 6)(ptr(x), ptr(wpack), ptr(out), b, h, w, ci, co, ky,
+                                          stream()), what)
+    else:
+        weights = (dx_kernel(kernel) if dx else kernel).to(x.dtype).contiguous()
+        check(_c_fn("conv2d_same_simt", 7)(ptr(x), ptr(weights), ptr(out), b, h, w, ci, co, ky,
+                                           dtype_code(x), stream()), what)
+    setattr(wrapper, f"launches_{kind}", getattr(wrapper, f"launches_{kind}") + 1)
+    wrapper.launches += 1
     return out
 
 
 def conv2d_same(x: Tensor, kernel: Tensor) -> Tensor:
     """Odd-k stride-1 'same' conv. x [B, H, W, Ci] bf16|f32, kernel
     [k, k, Ci, Co] (cast to x's dtype) -> [B, H, W, Co]. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors launch the kernel `variant(x, kernel)` names."""
     if not x.is_cuda:
         return conv2d_same_plain(x, kernel)
-    _check_conv(x, kernel)
-    out = _launch(x, kernel, "conv2d_same")
-    conv2d_same.launches += 1
-    return out
+    return _launch(x, kernel, conv2d_same)
 
 
 def conv2d_same_dx(g: Tensor, kernel: Tensor) -> Tensor:
     """Input gradient of conv2d_same, g [B, H, W, Co] -> [B, H, W, Ci] in g's
     dtype: the same conv kernel launched with dx_kernel(kernel). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    kt = dx_kernel(kernel)
+    take the plain version; CUDA tensors launch the kernel
+    `variant(g, dx_kernel(kernel))` names."""
     if not g.is_cuda:
-        return conv2d_same_plain(g, kt)
-    _check_conv(g, kt)
-    out = _launch(g, kt, "conv2d_same_dx")
-    conv2d_same_dx.launches += 1
-    return out
+        return conv2d_same_plain(g, dx_kernel(kernel))
+    return _launch(g, kernel, conv2d_same_dx, dx=True)
 
 
-conv2d_same.launches = 0
-conv2d_same_dx.launches = 0
+conv2d_same.launches = conv2d_same.launches_mma = conv2d_same.launches_simt = 0
+conv2d_same_dx.launches = conv2d_same_dx.launches_mma = conv2d_same_dx.launches_simt = 0
 
 
 class Conv2dSame(torch.autograd.Function):

@@ -32,18 +32,67 @@ def _close(got, want):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+# conv cases (k, Ci, Co, B, H, W): every Ci the paths give the forward (1, 3,
+# 8, 16, 32, 64) with every Co (8, 16, 32, 64) at k 3, 5 and 7, at batches of
+# 1-3 and sizes that are no multiple of the 8 x 32 pixel tile; and Co 24 and
+# 128 (several Co tiles)
+CONV_GRID = [(k, ci, co, 1 + (i % 3), 9 + (i % 5), 33 + 2 * (i % 7))
+             for i, (k, ci, co) in enumerate((k, ci, co) for k in (3, 5, 7)
+                                             for ci in (1, 3, 8, 16, 32, 64)
+                                             for co in (8, 16, 32, 64))]
+CONV_EXTRA = [(5, 8, 24, 2, 9, 33), (3, 16, 128, 2, 10, 70), (3, 64, 8, 3, 19, 45)]
+# the (k, Ci, Co) of the grid whose mma tiles would not fit a block's shared
+# memory: they run the SIMT kernel in bf16 too
+NOT_BUILT = ((5, 64, 64), (7, 32, 64), (7, 64, 16), (7, 64, 32), (7, 64, 64))
+
+
+def _conv_check(fn, plain, fault, x, kern):
+    """One launch of fn through the kernel `conv2d.variant` names (by its
+    counters), against the plain version; the planted fault must fail."""
+    got, kind = _launched(fn, lambda: fn(x, kern), ("mma", "simt"))
+    want = plain(x, kern)
+    _close(got, want)
+    assert _fails(fault(x, kern), want)
+    return kind
+
+
+def _conv_fault(x, kern):
+    """The top row of taps weighted 8% low."""
+    bad = kern.clone()
+    bad[0] *= 0.92
+    return conv2d.conv2d_same(x, bad)
+
+
+def _conv_dx_fault(g, kern):
+    """The weights not flipped in space."""
+    return conv2d.conv2d_same_dx(g, kern.flip(0, 1))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,ci,co,h,w", [(3, 64, 8, 19, 45), (5, 8, 24, 9, 33),
-                                         (7, 3, 8, 16, 40), (3, 1, 16, 8, 31),
-                                         (3, 16, 64, 10, 70)])
-def test_conv_kernel_matches_plain(dev, dtype, k, ci, co, h, w):
-    g = torch.Generator(device=dev).manual_seed(k + ci)
-    x = torch.randn(2, h, w, ci, generator=g, device=dev).to(dtype)
-    kern = (torch.randn(k, k, ci, co, generator=g, device=dev) * 0.1).to(dtype)
-    before = conv2d.conv2d_same.launches
-    got = conv2d.conv2d_same(x, kern)
-    assert conv2d.conv2d_same.launches == before + 1
-    _close(got, conv2d.conv2d_same_plain(x, kern))
+@pytest.mark.parametrize("k,ci,co,b,h,w", CONV_GRID + CONV_EXTRA)
+def test_conv_kernel_matches_plain(dev, dtype, k, ci, co, b, h, w):
+    g = torch.Generator(device=dev).manual_seed(k + ci + co)
+    x = torch.randn(b, h, w, ci, generator=g, device=dev).to(dtype)
+    kern = (torch.randn(k, k, ci, co, generator=g, device=dev) * (k * k * ci) ** -0.5).to(dtype)
+    kind = _conv_check(conv2d.conv2d_same, conv2d.conv2d_same_plain, _conv_fault, x, kern)
+    assert kind == conv2d.variant(x, kern)
+    assert kind == ("mma" if dtype == torch.bfloat16 and (k, ci, co) not in NOT_BUILT else "simt")
+
+
+@pytest.mark.parametrize("ci", [8, 64])
+def test_conv_misaligned_input_takes_the_simt_kernel(dev, ci):
+    """A bf16 input view off a 16-byte boundary runs the SIMT kernel, with
+    the same result; aligned, the same input runs the mma kernel."""
+    g = torch.Generator(device=dev).manual_seed(300 + ci)
+    x = torch.randn(2, 11, 37, ci, generator=g, device=dev).to(torch.bfloat16)
+    kern = (torch.randn(3, 3, ci, 16, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    fwd = (conv2d.conv2d_same, conv2d.conv2d_same_plain, _conv_fault)
+    assert _conv_check(*fwd, _misaligned(x), kern) == "simt"
+    assert _conv_check(*fwd, x, kern) == "mma"
+    dx = (conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, _conv_dx_fault)
+    gk = (torch.randn(3, 3, 16, ci, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    assert _conv_check(*dx, _misaligned(x), gk) == "simt"
+    assert _conv_check(*dx, x, gk) == "mma"
 
 
 def _flash_close(got, want, budget):
@@ -142,10 +191,10 @@ def _camera(angle, tx, h, w):
     return cam
 
 
-def _launched(fn, call):
-    """Run call(); return the variant whose counter moved on fn (exactly
-    one, by one, and the total with it)."""
-    before = {k: getattr(fn, f"launches_{k}") for k in ("vec", "scalar")}
+def _launched(fn, call, kinds=("vec", "scalar")):
+    """Run call(); return the variant of `kinds` whose counter moved on fn
+    (exactly one, by one, and the total with it)."""
+    before = {k: getattr(fn, f"launches_{k}") for k in kinds}
     total = fn.launches
     out = call()
     moved = [k for k, n in before.items() if getattr(fn, f"launches_{k}") != n]
@@ -323,17 +372,18 @@ def test_flash_autograd_in_bf16_runs_the_mma_kernels(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,ci,co,h,w", [(3, 16, 8, 19, 45), (5, 8, 8, 9, 33), (7, 8, 16, 16, 40)])
-def test_conv_dx_kernel_matches_plain(dev, dtype, k, ci, co, h, w):
-    g = torch.Generator(device=dev).manual_seed(k + ci)
-    cot = torch.randn(2, h, w, co, generator=g, device=dev).to(dtype)
-    kern = (torch.randn(k, k, ci, co, generator=g, device=dev) * 0.1).to(dtype)
-    before = conv2d.conv2d_same_dx.launches
-    got = conv2d.conv2d_same_dx(cot, kern)
-    assert conv2d.conv2d_same_dx.launches == before + 1
-    want = conv2d.conv2d_same_dx_plain(cot, kern)
-    _close(got, want)
-    assert _fails(conv2d.conv2d_same_dx(cot, kern.flip(0, 1)), want)
+@pytest.mark.parametrize("k,ci,co,b,h,w", [c for c in CONV_GRID if c[1] >= 8]
+                         + [(3, 16, 8, 1, 19, 45), (5, 8, 8, 2, 9, 33), (7, 8, 16, 2, 16, 40)])
+def test_conv_dx_kernel_matches_plain(dev, dtype, k, ci, co, b, h, w):
+    """dx of the forward conv [k, k, Ci, Co]: the kernel on the cotangent
+    [B, H, W, Co] with Ci outputs."""
+    g = torch.Generator(device=dev).manual_seed(k + ci + co)
+    cot = torch.randn(b, h, w, co, generator=g, device=dev).to(dtype)
+    kern = (torch.randn(k, k, ci, co, generator=g, device=dev) * (k * k * co) ** -0.5).to(dtype)
+    kind = _conv_check(conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, _conv_dx_fault, cot,
+                       kern)
+    assert kind == conv2d.variant(cot, conv2d.dx_kernel(kern))
+    assert kind == ("mma" if dtype == torch.bfloat16 and (k, co, ci) not in NOT_BUILT else "simt")
 
 
 def test_autograd_functions_launch_the_backward_kernels(dev):
