@@ -61,12 +61,23 @@ Phases, one JSON line each:
               the checkpoints, a bit-equal restore, the resumed epoch, step
               and learning rate, steps and ms per step per crop bucket, the
               host's wait on the loader, validation ms per map and peak
-              memory.
-Each path (main_path, train_step, train_cli) is run with every kernel's
+              memory;
+  eval_cli    the eval command line (python -m mvsformerplusplus_tpu_torch.eval)
+              in process with configs/mvsformerplusplus.json at full width on
+              a 5-view geometric scan it writes at 1152 x 1536 (JPEG): 5
+              depth maps at 192 depths with dpcd fusion, then --skip_depth
+              with pcd and gipuma; the output files, depth and confidence
+              checks, the scan's GT depths fused on the card and on the CPU
+              with each method, ms per map end to end and the forward's,
+              decode and encode ms per image, the loader-wait share, fusion
+              seconds and points per method, peak memory; then a bench.py-
+              shaped line {"metric", "value" (maps/s), ...}.
+Each path (main_path, train_step, train_cli, eval_cli) is run with every kernel's
 launch count set to 0 just before it and read just after; the kernel phase's
 cases must add up to those counts (so the f32 flash and conv kernels and the
 warps' scalar kernels, whose cases belong to no path, must not launch there).
-Then the {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
+Then the eval CLI's metric line, the {"kernels": [...]} line and, last,
+{"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
 import json
@@ -193,6 +204,11 @@ TRAIN_STAGE_C = (64, 32, 16, 8)
 CLI = dict(samples=35, batch=2, scales=((512, 640), (512, 768)), val_hw=(512, 640), epochs=3,
            hw=(576, 800))
 
+# the eval_cli phase: the eval command line on one 5-view geometric scan at
+# the DTU-eval size, 192 depths: 5 depth maps (each at main_path's shapes),
+# then fusion of the 5 reference views, each against its 4 sources
+EVAL_CLI = dict(views=5, hw=(1152, 1536), depths=192)
+
 
 def cli_counts():
     """Train steps per crop bucket over the CLI run's three epochs (the
@@ -215,7 +231,7 @@ def shape_configs():
     640, eval mode)."""
     steps, val_maps = cli_counts()
     return [
-        ("eval1152", "eval", (1, 1152, 1536), 0, {"main_path": 1}),
+        ("eval1152", "eval", (1, 1152, 1536), 0, {"main_path": 1, "eval_cli": EVAL_CLI["views"]}),
         ("train640", "train", (2, 512, 640), 1,
          {"train_step": 1, "train_cli": steps[(512, 640)]}),
         ("train768", "train", (2, 512, 768), 1, {"train_cli": steps[(512, 768)]}),
@@ -284,7 +300,8 @@ def warp_tpu_rows(stage, nd, c, ww):
 def warp_cases():
     """The four stage warps (source views batched) at each shape config;
     the train crop's stage 3 is the TPU's narrow-row banded_warp_rows shape,
-    the 512 x 768 crop's stage 3 the depth-folded blend's (row 12)."""
+    the 512 x 768 crop's stage 3 the depth-folded blend's (row 12); then
+    fusion's samples (fusion_warp_cases)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     for name, _, bhw, seed, runs in shape_configs():
         imgs, cams, dv = _config_batch(bhw, seed)
@@ -294,6 +311,35 @@ def warp_cases():
             src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
             yield (f"{name}_stage{stage}", _times(runs, 1), (src, coords),
                    warp_tpu_rows(stage, nd, c, ww))
+    yield from fusion_warp_cases()
+
+
+def fusion_warp_cases():
+    """Fusion's bilinear samples at the eval CLI's size: per reference view
+    (5 in the eval_cli run) dpcd samples the 4 source depth maps (C=1) and
+    pcd the 4 sources' (x, y, depth) fields (C=3), each padded to 4 f32
+    channels (fusion.bilinear_sample), at the reference pixels' projections
+    into the sources (the eval scan's rig, the scene's mean depth). The
+    values are random: a constant field would hide the planted fault. In
+    the JAX package these are XLA gathers (no TPU row). The coordinates
+    [V, 1, H, W, 2] (one depth) are fusion's [V, H, W, 2]: the same
+    samples."""
+    from mvsformerplusplus_tpu_torch.data.io import build_camera_stack
+    from mvsformerplusplus_tpu_torch.data.synthetic import geometric_cameras
+    from mvsformerplusplus_tpu_torch.fusion.fusion import project_ref
+
+    h, w = EVAL_CLI["hw"]
+    v = EVAL_CLI["views"]
+    cams = torch.from_numpy(np.stack([build_camera_stack(K, E)
+                                      for K, E in geometric_cameras(v, h, w)])).cuda()
+    wc = project_ref(torch.full((h, w), 650.0, device="cuda"), cams[0], cams[1:])[..., :2]
+    static = torch.stack([wc[..., 0] / w * (w - 1), wc[..., 1] / h * (h - 1)], dim=-1)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for method, c, coords in (("dpcd", 1, wc[:, None].contiguous()),
+                              ("pcd", 3, static[:, None])):
+        src = torch.zeros(v - 1, h, w, 4, device="cuda")
+        src[..., :c] = torch.randn(v - 1, h, w, c, generator=gen, device="cuda")
+        yield f"eval_cli_fusion_{method}", {"eval_cli": v}, (src, coords), ()
 
 
 def misaligned(t):
@@ -926,7 +972,8 @@ def run_kernel_phase(counters):
             "bound_by": max(rows, key=lambda r: r["bound_ms"] * sum(
                 r["launches_by_path"].values()))["bound_by"],
             "times": ("summed over the runs of the paths it serves (one DTU eval forward, one "
-                      "train step, the CLI's run): each case's time x its launches there"
+                      "train step, the training CLI's run, the eval CLI's run): each case's "
+                      "time x its launches there"
                       if paths else "no path runs it: one launch of each case, summed"),
             "max_err_over_tol": max(r["err_over_tol"] for r in rows),
             "min_fault_err_over_tol": min(r["fault_err_over_tol"] for r in rows),
@@ -1488,6 +1535,217 @@ def run_train_cli(counters):
     return launches
 
 
+FUSE_ARGS = {"dpcd": ("ref_depth", "ref_conf", "src_depths", "ref_cam", "src_cams"),
+             "pcd": ("ref_depth", "ref_conf", "src_depths", "src_confs", "ref_cam", "src_cams"),
+             "gipuma": ("ref_depth", "ref_conf", "src_depths", "src_confs", "ref_cam",
+                        "src_cams")}
+GT_FUSE_REFS = (0, 1)
+
+
+def _fuse_with_decisions(method, a):
+    """(points, mask, per-view decisions [K, H, W]) of one fusion method on
+    the tensors `a`: dpcd's strictest per-view consistency, pcd's per-view
+    masks, gipuma's per-source support and the source pixel it takes (x
+    and y, a floor), the decisions the kept points are averaged over."""
+    from mvsformerplusplus_tpu_torch.fusion import fusion
+
+    if method == "dpcd":
+        pts, mask = fusion.dpcd_fuse(*(a[n] for n in FUSE_ARGS[method]))
+        reproj = fusion.reproject_dynamic(a["ref_depth"], a["src_depths"], a["ref_cam"],
+                                          a["src_cams"])
+        return pts, mask, fusion.vis_filter_dynamic(a["ref_depth"], reproj)[1]
+    if method == "pcd":
+        pts, mask = fusion.pcd_fuse(*(a[n] for n in FUSE_ARGS[method]))
+        reproj, in_range = fusion.reproject_static(a["ref_depth"], a["src_depths"],
+                                                   a["ref_cam"], a["src_cams"])
+        return pts, mask, fusion.vis_filter_static(a["ref_depth"], reproj, in_range, 1.0,
+                                                   0.01, 4.0)[0]
+    pts, mask, consistent, src_px = fusion.gipuma_fuse(*(a[n] for n in FUSE_ARGS[method]))
+    return pts, mask, torch.cat([consistent.int(), src_px.permute(3, 0, 1, 2).flatten(0, 1)])
+
+
+def gt_fusion_check(scan_dir: Path, out_dir: Path, gt_dir: Path) -> dict:
+    """The scan's ground-truth depths (confidence 1) fused on the card and
+    on the CPU (plain versions) with each method at its defaults, for the
+    reference views GT_FUSE_REFS against their 4 sources (the CPU takes ~5
+    s per view and method at this size). fp32 products in another order
+    can flip a decision that sits on its threshold: the final mask or a
+    per-view decision the kept point is averaged over (which moves the
+    point by up to a view's share of the average). Reported: the share of
+    pixels whose masks differ, the share whose mask or any per-view
+    decision differs, the largest point distance over the kept cloud's
+    extent where the masks agree and where every decision agrees, and the
+    kept share. pair.txt from the scan, the cameras the eval CLI wrote."""
+    from mvsformerplusplus_tpu_torch.data.io import (build_camera_stack, read_cam_file,
+                                                     read_pair_file, read_pfm)
+
+    pair = dict(read_pair_file(scan_dir / "pair.txt"))
+    depth = {v: read_pfm(gt_dir / f"depth_map_{v:0>4}.pfm")[0] for v in pair}
+    cam = {v: build_camera_stack(*read_cam_file(out_dir / "cams" / f"{v:0>8}_cam.txt")[:2])
+           for v in pair}
+    out = {}
+    for method in FUSE_ARGS:
+        flips = decision_flips = pixels = kept = 0
+        dist_mask = dist_all = 0.0
+        pts_cpu = []
+        for ref in GT_FUSE_REFS:
+            srcs = pair[ref]
+            arrays = {"ref_depth": depth[ref], "ref_conf": np.ones_like(depth[ref]),
+                      "src_depths": np.stack([depth[s] for s in srcs]),
+                      "src_confs": np.ones((len(srcs),) + depth[ref].shape, np.float32),
+                      "ref_cam": cam[ref], "src_cams": np.stack([cam[s] for s in srcs])}
+            res = {}
+            for device in ("cuda", "cpu"):
+                r = _fuse_with_decisions(method, {k: torch.from_numpy(v).to(device)
+                                                  for k, v in arrays.items()})
+                res[device] = [t.cpu().numpy() for t in r]
+            (p_gpu, m_gpu, d_gpu), (p_cpu, m_cpu, d_cpu) = res["cuda"], res["cpu"]
+            same = m_gpu == m_cpu
+            agree = same & (d_gpu == d_cpu).all(axis=0)
+            flips += int((~same).sum())
+            decision_flips += int((~agree).sum())
+            pixels += m_cpu.size
+            kept += int(m_cpu.sum())
+            diff = np.abs(p_gpu - p_cpu).max(axis=-1)
+            both = m_gpu & m_cpu
+            dist_mask = max(dist_mask, float(diff[both].max()) if both.any() else 0.0)
+            dist_all = max(dist_all, float(diff[both & agree].max()) if (both & agree).any()
+                           else 0.0)
+            pts_cpu.append(p_cpu[m_cpu])
+        pts = np.concatenate(pts_cpu)
+        extent = float(np.ptp(pts, axis=0).max()) if len(pts) else 0.0
+        out[method] = {"refs": list(GT_FUSE_REFS), "mask_flip_share": flips / pixels,
+                       "decision_flip_share": decision_flips / pixels,
+                       "kept_share": kept / pixels, "points_cpu": len(pts), "extent": extent,
+                       "max_point_dist_over_extent_masks_agree":
+                           dist_mask / extent if extent else None,
+                       "max_point_dist_over_extent": dist_all / extent if extent else None}
+    return out
+
+
+def run_eval_cli(counters):
+    """The eval command line in process on the card
+    (`python -m mvsformerplusplus_tpu_torch.eval`'s main) with
+    configs/mvsformerplusplus.json at full width, seeded weights, on a
+    5-view geometric scan at 1152 x 1536 written by the port's own writers
+    (JPEG at quality 97, GT depth PFMs): 5 depth maps at 192 depths with
+    dpcd fusion and depth_metric.txt, then --skip_depth with pcd and with
+    gipuma on the same outputs. Checks every output file, every depth finite
+    and inside the cascade's hypothesis range (testing.inverse_depth_bounds),
+    the confidence uint8, the GT-depth fusion on the card against the CPU
+    (gt_fusion_check: both clouds non-empty, the mask or a per-view
+    decision differing on at most 1e-4 of the pixels, points within 1e-4 of
+    the cloud's extent where every decision agrees), every forward
+    kernel launched and every warp launch a vector one. Records ms per map
+    end to end (data, forward, writes), the forward's device ms per map, the
+    decode and encode ms per image (inside the run, and alone on the main
+    thread), the loader-wait share, fusion seconds per scan and points per
+    cloud for each method, and peak memory."""
+    import tempfile
+
+    from mvsformerplusplus_tpu_torch.data.io import read_image_u8, read_pfm
+    from mvsformerplusplus_tpu_torch.data.jpeg import write_jpeg
+    from mvsformerplusplus_tpu_torch.data.synthetic import make_geometric_eval_scan
+    from mvsformerplusplus_tpu_torch.eval import cli
+    from mvsformerplusplus_tpu_torch.testing import inverse_depth_bounds
+
+    phase_t0 = time.perf_counter()
+    cfg = json.loads(CONFIG.read_text())["arch"]["args"]
+    h, w = EVAL_CLI["hw"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        root, out = Path(tmp) / "data", Path(tmp) / "out"
+        t0 = time.perf_counter()
+        make_geometric_eval_scan(root, "scan1", n_views=EVAL_CLI["views"], h=h, w=w,
+                                 ndepth=EVAL_CLI["depths"])
+        write_s = time.perf_counter() - t0
+        (root / "list.txt").write_text("scan1\n")
+        image = root / "scan1" / "images" / "00000000.jpg"
+        t0 = time.perf_counter()
+        pixels = read_image_u8(image)
+        decode_alone_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        write_jpeg(Path(tmp) / "alone.jpg", pixels)
+        encode_alone_ms = (time.perf_counter() - t0) * 1e3
+        base = ["--config", str(CONFIG), "--testpath", str(root), "--testlist",
+                str(root / "list.txt"), "--outdir", str(out), "--num_view", str(EVAL_CLI["views"]),
+                "--numdepth", str(EVAL_CLI["depths"]), "--max_h", str(h), "--max_w", str(w)]
+        zero_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        runs = {"dpcd": cli.main(base + ["--filter_method", "dpcd", "--gt_depth_path",
+                                         str(root / "gt_depths")])}
+        clouds = {"dpcd": (out / "scan1.ply").exists()}
+        for method in ("pcd", "gipuma"):
+            (out / "scan1.ply").unlink(missing_ok=True)
+            runs[method] = cli.main(base + ["--skip_depth", "--filter_method", method])
+            clouds[method] = (out / "scan1.ply").exists()
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        depth_run = runs["dpcd"]
+        files, finite, in_range, conf_u8 = True, True, True, True
+        for v in range(EVAL_CLI["views"]):
+            ref = f"{v:0>8}"
+            paths = [out / "scan1" / sub / name for sub, name in (
+                ("depth_est", f"{ref}.pfm"), ("confidence", f"{ref}.npy"),
+                ("cams", f"{ref}_cam.txt"), ("images", f"{ref}.jpg"))]
+            files &= all(p.exists() for p in paths)
+            if not files:
+                break
+            depth = read_pfm(paths[0])[0]
+            dmin, dint = map(float, paths[2].read_text().split()[-2:])
+            lo, hi = inverse_depth_bounds(dmin, dmin + (EVAL_CLI["depths"] - 1) * dint,
+                                          cfg["ndepths"], cfg["depth_interals_ratio"])
+            finite &= bool(np.isfinite(depth).all()) and depth.shape == (h, w)
+            in_range &= bool(((depth >= lo * (1 - 1e-5)) & (depth <= hi * (1 + 1e-5))).all())
+            conf = np.load(paths[1])
+            conf_u8 &= conf.dtype == np.uint8 and conf.shape == (h, w)
+        files &= (out / "depth_metric.txt").exists()
+        gt = (gt_fusion_check(root / "scan1", out / "scan1", root / "gt_depths" / "scan1")
+              if files else {})
+    maps = depth_run["maps"]
+    fwd = depth_run["forward_ms"]
+    steady = np.diff(depth_run["map_done_s"]) * 1e3
+    checks = {
+        "output_files": files,
+        "ply_per_method": all(clouds.values()),
+        "depth_finite": finite,
+        "depth_in_hypothesis_range": in_range,
+        "confidence_uint8": conf_u8,
+        "maps_and_forwards": maps == EVAL_CLI["views"] and len(fwd) == maps,
+        "gt_clouds_non_empty": bool(gt) and all(r["points_cpu"] > 0 for r in gt.values()),
+        "gt_masks_card_vs_cpu": bool(gt) and all(r["decision_flip_share"] <= 1e-4
+                                                 for r in gt.values()),
+        "gt_points_card_vs_cpu": bool(gt) and all(
+            r["max_point_dist_over_extent"] is not None
+            and r["max_point_dist_over_extent"] <= 1e-4 for r in gt.values()),
+        "every_forward_kernel_launched": all(
+            launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd", "conv2d_same")),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+    }
+    ms_per_map = depth_run["depth_s"] / maps * 1e3
+    row = {"phase": "eval_cli", "config": str(CONFIG.relative_to(REPO)),
+           "scan": {"views": EVAL_CLI["views"], "hw": [h, w], "depths": EVAL_CLI["depths"],
+                    "write_s": write_s},
+           "ms_per_map": ms_per_map, "ms_between_maps": steady.tolist(),
+           "forward_ms": fwd, "forward_ms_per_map": float(np.mean(fwd)) if fwd else None,
+           "decode_ms_per_image": depth_run["decode_s"] / max(depth_run["decodes"], 1) * 1e3,
+           "decodes": depth_run["decodes"], "decode_share_of_ms_per_map":
+               depth_run["decode_s"] / depth_run["depth_s"],
+           "encode_ms_per_image": depth_run["encode_s"] / maps * 1e3,
+           "decode_ms_alone": decode_alone_ms, "encode_ms_alone": encode_alone_ms,
+           "loader_wait_share": depth_run["loader_wait_s"] / depth_run["depth_s"],
+           "fusion_s_per_scan": {m: r["fusion_s"]["scan1"] for m, r in runs.items()},
+           "points_per_cloud": {m: r["points"]["scan1"] for m, r in runs.items()},
+           "gt_fusion": gt, "peak_mem_gb": peak_gb, "launches": launches, "checks": checks,
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"eval_cli checks failed: {checks}")
+    return launches, row
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """nvcc -Xptxas -v output -> {kernel (mangled): its registers, shared
     memory and spills}."""
@@ -1566,6 +1824,8 @@ def main() -> int:
     by_path["train_step"] = run_train_step(counters)
     torch.cuda.empty_cache()
     by_path["train_cli"] = run_train_cli(counters)
+    torch.cuda.empty_cache()
+    by_path["eval_cli"], eval_row = run_eval_cli(counters)
     for name, res in results.items():
         res["launches_by_path"] = {path: by_path[path][name] for path in by_path}
         res["launches"] = sum(res["launches_by_path"].values())
@@ -1575,6 +1835,14 @@ def main() -> int:
                 raise SystemExit(f"{name}: the kernel phase checks {checked} launches per run of "
                                  f"{path} at its shapes, the {path} run made {n}")
     print(card, flush=True)
+    emit({"metric": "eval_cli_depth_maps_per_sec", "value": 1e3 / eval_row["ms_per_map"],
+          "unit": "depth maps/s end to end through the eval CLI (1152x1536, 5 views, 192 "
+                  "depths, bf16, data + forward + writes, 1 card)",
+          "extra": {k: eval_row[k] for k in ("ms_per_map", "forward_ms_per_map",
+                                             "decode_ms_per_image", "encode_ms_per_image",
+                                             "loader_wait_share", "fusion_s_per_scan",
+                                             "points_per_cloud", "peak_mem_gb")},
+          "device_kind": kind, "nvidia_smi": card})
     emit({"kernels": list(results.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

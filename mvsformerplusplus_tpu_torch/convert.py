@@ -49,22 +49,21 @@ def _kernel(module: str, a: np.ndarray) -> np.ndarray:
     return a.transpose(nd + 1, nd, *spatial)
 
 
-def load_vit_npz(path, model: torch.nn.Module, prefix: str = "vit") -> int:
-    """Load pretrained DINOv2 weights from the flattened flax .npz (keys
-    'blocks_0/attn/qkv/kernel', ...; the converted checkpoint format of the
-    JAX package) into `model`'s `prefix` submodule through
-    from_jax_variables. Every key must map onto a parameter of the same
-    shape; the model's other weights are left alone. Returns the number of
-    tensors loaded."""
+def _unflatten(items) -> dict:
+    """[('a/b/c', array), ...] -> the nested tree {'a': {'b': {'c': array}}}."""
     tree: dict = {}
-    with np.load(path) as data:
-        for key in data.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = data[key]
-    loaded = from_jax_variables({"params": {prefix: tree}})
+    for key, value in items:
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def _load_checked(loaded: Dict[str, torch.Tensor], model: torch.nn.Module, path) -> int:
+    """Load converted tensors into `model`: every one must name a tensor of
+    the model of the same shape; the model's others keep their values."""
     target = model.state_dict()
     for k, v in loaded.items():
         if k not in target:
@@ -74,6 +73,37 @@ def load_vit_npz(path, model: torch.nn.Module, prefix: str = "vit") -> int:
                              f"{tuple(target[k].shape)}")
     model.load_state_dict(loaded, strict=False)
     return len(loaded)
+
+
+def load_vit_npz(path, model: torch.nn.Module, prefix: str = "vit") -> int:
+    """Load pretrained DINOv2 weights from the flattened flax .npz (keys
+    'blocks_0/attn/qkv/kernel', ...; the converted checkpoint format of the
+    JAX package) into `model`'s `prefix` submodule through
+    from_jax_variables. Every key must map onto a parameter of the same
+    shape; the model's other weights are left alone. Returns the number of
+    tensors loaded."""
+    with np.load(path) as data:
+        tree = _unflatten((k, data[k]) for k in data.files)
+    return _load_checked(from_jax_variables({"params": {prefix: tree}}), model, path)
+
+
+def load_npz(path, model: torch.nn.Module) -> int:
+    """Load a converted checkpoint, the npz tools/convert_reference.py
+    writes (keys 'params:a/b/...' and 'batch_stats:a/b/...', the flattened
+    flax variables), into `model` through from_jax_variables, as strictly
+    as the JAX package's load_npz_variables(strict=True): a key the model
+    lacks raises KeyError, a shape that differs ValueError; the model's
+    tensors the file does not hold keep their values. Returns the number of
+    tensors loaded."""
+    flat: Dict[str, list] = {"params": [], "batch_stats": []}
+    with np.load(path) as data:
+        for key in data.files:
+            coll, _, name = key.partition(":")
+            if coll not in flat or not name:
+                raise KeyError(f"{path}: {key!r} is not a 'params:' or 'batch_stats:' key")
+            flat[coll].append((name, data[key]))
+    variables = {coll: _unflatten(items) for coll, items in flat.items()}
+    return _load_checked(from_jax_variables(variables), model, path)
 
 
 def from_jax_variables(variables) -> Dict[str, torch.Tensor]:

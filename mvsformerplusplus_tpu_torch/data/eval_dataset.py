@@ -1,0 +1,155 @@
+"""Evaluation dataset for DTU / Tanks&Temples / ETH3D / custom scans
+(counterpart of mvsformerplusplus_tpu/data/eval_dataset.py): the MVSNet
+scan layout (images/*.jpg, cams/*_cam.txt, pair.txt), per-scene interval
+scale, T&T's 4-row edge pad with the cy shift, a resize toward max_h x
+max_w rounded down to multiples of 64 (exactly max_h x max_w with
+fix_res), per-stage intrinsics, and the optional DTU ground-truth depth.
+
+A view is read by up to `nviews` samples of a scan (once as the reference,
+then as a source of its neighbours), and decoding a JPEG in numpy takes
+about a second per 1152 x 1536 view on a host CPU (PERF.md): each dataset
+keeps the decoded uint8 pixels of its last CACHED_VIEWS views, so a 5-view
+scan decodes each view once.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import OrderedDict
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .image import resize_linear
+from .io import read_cam_file, read_image_u8, read_pair_file, read_pfm
+from .mvs_dataset import stage_cameras
+from .transforms import normalize_imagenet
+
+CACHED_VIEWS = 16  # 16 x 1200 x 1600 x 3 bytes = 92 MB at DTU's size
+
+
+class EvalDataset:
+    def __init__(self, datapath, scan_list: Sequence[str], nviews=5, ndepths=192,
+                 interval_scale=1.06, max_h=1152, max_w=1536, fix_res=False,
+                 dataset_name="dtu", gt_depth_path: Optional[str] = None):
+        self.datapath = datapath
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.max_h = max_h
+        self.max_w = max_w
+        self.fix_res = fix_res
+        self.dataset_name = dataset_name
+        self.gt_depth_path = gt_depth_path
+        if isinstance(interval_scale, dict):
+            self.interval_scale = interval_scale
+        else:
+            self.interval_scale = {s: interval_scale for s in scan_list}
+        self.metas: List[Tuple[str, int, List[int]]] = []
+        for scan in scan_list:
+            for ref, srcs in read_pair_file(os.path.join(datapath, scan, "pair.txt")):
+                if len(srcs) > 0:
+                    self.metas.append((scan, ref, srcs))
+        self._views: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+        self.decodes = 0  # views decoded (the cache's misses)
+        self.decode_s = 0.0  # their seconds, file read and decode
+
+    def __len__(self):
+        return len(self.metas)
+
+    def _read_cam(self, scan, vid):
+        path = os.path.join(self.datapath, scan, "cams", f"{vid:0>8}_cam.txt")
+        if not os.path.exists(path):
+            path = os.path.join(self.datapath, scan, "cams_1", f"{vid:0>8}_cam.txt")
+        K, E, dmin, raw_int, extra = read_cam_file(path, 1.0)
+        if self.dataset_name == "eth3d":
+            # eth3d cams: the second field of the range line is depth_max
+            dint = (raw_int - dmin) / self.ndepths
+        elif "depth_num" in extra and extra["depth_num"] > 0:
+            # a cam with its own hypothesis count: that range over this ndepths
+            dmax = dmin + extra["depth_num"] * raw_int
+            dint = (dmax - dmin) / self.ndepths
+        else:
+            dint = raw_int
+        dint *= self.interval_scale[scan]
+        return K, E, dmin, dint
+
+    def _pixels(self, scan, vid) -> np.ndarray:
+        """The view's decoded uint8 RGB, from the cache or the file (images/,
+        else images_post/). The lock is held while a view decodes, so two
+        loader threads never decode one view twice (decoding is Python and
+        holds the interpreter lock, so they gain nothing by overlapping)."""
+        key = (scan, vid)
+        with self._lock:
+            if key in self._views:
+                self._views.move_to_end(key)
+                return self._views[key]
+            path = os.path.join(self.datapath, scan, "images", f"{vid:0>8}.jpg")
+            if not os.path.exists(path):
+                path = os.path.join(self.datapath, scan, "images_post", f"{vid:0>8}.jpg")
+            t0 = time.perf_counter()
+            pixels = read_image_u8(path)
+            self.decode_s += time.perf_counter() - t0
+            self.decodes += 1
+            self._views[key] = pixels
+            while len(self._views) > CACHED_VIEWS:
+                self._views.popitem(last=False)
+            return pixels
+
+    def _scale_to_max(self, img, K):
+        """Resize toward (max_h, max_w): with fix_res exactly there, else by
+        the smaller of the two ratios (up or down) rounded down to multiples
+        of 64, so the cascade's stride-8 U-Nets divide evenly; K follows."""
+        h, w = img.shape[:2]
+        if self.fix_res:
+            new_h, new_w = self.max_h, self.max_w
+        else:
+            scale = min(self.max_h / h, self.max_w / w)
+            new_h = int(h * scale) // 64 * 64
+            new_w = int(w * scale) // 64 * 64
+        sx, sy = new_w / w, new_h / h
+        img = resize_linear(img, new_h, new_w)
+        K = K.copy()
+        K[0] *= sx
+        K[1] *= sy
+        return img, K
+
+    def __getitem__(self, idx):
+        scan, ref_view, src_views = self.metas[idx]
+        view_ids = [ref_view] + src_views[: self.nviews - 1]
+
+        imgs, cams = [], []
+        depth_values = gt_depth = ref_img = None
+        for i, vid in enumerate(view_ids):
+            img = np.asarray(self._pixels(scan, vid), np.float32) / 255.0
+            K, E, dmin, dint = self._read_cam(scan, vid)
+            if self.dataset_name == "tt":
+                # T&T: 4 rows of edge pad top and bottom (1080 -> 1088), cy shifted
+                img = np.pad(img, ((4, 4), (0, 0), (0, 0)), mode="edge")
+                K = K.copy()
+                K[1, 2] += 4.0
+            img, K = self._scale_to_max(img, K)
+            if i == 0:
+                ref_img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+                depth_values = np.arange(
+                    dmin, dint * self.ndepths + dmin, dint, dtype=np.float32)[: self.ndepths]
+                if self.gt_depth_path is not None:
+                    gt_file = os.path.join(self.gt_depth_path, scan, f"depth_map_{vid:0>4}.pfm")
+                    if os.path.exists(gt_file):
+                        gt_depth = read_pfm(gt_file)[0].astype(np.float32)
+            imgs.append(normalize_imagenet(img))
+            cams.append(stage_cameras(K, E))
+
+        sample = {
+            "imgs": np.stack(imgs).astype(np.float32),
+            "cams": {k: np.stack([c[k] for c in cams]) for k in cams[0]},
+            "depth_values": depth_values,
+            "filename": f"{scan}/{{}}/{view_ids[0]:0>8}{{}}",
+            "scan": scan,
+            "ref_view": ref_view,
+            "ref_img": ref_img,
+        }
+        if gt_depth is not None:
+            sample["gt_depth"] = gt_depth
+        return sample

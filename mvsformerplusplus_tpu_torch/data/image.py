@@ -1,5 +1,5 @@
 """OpenCV's image operations that the data pipeline uses, in numpy: the
-area and nearest resizes of `cv2.resize` and the 8-bit RGB <-> HSV
+area, nearest and linear resizes of `cv2.resize` and the 8-bit RGB <-> HSV
 conversions of `cv2.cvtColor` (the machine the port trains on has no
 OpenCV). Each follows OpenCV's arithmetic step for step in the same
 precision, so it gives OpenCV's values, not just close ones.
@@ -105,6 +105,45 @@ def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(height) * fy).astype(np.int64), sh - 1)
     xs = np.minimum(np.floor(np.arange(width) * fx).astype(np.int64), sw - 1)
     return img[ys][:, xs]
+
+
+def _linear_taps(ssize: int, dsize: int):
+    """OpenCV's INTER_LINEAR taps for one axis: per destination index the
+    two source indices and their weights: f = (d + 0.5) *
+    (ssize / dsize) - 0.5, its floor and its fraction in double, the
+    fraction then rounded to float32; clamped at both borders to the edge
+    sample with weight 0."""
+    scale = 1.0 / (dsize / ssize)
+    f = (np.arange(dsize) + 0.5) * scale - 0.5
+    s = np.floor(f).astype(np.int64)
+    frac = (f - s).astype(np.float32)
+    low, high = s < 0, s >= ssize - 1
+    frac = np.where(low | high, np.float32(0), frac).astype(np.float32)
+    s = np.where(low, 0, np.where(high, ssize - 1, s))
+    return s, np.minimum(s + 1, ssize - 1), np.float32(1) - frac, frac
+
+
+def _lerp(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """a + (b - a) t in float32 with one rounding of the product and sum,
+    as OpenCV's vector loops compute each linear tap pair (a fused
+    multiply-add; here the product and sum exact in float64, then rounded)."""
+    return ((b - a).astype(np.float64) * t + a).astype(np.float32)
+
+
+def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR) for a
+    float32 [H, W] or [H, W, C] image: a horizontal pass, then a vertical
+    one, each tap pair `_lerp`ed with `_linear_taps`' weights. The same
+    size gives a copy."""
+    img = np.asarray(img, np.float32)
+    sh, sw = img.shape[:2]
+    if (height, width) == (sh, sw):
+        return img.copy()
+    tail = (1,) * (img.ndim - 2)
+    x0, x1, _, ax = _linear_taps(sw, width)
+    rows = _lerp(img[:, x0], img[:, x1], ax.reshape((-1,) + tail))
+    y0, y1, _, ay = _linear_taps(sh, height)
+    return _lerp(rows[y0], rows[y1], ay.reshape((-1, 1) + tail))
 
 
 _HSV_SHIFT = 12

@@ -1,13 +1,15 @@
 """On-disk formats (counterpart of mvsformerplusplus_tpu/data/io.py): PFM
-depth maps, MVSNet cam files, pair lists, and PNG images.
+depth maps, MVSNet cam files, pair lists, and PNG and JPEG images.
 
-numpy, zlib and struct only: the machine the port trains on has no PIL and
+numpy, zlib and struct only: the machine the port runs on has no PIL and
 no OpenCV. `read_png` decodes 8-bit non-interlaced PNG of every colour type
 (gray, RGB, palette, gray+alpha, RGBA) with all five row filters and returns
-what numpy makes of the image PIL opens; `read_image` converts to RGB as
-PIL's `convert("RGB")` does. Other files (JPEG, 16-bit or interlaced PNG)
-raise ValueError naming the format. `write_png` writes 8-bit gray, gray+alpha,
-RGB or RGBA PNG with unfiltered rows.
+what numpy makes of the image PIL opens; `read_image` reads PNG or baseline
+JPEG (data/jpeg.py), chosen by the file's signature, and converts to RGB as
+PIL's `convert("RGB")` does. Other files (16-bit or interlaced PNG,
+progressive JPEG, other formats) raise ValueError naming the format.
+`write_png` writes 8-bit gray, gray+alpha, RGB or RGBA PNG with unfiltered
+rows.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .jpeg import decode as decode_jpeg
 
 
 def read_pfm(filename) -> Tuple[np.ndarray, float]:
@@ -191,12 +195,11 @@ def _unfilter(ftypes: np.ndarray, rows: np.ndarray, bpp: int) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8).reshape(h, stride)
 
 
-def _decode_png(filename):
+def _decode_png(filename, data: Optional[bytes] = None):
     """-> (pixels uint8 [H, W, samples], colour type, palette [N, 3] or None)."""
-    data = Path(filename).read_bytes()
+    data = Path(filename).read_bytes() if data is None else data
     if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{filename}: {_sniff(data[:8])} file; only PNG images can be read "
-                         "(no other decoder in this package)")
+        raise ValueError(f"{filename}: {_sniff(data[:8])} file, not PNG")
     pos, idat, header, palette = 8, [], None, None
     while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
@@ -237,19 +240,29 @@ def read_png(filename) -> np.ndarray:
     return pixels[..., 0] if pixels.shape[2] == 1 else pixels
 
 
-def read_image(filename) -> np.ndarray:
-    """Image file -> float32 [H, W, 3] in [0, 1], converted to RGB as PIL's
+def read_image_u8(filename) -> np.ndarray:
+    """PNG or JPEG file -> uint8 [H, W, 3], converted to RGB as PIL's
     convert("RGB") does: gray replicated, alpha dropped, palette looked up."""
-    pixels, ctype, palette = _decode_png(filename)
+    data = Path(filename).read_bytes()
+    if _sniff(data[:8]) == "JPEG":
+        pixels = decode_jpeg(data, str(filename))
+        return np.repeat(pixels[..., None], 3, axis=2) if pixels.ndim == 2 else pixels
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{filename}: {_sniff(data[:8])} file; only PNG and JPEG images can "
+                         "be read")
+    pixels, ctype, palette = _decode_png(filename, data)
     if ctype == 3:
         table = np.zeros((256, 3), np.uint8)
         table[:len(palette)] = palette[:256]
-        rgb = table[pixels[..., 0]]
-    elif ctype in (0, 4):
-        rgb = np.repeat(pixels[..., :1], 3, axis=2)
-    else:
-        rgb = pixels[..., :3]
-    return np.asarray(rgb, np.float32) / 255.0
+        return table[pixels[..., 0]]
+    if ctype in (0, 4):
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    return pixels[..., :3]
+
+
+def read_image(filename) -> np.ndarray:
+    """PNG or JPEG file -> float32 [H, W, 3] in [0, 1] (read_image_u8 / 255)."""
+    return np.asarray(read_image_u8(filename), np.float32) / 255.0
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -1,6 +1,6 @@
 """Host-side input pipeline (counterpart of mvsformerplusplus_tpu/data/loader.py,
-for one process): threaded prefetch, batching, and balanced multi-dataset
-sampling.
+for one process): threaded prefetch, batching, balanced multi-dataset
+sampling, and the evaluation loader.
 
 TrainLoader walks a ShapeBucketSchedule (one crop scale per batch,
 reproducible from (seed, epoch)); its worker threads load the next two
@@ -111,3 +111,31 @@ class ConcatDataset(MVSTrainDataset):
     def get_sample(self, idx, crop_hw, epoch=0):
         child = int(np.searchsorted(self.offsets, idx, side="right") - 1)
         return self.children[child].get_sample(int(idx - self.offsets[child]), crop_hw, epoch)
+
+
+class EvalLoader:
+    """Sequential prefetching loader of an evaluation dataset: worker
+    threads load the next two samples while the current one runs; `rank`
+    and `world` stride the sample indices across processes."""
+
+    def __init__(self, dataset, rank: int = 0, world: int = 1, num_workers: int = 2):
+        self.dataset = dataset
+        self.indices = list(range(len(dataset)))[rank::world]
+        self.num_workers = num_workers
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __iter__(self):
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        try:
+            todo = iter(self.indices)
+            pending = [pool.submit(self.dataset.__getitem__, i) for _, i in zip(range(2), todo)]
+            while pending:
+                fut = pending.pop(0)
+                nxt = next(todo, None)
+                if nxt is not None:
+                    pending.append(pool.submit(self.dataset.__getitem__, nxt))
+                yield fut.result()
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)

@@ -7,8 +7,8 @@ Every sample of a batch shares one crop scale; ShapeBucketSchedule assigns
 the scales to batches from (seed, epoch), so a run is reproducible. Each
 view's intrinsics are scaled by 0.125/0.25/0.5/1 into the per-stage
 [V, 2, 4, 4] camera stacks the model takes. numpy only (data/image.py
-stands in for OpenCV, data/io.py for PIL); BlendedMVS, whose images are
-JPEG, is not ported.
+stands in for OpenCV, data/io.py for PIL); BlendedMVS's dataset is not
+ported (ROADMAP.md §1 item 8c).
 """
 from __future__ import annotations
 

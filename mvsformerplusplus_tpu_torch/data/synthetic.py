@@ -1,13 +1,14 @@
-"""Synthetic DTU-format training data (counterpart of
+"""Synthetic DTU-format training data and eval scans (counterpart of
 mvsformerplusplus_tpu/data/synthetic.py), written with this package's own
-PNG, PFM and cam writers.
+PNG, JPEG, PFM and cam writers.
 
 - `make_synthetic_dtu`: random images and depths in the DTU training
   layout; exercises the plumbing only.
 - `GeometricScene` + `make_geometric_dtu`: an analytic scene of textured
   planar quads rendered by exact ray-quad intersection, so every view is
   photometrically consistent with every other and the ground-truth depth is
-  closed-form; a short training run on it can converge.
+  closed-form; a short training run on it can converge;
+  `make_geometric_eval_scan` renders it into the MVSNet eval layout.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from pathlib import Path
 import numpy as np
 
 from .io import save_cam_file, save_pair_file, save_pfm, write_png
+from .jpeg import write_jpeg
 
 
 def make_synthetic_dtu(root: Path, n_scans: int = 1, n_views: int = 5, n_lights: int = 2,
@@ -216,4 +218,33 @@ def make_geometric_dtu(root: Path, n_views: int = 5, n_lights: int = 7, h: int =
         pairs.append((vid, [(s, 100.0) for s in range(n_views) if s != vid]))
     save_pair_file(root / "Cameras" / "pair.txt", pairs)
     (root / "train.txt").write_text(f"{scan}\n")
+    return scene
+
+
+def make_geometric_eval_scan(root: Path, scan: str = "scan1", n_views: int = 5, h: int = 1152,
+                             w: int = 1536, ndepth: int = 192, seed: int = 0,
+                             scene: "GeometricScene" = None):
+    """The MVSNet eval layout (scan/images/*.jpg at quality 97, scan/cams,
+    scan/pair.txt, every other view a source of each) rendered from the
+    analytic scene, and its ground-truth depth PFMs under
+    root/gt_depths/<scan>/ (the eval CLI's --gt_depth_path). Returns the
+    scene."""
+    scene = scene or GeometricScene(seed)
+    sd = Path(root) / scan
+    (sd / "images").mkdir(parents=True, exist_ok=True)
+    (sd / "cams").mkdir(parents=True, exist_ok=True)
+    gt_dir = Path(root) / "gt_depths" / scan
+    gt_dir.mkdir(parents=True, exist_ok=True)
+    cams = geometric_cameras(n_views, h, w)
+    depths = []
+    for vid, (K, E) in enumerate(cams):
+        img, depth = scene.render(K, E, h, w)
+        write_jpeg(sd / "images" / f"{vid:0>8}.jpg", (img * 255).astype(np.uint8), quality=97)
+        save_pfm(gt_dir / f"depth_map_{vid:0>4}.pfm", depth)
+        depths.append(depth)
+    dmin, dint = _depth_range(np.stack(depths), ndepth)
+    for vid, (K, E) in enumerate(cams):
+        save_cam_file(sd / "cams" / f"{vid:0>8}_cam.txt", K, E, dmin, dint)
+    save_pair_file(sd / "pair.txt", [(r, [(s, 100.0) for s in range(n_views) if s != r])
+                                      for r in range(n_views)])
     return scene

@@ -44,3 +44,19 @@ def well_conditioned(depth_values, far: float) -> np.ndarray:
     by orders of magnitude, so depths are compared only where this holds."""
     dv = np.asarray(depth_values)
     return ((dv > 0) & (dv < 4 * far)).all(axis=1)
+
+
+def inverse_depth_bounds(dmin: float, dmax: float, ndepths=(32, 16, 8, 4),
+                         ratios=(4.0, 2.67, 1.5, 1.0)):
+    """(lo, hi) that every hypothesis, and so every regressed depth, of the
+    inverse-depth cascade lies in for a depth range [dmin, dmax]: stage 1
+    spans it uniformly in inverse depth; stage k spans ratio_k previous
+    inverse intervals either side of the previous depth, and its own
+    interval is that span over D_k - 1."""
+    lo_inv, hi_inv = 1.0 / dmax, 1.0 / dmin
+    itv = (hi_inv - lo_inv) / (ndepths[0] - 1)
+    ext = 0.0
+    for nd, r in zip(ndepths[1:], ratios[1:]):
+        ext += r * itv
+        itv = 2 * r * itv / (nd - 1)
+    return 1.0 / (hi_inv + ext), (1.0 / (lo_inv - ext) if lo_inv > ext else float("inf"))

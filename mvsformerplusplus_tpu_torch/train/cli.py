@@ -83,7 +83,7 @@ def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
 def _train_dataset(entry: dict, msa: MultiScaleArgs, datapath: Optional[str]):
     if entry.get("type") != "DTULoader":
         raise SystemExit(f"data_loader type {entry.get('type')!r} is not ported: DTU-format "
-                         "data only (BlendedMVS needs a JPEG decoder, ROADMAP.md §1 item 8)")
+                         "data only (BlendedMVS needs its BlendedTrainDataset, ROADMAP.md §1 item 8c)")
     a = entry["args"]
     return DTUTrainDataset(datapath or a["datapath"], a["train_data_list"], mode="train",
                            nviews=a.get("nviews", 5), ndepths=a.get("num_depths", 192),

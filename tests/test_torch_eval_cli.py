@@ -1,0 +1,230 @@
+"""The port's eval command line end to end on the CPU (--device cpu), its
+fuse_scan against the JAX test.py's, its refusals, and convert.load_npz.
+
+- The tiny flagship on a 3-view 128 x 192 geometric scan (JPEG images, GT
+  depths): the MVSNet output layout, each file's type and shape, the cams
+  the dataset gave, the reference JPEG decoding as cv2.imwrite's would,
+  depth_metric.txt with the JAX metric set; then --skip_depth with pcd and
+  gipuma.
+- fuse_scan against JAX's test.fuse_scan on the same written depth maps
+  (the robust plane scene of test_torch_fusion.py): the ply files hold the
+  same points (rtol 1e-5) and colours (exact), for each method.
+- load_npz round-trips tools/convert_reference.save_npz of random flax
+  variables into the state from_jax_variables gives, strictly."""
+import importlib.util
+import io
+import json
+import logging
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from mvsformerplusplus_tpu.models.mvsformer import DINOv2MVSNet as JaxFlagship
+from mvsformerplusplus_tpu.train.metrics import depth_metrics as jax_depth_metrics
+from mvsformerplusplus_tpu_torch.convert import load_npz
+from mvsformerplusplus_tpu_torch.data.eval_dataset import EvalDataset
+from mvsformerplusplus_tpu_torch.data.io import read_cam_file, read_pfm, save_cam_file, save_pfm
+from mvsformerplusplus_tpu_torch.data.io import save_pair_file
+from mvsformerplusplus_tpu_torch.data.jpeg import write_jpeg
+from mvsformerplusplus_tpu_torch.data.synthetic import GeometricScene, make_geometric_eval_scan
+from mvsformerplusplus_tpu_torch.eval import cli
+from mvsformerplusplus_tpu_torch.fusion.ply import read_ply
+from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
+from mvsformerplusplus_tpu_torch.testing import inverse_depth_bounds
+from tests.test_casmvs import make_inputs
+from tests.test_torch_flagship import TINY, TINY_ARCH_ARGS
+from tests.test_torch_fusion import _scene
+from tests.torch_parity import init_flax, load_port
+from tools.convert_reference import save_npz
+
+REPO = Path(__file__).resolve().parents[1]
+H, W = 128, 192
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def scan(tmp_path_factory):
+    root = tmp_path_factory.mktemp("eval")
+    make_geometric_eval_scan(root, "scan1", n_views=3, h=H, w=W, ndepth=48,
+                             scene=GeometricScene(seed=2, tex_res=128))
+    (root / "list.txt").write_text("scan1\n")
+    cfg = {"arch": {"args": {**TINY_ARCH_ARGS, "vit_depth": 3,
+                             "vit_path": str(root / "none.npz")}}}
+    (root / "cfg.json").write_text(json.dumps(cfg))
+    return root
+
+
+def _argv(root, out, *extra):
+    return ["--config", str(root / "cfg.json"), "--testpath", str(root),
+            "--testlist", str(root / "list.txt"), "--outdir", str(out), "--num_view", "3",
+            "--numdepth", "48", "--max_h", str(H), "--max_w", str(W), "--device", "cpu", *extra]
+
+
+@pytest.fixture(scope="module")
+def run(scan, tmp_path_factory):
+    out = tmp_path_factory.mktemp("out")
+    stats = cli.main(_argv(scan, out, "--gt_depth_path", str(scan / "gt_depths")))
+    return out, stats
+
+
+def test_eval_cli_writes_the_mvsnet_layout(scan, run):
+    out, stats = run
+    assert stats["maps"] == 3 and stats["decodes"] == 3 and stats["forward_ms"] == []
+    ds = EvalDataset(str(scan), ["scan1"], nviews=3, ndepths=48, max_h=H, max_w=W)
+    for i in range(3):
+        sample = ds[i]
+        ref = f"{sample['ref_view']:0>8}"
+        depth = read_pfm(out / "scan1" / "depth_est" / f"{ref}.pfm")[0]
+        dv = sample["depth_values"]
+        assert depth.shape == (H, W) and np.isfinite(depth).all()
+        lo, hi = inverse_depth_bounds(dv[0], dv[-1], TINY["ndepths"])
+        assert (depth >= lo * (1 - 1e-5)).all() and (depth <= hi * (1 + 1e-5)).all()
+        conf = np.load(out / "scan1" / "confidence" / f"{ref}.npy")
+        assert conf.dtype == np.uint8 and conf.shape == (H, W)
+        K, E, dmin, dint, _ = read_cam_file(out / "scan1" / "cams" / f"{ref}_cam.txt")
+        cam = sample["cams"]["stage4"][0]
+        np.testing.assert_allclose(K, cam[1, :3, :3], rtol=1e-6)
+        np.testing.assert_allclose(E, cam[0], rtol=1e-6)
+        assert np.isclose(dmin, dv[0]) and np.isclose(dint, dv[1] - dv[0])
+        ok, ref_jpg = cv2.imencode(".jpg", sample["ref_img"][..., ::-1])
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(out / "scan1" / "images" / f"{ref}.jpg")),
+            np.asarray(Image.open(io.BytesIO(ref_jpg.tobytes()))))
+    lines = dict(ln.split(": ") for ln in (out / "depth_metric.txt").read_text().splitlines())
+    z = np.zeros((1, 4, 4), np.float32)
+    assert set(lines) == {"n_views"} | set(jax_depth_metrics(z, z, z > -1))
+    assert lines["n_views"] == "3" and all(np.isfinite(float(v)) for v in lines.values())
+    assert (out / "scan1.ply").exists() and stats["points"]["scan1"] >= 0
+
+
+@pytest.mark.parametrize("method", ["pcd", "gipuma"])
+def test_skip_depth_fuses_the_written_maps(scan, run, method):
+    out, _ = run
+    (out / "scan1.ply").unlink(missing_ok=True)
+    stats = cli.main(_argv(scan, out, "--skip_depth", "--filter_method", method))
+    assert "maps" not in stats and (out / "scan1.ply").exists()
+    assert len(read_ply(out / "scan1.ply")[0]) == stats["points"]["scan1"]
+
+
+def _jax_test_cli():
+    """The repo's test.py as a module (a plain `import test` would find the
+    standard library's test package)."""
+    spec = importlib.util.spec_from_file_location("jax_eval_cli", REPO / "test.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def written(tmp_path_factory):
+    """The robust plane scene written as an eval CLI's output: ref view 0
+    twice in pair.txt (the second pass meets gipuma's used mask), sources
+    1-4; confidence as uint8; colours from a JPEG per view."""
+    root = tmp_path_factory.mktemp("fuse")
+    s = _scene()
+    depths = [s["ref_depth"], *s["src_depths"]]
+    confs = [s["ref_conf"], *s["src_confs"]]
+    cams = [s["ref_cam"], *s["src_cams"]]
+    d = root / "out" / "scan1"
+    for sub in ("depth_est", "confidence", "cams", "images"):
+        (d / sub).mkdir(parents=True)
+    rng = np.random.RandomState(4)
+    for v in range(5):
+        save_pfm(d / "depth_est" / f"{v:0>8}.pfm", depths[v])
+        np.save(d / "confidence" / f"{v:0>8}.npy", np.round(confs[v] * 255).astype(np.uint8))
+        save_cam_file(d / "cams" / f"{v:0>8}_cam.txt", cams[v][1, :3, :3], cams[v][0], 4.0, 0.1)
+        write_jpeg(d / "images" / f"{v:0>8}.jpg",
+                   (rng.rand(*depths[v].shape, 3) * 255).astype(np.uint8))
+    (root / "scan1").mkdir()
+    save_pair_file(root / "scan1" / "pair.txt", [(0, [(s_, 1.0) for s_ in (1, 2, 3, 4)]),
+                                                 (0, [(s_, 1.0) for s_ in (4, 3, 2, 1)])])
+    return root
+
+
+@pytest.mark.parametrize("method", ["dpcd", "pcd", "gipuma"])
+def test_fuse_scan_ply_matches_jax(written, method):
+    args = cli.parser().parse_args(
+        ["--config", "unused", "--testpath", str(written), "--testlist", "unused",
+         "--outdir", str(written / "out"), "--filter_method", method, "--thres_view", "3",
+         "--device", "cpu"])
+    n = cli.fuse_scan(args, "scan1", torch.device("cpu"))
+    got = read_ply(written / "out" / "scan1.ply")
+    _jax_test_cli().fuse_scan(args, "scan1")
+    want = read_ply(written / "out" / "scan1.ply")
+    assert n == len(want[0]) > 0
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("flags", [["--world", "2"], ["--schedule", "queue"],
+                                   ["--reclaim_stale", "30"]], ids=lambda f: f[0])
+def test_multi_process_flags_exit_naming_the_roadmap(scan, tmp_path, capsys, flags):
+    with pytest.raises(SystemExit):
+        cli.main(_argv(scan, tmp_path, *flags))
+    assert "ROADMAP.md §1 item 9" in capsys.readouterr().err
+
+
+def test_window_check_logs_one_line(scan, tmp_path, caplog):
+    with caplog.at_level(logging.INFO, logger="mvsformerplusplus_tpu_torch"):
+        cli.main(_argv(scan, tmp_path, "--filter_method", "none"))
+    assert sum("--window_check" in r.getMessage() for r in caplog.records) == 1
+    assert not (tmp_path / "scan1.ply").exists()
+
+
+def test_eval_cli_needs_the_card_unless_told_cpu(scan, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in _argv(scan, tmp_path) if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv)
+
+
+@pytest.fixture(scope="module")
+def flax_npz(tmp_path_factory):
+    imgs, cams, dv = make_inputs(np.random.RandomState(0), h=64, w=128)
+    variables = init_flax(JaxFlagship(**TINY, remat_stages=False), imgs, cams, dv, train=False)
+    path = tmp_path_factory.mktemp("npz") / "ckpt.npz"
+    save_npz(variables["params"], variables["batch_stats"], path)
+    return variables, path
+
+
+def test_load_npz_matches_from_jax_variables(flax_npz):
+    variables, path = flax_npz
+    want = load_port(DINOv2MVSNet(**TINY), variables).state_dict()
+    model = DINOv2MVSNet(**TINY)
+    assert load_npz(path, model) == len(want)
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
+def test_load_npz_is_strict(flax_npz, tmp_path):
+    _, path = flax_npz
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    key = "params:encoder/ConvBlock_0/Conv_0/kernel"
+    assert key in flat
+    np.savez(tmp_path / "extra.npz", **flat, **{"params:nowhere/kernel": np.zeros((3, 3))})
+    with pytest.raises(KeyError, match="nowhere"):
+        load_npz(tmp_path / "extra.npz", DINOv2MVSNet(**TINY))
+    np.savez(tmp_path / "shape.npz", **{**flat, key: flat[key][..., :1]})
+    with pytest.raises(ValueError, match="shape"):
+        load_npz(tmp_path / "shape.npz", DINOv2MVSNet(**TINY))
+    partial = {k: v for k, v in flat.items() if k != key}
+    np.savez(tmp_path / "partial.npz", **partial)
+    model = DINOv2MVSNet(**TINY)
+    before = model.state_dict()["encoder.ConvBlock_0.Conv_0.weight"].clone()
+    assert load_npz(tmp_path / "partial.npz", model) == len(partial) + sum(
+        k.startswith("batch_stats:") and k.endswith("/mean") for k in partial)
+    torch.testing.assert_close(model.state_dict()["encoder.ConvBlock_0.Conv_0.weight"], before)

@@ -120,8 +120,8 @@ def test_write_png_reads_back_in_pil(tmp_path, channels):
 
 def test_unsupported_files_name_their_format(tmp_path):
     arr = _texture(np.random.RandomState(0), 16, 16, 3)
-    Image.fromarray(arr).save(tmp_path / "x.jpg", quality=90)
-    with pytest.raises(ValueError, match="JPEG"):
+    Image.fromarray(arr).save(tmp_path / "x.jpg", quality=90, progressive=True)
+    with pytest.raises(ValueError, match="progressive JPEG"):
         read_image(tmp_path / "x.jpg")
     Image.fromarray(arr[..., 0].astype(np.uint16) * 200).save(tmp_path / "x16.png")
     with pytest.raises(ValueError, match="16-bit"):
