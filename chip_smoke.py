@@ -56,12 +56,13 @@ Phases, one JSON line each:
   train_cli   the training command line (python -m mvsformerplusplus_tpu_torch.train)
               in process with configs/mvsformerplusplus.json at full width on
               a geometric DTU-format scan it writes (5 views x 7 lights at
-              576 x 800): two epochs at batch 2 over 512 x 640 and 512 x 768
-              crops with validation at 512 x 640, then -r to a third epoch;
-              the checkpoints, a bit-equal restore, the resumed epoch, step
-              and learning rate, steps and ms per step per crop bucket, the
-              host's wait on the loader, validation ms per map and peak
-              memory;
+              576 x 800, 2 of its views as references: 14 samples): two
+              epochs at batch 2 over 512 x 640 and 512 x 768 crops with
+              validation at 512 x 640, then -r to a third epoch; the
+              checkpoints, a bit-equal restore, the resumed epoch, step and
+              learning rate, scalars.jsonl, steps and ms per step per crop
+              bucket, the host's wait on the loader, validation ms per map
+              and peak memory;
   eval_cli    the eval command line (python -m mvsformerplusplus_tpu_torch.eval)
               in process with configs/mvsformerplusplus.json at full width on
               a 5-view geometric scan it writes at 1152 x 1536 (JPEG): 5
@@ -71,11 +72,34 @@ Phases, one JSON line each:
               with each method, ms per map end to end and the forward's,
               decode and encode ms per image, the loader-wait share, fusion
               seconds and points per method, peak memory; then a bench.py-
-              shaped line {"metric", "value" (maps/s), ...}.
-Each path (main_path, train_step, train_cli, eval_cli) is run with every kernel's
+              shaped line {"metric", "value" (maps/s), ...};
+  casmvs_reference, casmvs_reference_train
+              the reference phases on a small CasMVSNet (fp32);
+  casmvs_main_path, casmvs_profile
+              CasMVSNet (configs/casmvs.json, build_model: bf16) at DTU eval
+              (1 x 5 x 1152 x 1536, 192 depths), as main_path and profile;
+              no flash kernel may launch (the model has no attention);
+  casmvs_train_step, casmvs_profile_train
+              its train step at the config's micro-batch of 4 at 512 x 640
+              through the port's Trainer, as train_step and profile_train;
+  casmvs_cli  the training command line with configs/casmvs.json on
+              train_cli's scan and crops, batch 4, one epoch with validation
+              (scalars.jsonl and the panels read back), then the eval command
+              line with its checkpoints on eval_cli's scan (5 maps, dpcd);
+  blended_cli the training command line with configs/mvsformerplusplus_ft.json
+              (--finetune from train_cli's checkpoints, --debug) on a BlendedMVS-
+              layout scan it writes (8 views at 1536 x 2048, JPEG), one epoch of
+              512 x 640 crops at batch 4, validation at 1536 x 2048: metrics on
+              the "blended" interval scale, scalars.jsonl's train, val and
+              debug records, every module's gradient norm finite and no
+              non-finite gradient, the panels, ms per step, validation ms per
+              map, decode ms per image, peak memory.
+Each path (main_path, train_step, train_cli, eval_cli, casmvs_main_path,
+casmvs_train_step, casmvs_cli, blended_cli) is run with every kernel's
 launch count set to 0 just before it and read just after; the kernel phase's
 cases must add up to those counts (so the f32 flash and conv kernels and the
-warps' scalar kernels, whose cases belong to no path, must not launch there).
+warps' scalar kernels, whose cases belong to no path, must not launch there,
+nor any flash kernel on a CasMVSNet path).
 Then the eval CLI's metric line, the {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
@@ -83,6 +107,7 @@ Any failure exits non-zero before the last line. Needs one CUDA card.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -92,6 +117,8 @@ import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "mvsformerplusplus.json"
+CASMVS_CONFIG = REPO / "configs" / "casmvs.json"
+FT_CONFIG = REPO / "configs" / "mvsformerplusplus_ft.json"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -107,6 +134,7 @@ TINY = dict(feat_chs=(4, 8, 16, 32), vit_ch=64, vit_depth=3, vit_num_heads=4, ou
             transformer_config=(dict(mid_channel=32, num_heads=2, down_rate=(2, 4, 4),
                                      mlp_ratio=2, layer_num=2),),
             cost_reg_type=("PureTransformerCostReg", "Normal", "Normal", "Normal"))
+TINY_CASMVS = dict(feat_chs=(4, 8, 16, 32), ndepths=(8, 4, 4, 4), groups=(4, 4, 4, 4))
 
 
 def emit(obj) -> None:
@@ -178,6 +206,14 @@ def device_ms(fn, iters=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def release() -> None:
+    """Free what a finished run left on the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -189,54 +225,102 @@ def nbytes(*ts) -> int:
 # the kernel's launch count in that run. The paths: "main_path", the
 # DTU-eval forward; "train_step", the train step; "train_cli", the training
 # command line's whole run (CLI below: its train steps at two crop buckets
-# and its validation forwards). Each `*_fault` computes the kernel's output
+# and its validation forwards); "eval_cli", the eval command line's; their
+# CasMVSNet counterparts "casmvs_main_path", "casmvs_train_step" and
+# "casmvs_cli" (its training and eval command lines); "blended_cli", the
+# BlendedMVS fine-tune's run. Each `*_fault` computes the kernel's output
 # with a planted arithmetic fault (mostly as a change of the inputs), which
 # # the kernel-vs-plain check must reject. The TPU rows are those of PERF.md's
-# kernel table that the JAX package runs at that shape.
+# kernel table that the JAX package runs at that shape. A shape config names
+# the model family whose kernels run at it: CasMVSNet runs no flash and no
+# FMT smoothing conv.
 
 TRAIN = dict(b=2, v=5, h=512, w=640, dfull=192)
+# the casmvs_train_step phase: CasMVSNet at its config's micro-batch at 512 rows
+CAS_TRAIN = dict(b=4, v=5, h=512, w=640, dfull=192)
 TRAIN_NDEPTHS = (32, 16, 8, 4)
 TRAIN_STAGE_C = (64, 32, 16, 8)
 
 # the train_cli phase: configs/mvsformerplusplus.json on one geometric
-# DTU-format scan (5 views x 7 lights = 35 samples at 576 x 800), batch 2,
-# two epochs and a resumed third, validating each epoch on the 35 samples
-CLI = dict(samples=35, batch=2, scales=((512, 640), (512, 768)), val_hw=(512, 640), epochs=3,
-           hw=(576, 800))
+# DTU-format scan (5 views x 7 lights at 576 x 800, pair.txt cut to its
+# first 2 reference views: 14 samples), batch 2, two epochs and a resumed
+# third, validating each epoch on the 14 samples
+CLI = dict(samples=14, refs=2, batch=2, scales=((512, 640), (512, 768)), val_hw=(512, 640),
+           epochs=3, hw=(576, 800))
 
 # the eval_cli phase: the eval command line on one 5-view geometric scan at
 # the DTU-eval size, 192 depths: 5 depth maps (each at main_path's shapes),
 # then fusion of the 5 reference views, each against its 4 sources
 EVAL_CLI = dict(views=5, hw=(1152, 1536), depths=192)
 
+# the casmvs_cli phase: configs/casmvs.json through the training CLI on
+# train_cli's scan and crops at batch 4 (its scale_batch_map's micro-batch
+# at 512 rows: one micro-batch a step), one epoch validating on the 14
+# samples; then the eval CLI on eval_cli's scan (5 maps, dpcd fusion)
+CAS_CLI = dict(batch=4, epochs=1)
 
-def cli_counts():
-    """Train steps per crop bucket over the CLI run's three epochs (the
-    loader's schedule, drawn from its seed) and its validation maps."""
+# the blended_cli phase: configs/mvsformerplusplus_ft.json on one
+# BlendedMVS-layout scan of 8 views at the config's 1536 x 2048 (8 samples):
+# one epoch of 512 x 640 crops at batch 4 (2 steps), validating the 8 views
+# whole; the train and validation datasets decode each view once (16 decodes)
+BLENDED = dict(views=8, hw=(1536, 2048), batch=4, scales=((512, 640),), epochs=1)
+
+
+def schedule_steps(samples, scales, batch, epochs):
+    """Train steps per crop bucket over `epochs` epochs of the loader's
+    schedule (drawn from its seed)."""
     from mvsformerplusplus_tpu_torch.data.mvs_dataset import ShapeBucketSchedule
 
-    sched = ShapeBucketSchedule(CLI["samples"], CLI["scales"], CLI["batch"], seed=0)
-    steps = {hw: 0 for hw in CLI["scales"]}
-    for epoch in range(CLI["epochs"]):
+    sched = ShapeBucketSchedule(samples, scales, batch, seed=0)
+    steps = {tuple(hw): 0 for hw in scales}
+    for epoch in range(epochs):
         for _, hw in sched.epoch(epoch):
             steps[tuple(hw)] += 1
-    return steps, CLI["samples"] * CLI["epochs"]
+    return steps
+
+
+def cli_counts():
+    """Train steps per crop bucket over the CLI run's three epochs and its
+    validation maps."""
+    return (schedule_steps(CLI["samples"], CLI["scales"], CLI["batch"], CLI["epochs"]),
+            CLI["samples"] * CLI["epochs"])
 
 
 def shape_configs():
     """(name, 'eval' or 'train', (B, H, W), batch seed, {path: runs of that
-    shape per run of the path}): the DTU eval forward, the train step at
-    512 x 640 (the train_step path and the CLI's 512 x 640 bucket), the
-    CLI's 512 x 768 bucket and the CLI's validation forwards (B=1, 512 x
-    640, eval mode)."""
+    shape per run of the path}, model family): the flagship's DTU eval
+    forward, its train step at 512 x 640 (the train_step path and the CLI's
+    512 x 640 bucket), the CLI's 512 x 768 bucket and the CLI's validation
+    forwards (B=1, 512 x 640, eval mode); CasMVSNet's DTU eval forward
+    (casmvs_main_path and the casmvs_cli's eval maps), its train step at
+    micro-batch 4 at 512 x 640 and 512 x 768 and its validation forwards;
+    the flagship's BlendedMVS validation forward at 1536 x 2048 and its
+    fine-tune step at micro-batch 4 at 512 x 640. A config no path runs is
+    left out."""
     steps, val_maps = cli_counts()
-    return [
-        ("eval1152", "eval", (1, 1152, 1536), 0, {"main_path": 1, "eval_cli": EVAL_CLI["views"]}),
+    cas = schedule_steps(CLI["samples"], CLI["scales"], CAS_CLI["batch"], CAS_CLI["epochs"])
+    blended = schedule_steps(BLENDED["views"], BLENDED["scales"], BLENDED["batch"],
+                             BLENDED["epochs"])
+    configs = [
+        ("eval1152", "eval", (1, 1152, 1536), 0, {"main_path": 1, "eval_cli": EVAL_CLI["views"]},
+         "flagship"),
         ("train640", "train", (2, 512, 640), 1,
-         {"train_step": 1, "train_cli": steps[(512, 640)]}),
-        ("train768", "train", (2, 512, 768), 1, {"train_cli": steps[(512, 768)]}),
-        ("eval640", "eval", (1, 512, 640), 1, {"train_cli": val_maps}),
+         {"train_step": 1, "train_cli": steps[(512, 640)]}, "flagship"),
+        ("train768", "train", (2, 512, 768), 1, {"train_cli": steps[(512, 768)]}, "flagship"),
+        ("eval640", "eval", (1, 512, 640), 1, {"train_cli": val_maps}, "flagship"),
+        ("casmvs_eval", "eval", (1, 1152, 1536), 0,
+         {"casmvs_main_path": 1, "casmvs_cli": EVAL_CLI["views"]}, "casmvs"),
+        ("casmvs_train", "train", (4, 512, 640), 1,
+         {"casmvs_train_step": 1, "casmvs_cli": cas[(512, 640)]}, "casmvs"),
+        ("casmvs_train768", "train", (4, 512, 768), 1, {"casmvs_cli": cas[(512, 768)]}, "casmvs"),
+        ("casmvs_val", "eval", (1, 512, 640), 1,
+         {"casmvs_cli": CLI["samples"] * CAS_CLI["epochs"]}, "casmvs"),
+        ("blended_val", "eval", (1,) + BLENDED["hw"], 2,
+         {"blended_cli": BLENDED["views"] * BLENDED["epochs"]}, "flagship"),
+        ("blended_train", "train", (BLENDED["batch"],) + BLENDED["scales"][0], 1,
+         {"blended_cli": blended[BLENDED["scales"][0]]}, "flagship"),
     ]
+    return [c for c in configs if any(c[4].values())]
 
 
 def _config_batch(bhw, seed):
@@ -303,7 +387,7 @@ def warp_cases():
     the 512 x 768 crop's stage 3 the depth-folded blend's (row 12); then
     fusion's samples (fusion_warp_cases)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for name, _, bhw, seed, runs in shape_configs():
+    for name, _, bhw, seed, runs, _ in shape_configs():
         imgs, cams, dv = _config_batch(bhw, seed)
         nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
         for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
@@ -339,7 +423,9 @@ def fusion_warp_cases():
                               ("pcd", 3, static[:, None])):
         src = torch.zeros(v - 1, h, w, 4, device="cuda")
         src[..., :c] = torch.randn(v - 1, h, w, c, generator=gen, device="cuda")
-        yield f"eval_cli_fusion_{method}", {"eval_cli": v}, (src, coords), ()
+        # casmvs_cli fuses its 5 maps with dpcd alone
+        runs = {"eval_cli": v, **({"casmvs_cli": v} if method == "dpcd" else {})}
+        yield f"eval_cli_fusion_{method}", runs, (src, coords), ()
 
 
 def misaligned(t):
@@ -382,7 +468,7 @@ def warp_bwd_cases():
     y-grouped blend's VJP, is its transpose where the pallas mode ran rows
     10 and 12, and no model path reaches it."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for name, kind, bhw, seed, runs in shape_configs():
+    for name, kind, bhw, seed, runs, _ in shape_configs():
         if kind != "train":
             continue
         imgs, cams, dv = _config_batch(bhw, seed)
@@ -434,7 +520,9 @@ def flash_cases():
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for name, kind, (b, h, w), _, runs in shape_configs():
+    for name, kind, (b, h, w), _, runs, model in shape_configs():
+        if model != "flagship":
+            continue
         v = TRAIN["v"]  # every config has 5 views
         n_vit, n_cta = _tokens(h, w)
         train = kind == "train"
@@ -497,8 +585,8 @@ def flash_bwd_cases():
                                                                       flash_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for name, kind, (b, h, w), _, runs in shape_configs():
-        if kind != "train":
+    for name, kind, (b, h, w), _, runs, model in shape_configs():
+        if kind != "train" or model != "flagship":
             continue
         n = _tokens(h, w)[1]
         scale = entropy_inv_scale(16, n, 12185)
@@ -552,9 +640,11 @@ CONV_SHAPES = ([("encoder_7x7_3to8", 1, (5, 1, 3, 8, 7)), ("encoder_5x5_8to8", 1
                + [(f"fmt_smooth_{c}", 5, (1, c // 8, c, c, 3)) for c in (32, 16, 8)])
 
 
-def _batched_conv(shapes, b):
-    """The same convs on B samples: the batch of each grows B-fold."""
-    return [(name, n, (b * bb, div, ci, co, k)) for name, n, (bb, div, ci, co, k) in shapes]
+def _batched_conv(shapes, b, model):
+    """The same convs on B samples (the batch of each grows B-fold), those
+    of `model`: CasMVSNet has no FMT."""
+    return [(name, n, (b * bb, div, ci, co, k)) for name, n, (bb, div, ci, co, k) in shapes
+            if model == "flagship" or not name.startswith("fmt_")]
 
 
 # the convs whose input needs a gradient on the train path, with their dx
@@ -566,8 +656,8 @@ CONV_DX_SHAPES = [sh for sh in CONV_SHAPES
 
 def conv_cases():
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for name, _, (b, h, w), _, runs in shape_configs():
-        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b):
+    for name, _, (b, h, w), _, runs, model in shape_configs():
+        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b, model):
             x = torch.randn(bb, h // div, w // div, ci, generator=gen,
                             device="cuda").to(torch.bfloat16)
             kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
@@ -604,10 +694,10 @@ def conv_dx_cases():
     """dx = the conv kernel on the cotangent [B, H, W, Co] with the weights
     flipped and ci/co swapped, at each train conv whose input needs it."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for name, kind, (b, h, w), _, runs in shape_configs():
+    for name, kind, (b, h, w), _, runs, model in shape_configs():
         if kind != "train":
             continue
-        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b):
+        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b, model):
             g = torch.randn(bb, h // div, w // div, co, generator=gen,
                             device="cuda").to(torch.bfloat16)
             kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
@@ -971,9 +1061,8 @@ def run_kernel_phase(counters):
             **({"simt_ms": total("simt_ms")} if earlier is not None else {}),
             "bound_by": max(rows, key=lambda r: r["bound_ms"] * sum(
                 r["launches_by_path"].values()))["bound_by"],
-            "times": ("summed over the runs of the paths it serves (one DTU eval forward, one "
-                      "train step, the training CLI's run, the eval CLI's run): each case's "
-                      "time x its launches there"
+            "times": ("summed over the runs of the paths it serves (a forward, a train step, "
+                      "a command line's run): each case's time x its launches there"
                       if paths else "no path runs it: one launch of each case, summed"),
             "max_err_over_tol": max(r["err_over_tol"] for r in rows),
             "min_fault_err_over_tol": min(r["fault_err_over_tol"] for r in rows),
@@ -1011,25 +1100,27 @@ def tpu_row_summary(rows) -> dict:
 
 # ------------------------------------------------------------------- model runs
 
-def tiny_model(device, train=False):
-    """The small flagship in fp32 with seeded weights, its regularizers
-    checkpointed as on the train path."""
+def tiny_model(device, train=False, family="flagship"):
+    """The small flagship (or CasMVSNet) in fp32 with seeded weights, its
+    regularizers checkpointed as on the train path."""
     from mvsformerplusplus_tpu_torch.config import init_weights
+    from mvsformerplusplus_tpu_torch.models.casmvs import CasMVSNet
     from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
 
-    model = DINOv2MVSNet(**TINY, remat_granularity="cost_reg", dtype=torch.float32)
+    cls, kwargs = (DINOv2MVSNet, TINY) if family == "flagship" else (CasMVSNet, TINY_CASMVS)
+    model = cls(**kwargs, remat_granularity="cost_reg", dtype=torch.float32)
     init_weights(model, torch.Generator().manual_seed(0))
     return model.to(device).train(train)
 
 
-def run_reference_phase():
-    """Tiny flagship, fp32: kernels on the card vs plain versions on the CPU."""
+def run_reference_phase(family="flagship"):
+    """The tiny model, fp32: kernels on the card vs plain versions on the CPU."""
     from mvsformerplusplus_tpu_torch.testing import well_conditioned
 
     batch = make_dtu_eval_batch(v=3, h=128, w=256, dfull=48, seed=1)
     outs = {}
     for device in ("cpu", "cuda"):
-        model = tiny_model(device)
+        model = tiny_model(device, family=family)
         with torch.inference_mode():
             out = model(*to_device(batch, device))
         outs[device] = {k: out[k].float().cpu() for k in ("refined_depth",
@@ -1042,7 +1133,8 @@ def run_reference_phase():
                  / cpu["refined_depth"].abs())[mask].max().item()
     conf_err = (gpu["photometric_confidence"] - cpu["photometric_confidence"]).abs().max().item()
     prob_err = (gpu["prob4"] - cpu["prob4"]).abs().max().item()
-    row = {"phase": "reference", "pixels_compared": float(mask.float().mean()),
+    row = {"phase": PHASE_PREFIX[family] + "reference",
+           "pixels_compared": float(mask.float().mean()),
            "depth_max_rel_err": depth_rel, "depth_rtol": 1e-3, "conf_max_abs_err": conf_err,
            "prob_max_abs_err": prob_err, "atol": 1e-3}
     emit(row)
@@ -1051,8 +1143,8 @@ def run_reference_phase():
         raise SystemExit("the port on the card disagrees with its plain CPU path")
 
 
-def run_reference_train_phase():
-    """One train step of the tiny flagship (fp32, remat of the regularizers)
+def run_reference_train_phase(family="flagship"):
+    """One train step of the tiny model (fp32, remat of the regularizers)
     on the card against the same step on the port's CPU path, on
     testing.conditioned_train_batch: the argmax depths handed between
     stages, per-stage losses (rtol 1e-4), every gradient, the BatchNorm
@@ -1073,7 +1165,7 @@ def run_reference_train_phase():
 
     runs = {}
     for run, device in (("cpu", "cpu"), ("cpu_ulp", "cpu"), ("cuda", "cuda")):
-        model = tiny_model(device, train=True)
+        model = tiny_model(device, train=True, family=family)
         batch = batch_to(conditioned_train_batch(), device)
         if run == "cpu_ulp":
             batch["imgs"] = torch.nextafter(batch["imgs"], batch["imgs"] + 1)
@@ -1118,7 +1210,7 @@ def run_reference_train_phase():
         step = gpu["state"][n] - gpu["before"][n]
         update_err = max(update_err, (step + lr * gg / (gg.abs() + eps)).abs().max().item())
     same_keys = set(cpu["grads"]) == set(gpu["grads"])
-    row = {"phase": "reference_train", "stage_depths_equal": depths_same,
+    row = {"phase": PHASE_PREFIX[family] + "reference_train", "stage_depths_equal": depths_same,
            "loss_max_rel_err": loss_rel, "loss_rtol": 1e-4, "grad_err_over_tol": grad_rows[-1][0],
            "largest_grad": gmax, "worst_grads": grad_rows[-5:],
            "tensors_at_ulp_tolerance": sensitive, "bn_stats_err_over_tol": stat_ratio,
@@ -1133,6 +1225,35 @@ def run_reference_train_phase():
         raise SystemExit("the port's train step on the card disagrees with its plain CPU path")
 
 
+# each model family: its phases' prefix, config, layers timed by profile,
+# and the kernels its forward and its train step launch (by counter, and by
+# the name of the kernel in a trace); CasMVSNet launches no flash kernel
+PHASE_PREFIX = {"flagship": "", "casmvs": "casmvs_"}
+FLASH = ("flash_attention_fwd", "flash_attention_bwd")
+FLASH_NAMES = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel")
+
+
+def family_spec(family):
+    if family == "flagship":
+        return dict(config=CONFIG, train=TRAIN, layers=LAYERS,
+                    forward=("warp_bilinear", "flash_attention_fwd", "conv2d_same"),
+                    forward_names=("flash_fwd_mma_kernel", "conv2d_mma_kernel",
+                                   "warp_bilinear_vec_kernel"),
+                    train_names=("flash_bwd_mma_kernel", "warp_bilinear_bwd_vec_kernel"),
+                    absent=(), absent_names=())
+    return dict(config=CASMVS_CONFIG, train=CAS_TRAIN, layers=CASMVS_LAYERS,
+                forward=("warp_bilinear", "conv2d_same"),
+                forward_names=("conv2d_mma_kernel", "warp_bilinear_vec_kernel"),
+                train_names=("warp_bilinear_bwd_vec_kernel",), absent=FLASH,
+                absent_names=FLASH_NAMES)
+
+
+def path_kernels_launched(launches, spec) -> bool:
+    """Every kernel the path runs launched (none of the off-path ones, none
+    of the family's absent ones: those are checked to be 0)."""
+    return all(n > 0 for k, n in launches.items() if k not in OFF_PATH + spec["absent"])
+
+
 def none_launched(launches, kernels) -> bool:
     """No kernel of `kernels` launched in a path's run: with F32_ONLY, every
     flash launch went through the tensor-core kernels; with CONV_SIMT, every
@@ -1142,10 +1263,12 @@ def none_launched(launches, kernels) -> bool:
     return not any(launches[k] for k in kernels)
 
 
-def run_main_path(counters, iters=3):
+def run_main_path(counters, family="flagship", iters=3):
     from mvsformerplusplus_tpu_torch.config import build_model, load_config
 
-    model = build_model(load_config(CONFIG), dtype=torch.bfloat16)  # device defaults to cuda
+    spec = family_spec(family)
+    # the device defaults to cuda and the dtype to bf16, as the eval CLI builds it
+    model = build_model(load_config(spec["config"]))
     imgs, cams, dv = to_device(make_dtu_eval_batch(), "cuda")
     zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
@@ -1164,40 +1287,42 @@ def run_main_path(counters, iters=3):
             "depth_in_hypothesis_range": bool(((depth >= lo - slack) & (depth <= hi + slack))
                                               .all()),
             "confidence_in_0_1": bool(((conf >= 0) & (conf <= 1 + 1e-5)).all()),
-            "every_forward_kernel_launched": all(
-                launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd",
-                                          "conv2d_same")),
+            "every_forward_kernel_launched": all(launches[k] > 0 for k in spec["forward"]),
             "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
             "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
             "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+            "absent_kernels_not_launched": none_launched(launches, spec["absent"]),
         }
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         del out
         t0 = time.perf_counter()
         ms = time_ms(lambda: model(imgs, cams, dv), iters=iters)
         wall_s = time.perf_counter() - t0
-    row = {"phase": "main_path", "config": str(CONFIG.relative_to(REPO)),
+    row = {"phase": PHASE_PREFIX[family] + "main_path",
+           "config": str(spec["config"].relative_to(REPO)),
            "shape": [1, 5, 1152, 1536, 3], "depths": 192, "dtype": "bfloat16",
            "launches": launches, "checks": checks, "ms_per_map": ms, "iters": iters,
            "timing_wall_s": wall_s, "peak_mem_gb": peak_gb,
            "depth_median": float(depth.median())}
     emit(row)
     if not all(checks.values()):
-        raise SystemExit(f"main path checks failed: {checks}")
-    emit(profile_forward(model, (imgs, cams, dv)))
+        raise SystemExit(f"{row['phase']} checks failed: {checks}")
+    emit(profile_forward(model, (imgs, cams, dv), family))
     return launches
 
 
 class SeededLoader:
-    """The train protocol's batch, made once on the card from a seed, with
-    the JAX TrainLoader's interface: `epoch(e)` yields (batch, crop_hw).
-    `mark(i)`, when given, is called on the host before step i is handed
-    out (after step i - 1 was dispatched) and once more after the last."""
+    """The train protocol's batch (`dims`), made once on the card from a
+    seed, with the JAX TrainLoader's interface: `epoch(e)` yields (batch,
+    crop_hw). `mark(i)`, when given, is called on the host before step i is
+    handed out (after step i - 1 was dispatched) and once more after the
+    last."""
 
-    def __init__(self, steps: int, mark=None):
+    def __init__(self, steps: int, mark=None, dims=TRAIN):
         from mvsformerplusplus_tpu_torch.train.trainer import to_device as batch_to
 
-        self.batch = batch_to(make_train_batch(**TRAIN), "cuda")
+        self.batch = batch_to(make_train_batch(**dims), "cuda")
+        self.hw = (dims["h"], dims["w"])
         self.steps, self.mark = steps, mark
 
     def steps_per_epoch(self) -> int:
@@ -1207,12 +1332,12 @@ class SeededLoader:
         for i in range(self.steps):
             if self.mark is not None:
                 self.mark(i)
-            yield self.batch, (TRAIN["h"], TRAIN["w"])
+            yield self.batch, self.hw
         if self.mark is not None:
             self.mark(self.steps)
 
 
-def run_train_step(counters, iters=6):
+def run_train_step(counters, family="flagship", iters=6):
     """The full-width train step through build_model(train=True) and the
     port's Trainer, in one epoch of 1 + `iters` steps: the first, counted
     and logged (its log read synchronises the host), then `iters` timed
@@ -1222,7 +1347,9 @@ def run_train_step(counters, iters=6):
     from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
     from mvsformerplusplus_tpu_torch.train.trainer import Trainer
 
-    cfg = load_config(CONFIG)
+    spec = family_spec(family)
+    dims = spec["train"]
+    cfg = load_config(spec["config"])
     model = build_model(cfg, dtype=torch.bfloat16, train=True)
     remat = (model.cascade.stage1.remat_cost_reg, model.cascade.remat_whole_stage)
     opt, sched = make_optimizer(model, lr=1e-3, vit_lr=3e-5, weight_decay=0.01, min_lr_frac=0.01,
@@ -1235,7 +1362,7 @@ def run_train_step(counters, iters=6):
         window[i] = torch.cuda.Event(enable_timing=True)
         window[i].record()
 
-    loader = SeededLoader(steps=1 + iters, mark=mark)
+    loader = SeededLoader(steps=1 + iters, mark=mark, dims=dims)
     trainer = Trainer(model, loader, opt, sched, logging_every=1 + iters,
                       loss_kwargs=dict(clip_func=cfg["arch"]["loss"]["clip_func"]))
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -1265,14 +1392,16 @@ def run_train_step(counters, iters=6):
         "vit_unchanged": not any(n.startswith("vit.") for n in moved),
         "only_trainable_params_moved": moved <= trainable,
         "batch_norm_stats_moved": stats_moved == len(stats0),
-        "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
+        "every_kernel_launched": path_kernels_launched(launches, spec),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
         "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+        "absent_kernels_not_launched": none_launched(launches, spec["absent"]),
     }
-    row = {"phase": "train_step", "config": str(CONFIG.relative_to(REPO)),
-           "shape": [TRAIN["b"], TRAIN["v"], TRAIN["h"], TRAIN["w"], 3],
-           "depths": TRAIN["dfull"], "dtype": "bfloat16", "remat_granularity": "cost_reg",
+    row = {"phase": PHASE_PREFIX[family] + "train_step",
+           "config": str(spec["config"].relative_to(REPO)),
+           "shape": [dims["b"], dims["v"], dims["h"], dims["w"], 3],
+           "depths": dims["dfull"], "dtype": "bfloat16", "remat_granularity": "cost_reg",
            "launches_per_step": launches, "checks": checks, "ms_per_step": ms, "iters": iters,
            "first_step_ms": window[0].elapsed_time(window[1]), "peak_mem_gb": peak_gb,
            "params": {"trainable": len(trainable), "moved": len(moved),
@@ -1283,13 +1412,15 @@ def run_train_step(counters, iters=6):
            "logs": logs}
     emit(row)
     if not all(checks.values()):
-        raise SystemExit(f"train step checks failed: {checks}")
-    emit(profile_train(model, opt, sched, loader.batch))
+        raise SystemExit(f"{row['phase']} checks failed: {checks}")
+    emit(profile_train(model, opt, sched, loader.batch, family))
     return launches
 
 
 LAYERS = ("encoder", "vit", "decoder_vit", "decoder", "fmt", "cascade.stage1",
           "cascade.stage2", "cascade.stage3", "cascade.stage4")
+CASMVS_LAYERS = ("encoder", "decoder", "cascade.stage1", "cascade.stage2", "cascade.stage3",
+                 "cascade.stage4")
 HAND_WRITTEN = ("warp_bilinear_vec_kernel", "warp_bilinear_bwd_vec_kernel",
                 "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel",
                 "flash_fwd_mma_kernel", "flash_bwd_mma_kernel", "flash_fwd_f32_kernel",
@@ -1302,21 +1433,23 @@ OFF_PATH_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_b
                     "warp_bilinear_bwd_scalar_kernel")
 
 
-def check_kernel_names(prof, phase, want) -> None:
+def check_kernel_names(prof, phase, want, absent=()) -> None:
     """By name in the trace: the flash, conv and warp kernels that ran are
-    the mma and vector ones named, and no off-path one."""
+    the mma and vector ones named, and no off-path one (nor one `absent`
+    from the model)."""
     ours = prof["hand_written_ms_per_call"]
-    if not (all(ours[k] > 0 for k in want) and not any(ours[k] for k in OFF_PATH_KERNELS)):
+    if not (all(ours[k] > 0 for k in want)
+            and not any(ours[k] for k in OFF_PATH_KERNELS + tuple(absent))):
         raise SystemExit(f"{phase}: flash, conv or warp kernels in the trace are not the mma "
                          f"and vector ones: {ours}")
 
 
-def layer_ms(model, inputs) -> dict:
+def layer_ms(model, inputs, layers=LAYERS) -> dict:
     """ms of each top-level layer's span on the device timeline over one
     forward (idle gaps inside a span included), from CUDA events recorded by
     forward hooks; `rest` is the forward's time outside those layers."""
     spans, hooks = {}, []
-    for name in LAYERS:
+    for name in layers:
         def pre(mod, args, name=name):
             spans[name] = [torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True)]
@@ -1337,7 +1470,7 @@ def layer_ms(model, inputs) -> dict:
         h.remove()
     out = {name: a.elapsed_time(b) for name, (a, b) in spans.items()}
     out["total"] = start.elapsed_time(end)
-    out["rest"] = out["total"] - sum(out[n] for n in LAYERS)
+    out["rest"] = out["total"] - sum(out[n] for n in layers)
     return out
 
 
@@ -1378,19 +1511,19 @@ def profile_run(fn, iters, top=20) -> dict:
             "result": result}
 
 
-def profile_forward(model, inputs) -> dict:
+def profile_forward(model, inputs, family="flagship") -> dict:
     def forward():
         with torch.inference_mode():
             model(*inputs)
 
+    spec, phase = family_spec(family), PHASE_PREFIX[family] + "profile"
     prof = profile_run(forward, iters=2)
     del prof["result"]
-    check_kernel_names(prof, "profile", ("flash_fwd_mma_kernel", "conv2d_mma_kernel",
-                                         "warp_bilinear_vec_kernel"))
-    return {"phase": "profile", "layer_ms": layer_ms(model, inputs), **prof}
+    check_kernel_names(prof, phase, spec["forward_names"], spec["absent_names"])
+    return {"phase": phase, "layer_ms": layer_ms(model, inputs, spec["layers"]), **prof}
 
 
-def profile_train(model, opt, sched, batch, iters=3) -> dict:
+def profile_train(model, opt, sched, batch, family="flagship", iters=3) -> dict:
     """The traced window over `iters` more train steps; their last step's
     losses and gradient norm must be finite."""
     from mvsformerplusplus_tpu_torch.train.step import train_step
@@ -1399,12 +1532,12 @@ def profile_train(model, opt, sched, batch, iters=3) -> dict:
     logs = prof.pop("result")
     finite = all(bool(torch.isfinite(v).all()) for k, v in logs.items()
                  if k == "loss" or k == "grad_norm" or k.startswith("stage"))
+    spec, phase = family_spec(family), PHASE_PREFIX[family] + "profile_train"
     if not finite:
-        raise SystemExit("profile_train: a loss or the gradient norm is not finite")
-    check_kernel_names(prof, "profile_train", ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel",
-                                               "conv2d_mma_kernel", "warp_bilinear_vec_kernel",
-                                               "warp_bilinear_bwd_vec_kernel"))
-    return {"phase": "profile_train", **prof}
+        raise SystemExit(f"{phase}: a loss or the gradient norm is not finite")
+    check_kernel_names(prof, phase, spec["forward_names"] + spec["train_names"],
+                       spec["absent_names"])
+    return {"phase": phase, **prof}
 
 
 def _bucket_totals(epoch_stats):
@@ -1424,79 +1557,103 @@ def _bucket_totals(epoch_stats):
                  "loader_wait_share": t["wait_ms"] / t["host_ms"]} for hw, t in out.items()}
 
 
-def run_train_cli(counters):
+def cli_overrides(data: Path, scales, val_hw):
+    """The -o overrides of a training CLI run on the scan at `data` (its
+    train.txt for training and validation), its crops and validation size."""
+    args = "data_loader;0;args;"
+    out = []
+    for expr in (f"{args}datapath={data}", f"{args}train_data_list={data / 'train.txt'}",
+                 f"{args}val_data_list={data / 'train.txt'}",
+                 f"{args}multi_scale_args;scales={json.dumps([list(hw) for hw in scales])}",
+                 f"{args}height={val_hw[0]}", f"{args}width={val_hw[1]}"):
+        out += ["-o", expr]
+    return out
+
+
+def read_scalars(save: Path):
+    return [json.loads(ln) for ln in (save / "scalars.jsonl").read_text().splitlines()]
+
+
+def panels(save: Path) -> dict:
+    """{'train' and 'val': [(file name, decoded shape)]} of the run's
+    depth panels, each PNG decoded with the port's reader."""
+    from mvsformerplusplus_tpu_torch.data.io import read_png
+
+    out = {"train": [], "val": []}
+    for path in sorted((save / "images").glob("*.png")):
+        out[path.name.split("_step")[0]].append((path.name, list(read_png(path).shape)))
+    return out
+
+
+def run_train_cli(counters, work: Path):
     """The training command line in process on the card
     (`python -m mvsformerplusplus_tpu_torch.train`'s main) with
     configs/mvsformerplusplus.json at full width, overriding only the data
     paths and lists, the batch size (2), the epochs (2), the crop scales
     (512 x 640 and 512 x 768) and the validation size (512 x 640), on one
     geometric DTU-format scan written by the port's own writers (5 views x
-    7 lights at 576 x 800). Then the same command with -r --epochs 3. Checks
+    7 lights at 576 x 800, its pair.txt cut to CLI["refs"] reference views),
+    under `work` (casmvs_cli trains on it and
+    blended_cli fine-tunes from its checkpoints). Then the same command
+    with -r --epochs 3. Checks
     every logged loss and gradient norm and every validation metric finite,
     model_last.pth and model_best.pth written, model_last.pth restoring bit
     for bit into a fresh build_model(train=True), and the resumed run
     starting at epoch 2 with the step count continued and the learning rate
     of the uninterrupted 3-epoch schedule at that step; and the steps per
     crop bucket equal to the loader's schedule."""
-    import gc
-    import tempfile
-
     from mvsformerplusplus_tpu_torch.config import build_model, load_config
+    from mvsformerplusplus_tpu_torch.data.io import read_pair_file, save_pair_file
     from mvsformerplusplus_tpu_torch.data.synthetic import make_geometric_dtu
     from mvsformerplusplus_tpu_torch.train import cli
     from mvsformerplusplus_tpu_torch.train.optim import warmup_cosine
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        data, save = Path(tmp) / "dtu", Path(tmp) / "saved"
-        t0 = time.perf_counter()
-        make_geometric_dtu(data, n_views=5, n_lights=7, h=CLI["hw"][0], w=CLI["hw"][1],
-                           ndepth=192)
-        write_s = time.perf_counter() - t0
-        args = "data_loader;0;args;"
-        argv = ["-c", str(CONFIG), "--save_dir", str(save), "--batch_size", str(CLI["batch"]),
-                "--epochs", "2",
-                "-o", f"{args}datapath={data}", "-o", f"{args}train_data_list={data / 'train.txt'}",
-                "-o", f"{args}val_data_list={data / 'train.txt'}",
-                "-o", f"{args}multi_scale_args;scales={json.dumps(CLI['scales'])}",
-                "-o", f"{args}height={CLI['val_hw'][0]}", "-o", f"{args}width={CLI['val_hw'][1]}"]
-        zero_counts(counters)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        first = cli.main(argv)
-        first_s = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        ck = save / "checkpoints"
-        files = {n: (ck / n).exists() for n in ("model_last.pth", "model_best.pth", "meta.json")}
-        fresh = build_model(load_config(CONFIG), dtype=torch.bfloat16, train=True)
-        payload = torch.load(ck / "model_last.pth", weights_only=True,
-                             map_location=next(fresh.parameters()).device)
-        fresh.load_state_dict(payload["state_dict"])
-        fresh_sd = fresh.state_dict()
-        restored = all(torch.equal(fresh_sd[k], v) for k, v in first.model.state_dict().items())
-        spe = first.train_loader.steps_per_epoch()
-        summary = {"logged": first.logged, "epoch_stats": first.epoch_stats,
-                   "val_stats": first.val_stats, "global_step": first.global_step}
-        del fresh, fresh_sd, first, payload
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        resumed = cli.main(argv + ["-r", "--epochs", "3"])
-        resumed_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        launches = read_counts(counters)
-        peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
-        opt_args = load_config(CONFIG)["optimizer"]["args"]
-        want_lr = opt_args["lr"] * warmup_cosine(2 * spe, opt_args["warmup_steps"], 3 * spe,
-                                                 opt_args["min_lr"])
-        logged = summary["logged"] + resumed.logged
-        val_stats = summary["val_stats"] + resumed.val_stats
-        epoch_stats = summary["epoch_stats"] + resumed.epoch_stats
-        resumed_first = resumed.logged[0] if resumed.logged else {}
-        resumed_stats = (resumed.epoch_stats, resumed.global_step)
-        del resumed
-        gc.collect()
-        torch.cuda.empty_cache()
+    data, save = work / "dtu", work / "saved"
+    t0 = time.perf_counter()
+    make_geometric_dtu(data, n_views=5, n_lights=7, h=CLI["hw"][0], w=CLI["hw"][1], ndepth=192)
+    pair = data / "Cameras" / "pair.txt"
+    save_pair_file(pair, [(r, [(s_, 100.0) for s_ in srcs])
+                          for r, srcs in read_pair_file(pair)[:CLI["refs"]]])
+    write_s = time.perf_counter() - t0
+    argv = (["-c", str(CONFIG), "--save_dir", str(save), "--batch_size", str(CLI["batch"]),
+             "--epochs", "2"] + cli_overrides(data, CLI["scales"], CLI["val_hw"]))
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = cli.main(argv)
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ck = save / "checkpoints"
+    files = {n: (ck / n).exists() for n in ("model_last.pth", "model_best.pth", "meta.json")}
+    fresh = build_model(load_config(CONFIG), dtype=torch.bfloat16, train=True)
+    payload = torch.load(ck / "model_last.pth", weights_only=True,
+                         map_location=next(fresh.parameters()).device)
+    fresh.load_state_dict(payload["state_dict"])
+    fresh_sd = fresh.state_dict()
+    restored = all(torch.equal(fresh_sd[k], v) for k, v in first.model.state_dict().items())
+    spe = first.train_loader.steps_per_epoch()
+    summary = {"logged": first.logged, "epoch_stats": first.epoch_stats,
+               "val_stats": first.val_stats, "global_step": first.global_step}
+    del fresh, fresh_sd, first, payload
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resumed = cli.main(argv + ["-r", "--epochs", "3"])
+    resumed_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+    opt_args = load_config(CONFIG)["optimizer"]["args"]
+    want_lr = opt_args["lr"] * warmup_cosine(2 * spe, opt_args["warmup_steps"], 3 * spe,
+                                             opt_args["min_lr"])
+    logged = summary["logged"] + resumed.logged
+    val_stats = summary["val_stats"] + resumed.val_stats
+    epoch_stats = summary["epoch_stats"] + resumed.epoch_stats
+    resumed_first = resumed.logged[0] if resumed.logged else {}
+    resumed_stats = (resumed.epoch_stats, resumed.global_step)
+    del resumed
+    release()
+    scalars = read_scalars(save)
     buckets = _bucket_totals(epoch_stats)
     steps, val_maps = cli_counts()
     checks = {
@@ -1516,13 +1673,15 @@ def run_train_cli(counters):
         "steps_per_bucket_as_scheduled": {hw: b["steps"] for hw, b in buckets.items()}
         == {f"{h}x{w}": n for (h, w), n in steps.items() if n},
         "val_maps_as_counted": sum(s["maps"] for s in val_stats) == val_maps,
+        "scalars_per_logged_step_and_validation": [r["mode"] for r in scalars].count("train")
+        == len(logged) and [r["mode"] for r in scalars].count("val") == len(val_stats),
         "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
         "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
     }
     row = {"phase": "train_cli", "config": str(CONFIG.relative_to(REPO)),
-           "argv": argv[4:], "data": {"views": 5, "lights": 7, "hw": list(CLI["hw"]),
+           "argv": argv[4:], "data": {"views": 5, "lights": 7, "refs": CLI["refs"], "hw": list(CLI["hw"]),
                                            "samples": CLI["samples"], "write_s": write_s},
            "steps_per_epoch": spe, "buckets": buckets, "epochs": epoch_stats,
            "val_ms_per_map": [s["ms_per_map"] for s in val_stats],
@@ -1623,12 +1782,13 @@ def gt_fusion_check(scan_dir: Path, out_dir: Path, gt_dir: Path) -> dict:
     return out
 
 
-def run_eval_cli(counters):
+def run_eval_cli(counters, work: Path):
     """The eval command line in process on the card
     (`python -m mvsformerplusplus_tpu_torch.eval`'s main) with
     configs/mvsformerplusplus.json at full width, seeded weights, on a
     5-view geometric scan at 1152 x 1536 written by the port's own writers
-    (JPEG at quality 97, GT depth PFMs): 5 depth maps at 192 depths with
+    under `work` (JPEG at quality 97, GT depth PFMs; casmvs_cli reads it
+    too): 5 depth maps at 192 depths with
     dpcd fusion and depth_metric.txt, then --skip_depth with pcd and with
     gipuma on the same outputs. Checks every output file, every depth finite
     and inside the cascade's hypothesis range (testing.inverse_depth_bounds),
@@ -1641,75 +1801,58 @@ def run_eval_cli(counters):
     decode and encode ms per image (inside the run, and alone on the main
     thread), the loader-wait share, fusion seconds per scan and points per
     cloud for each method, and peak memory."""
-    import tempfile
-
-    from mvsformerplusplus_tpu_torch.data.io import read_image_u8, read_pfm
+    from mvsformerplusplus_tpu_torch.data.io import read_image_u8
     from mvsformerplusplus_tpu_torch.data.jpeg import write_jpeg
     from mvsformerplusplus_tpu_torch.data.synthetic import make_geometric_eval_scan
     from mvsformerplusplus_tpu_torch.eval import cli
-    from mvsformerplusplus_tpu_torch.testing import inverse_depth_bounds
 
     phase_t0 = time.perf_counter()
     cfg = json.loads(CONFIG.read_text())["arch"]["args"]
     h, w = EVAL_CLI["hw"]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
-        root, out = Path(tmp) / "data", Path(tmp) / "out"
-        t0 = time.perf_counter()
-        make_geometric_eval_scan(root, "scan1", n_views=EVAL_CLI["views"], h=h, w=w,
-                                 ndepth=EVAL_CLI["depths"])
-        write_s = time.perf_counter() - t0
-        (root / "list.txt").write_text("scan1\n")
-        image = root / "scan1" / "images" / "00000000.jpg"
-        t0 = time.perf_counter()
-        pixels = read_image_u8(image)
-        decode_alone_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        write_jpeg(Path(tmp) / "alone.jpg", pixels)
-        encode_alone_ms = (time.perf_counter() - t0) * 1e3
-        base = ["--config", str(CONFIG), "--testpath", str(root), "--testlist",
-                str(root / "list.txt"), "--outdir", str(out), "--num_view", str(EVAL_CLI["views"]),
-                "--numdepth", str(EVAL_CLI["depths"]), "--max_h", str(h), "--max_w", str(w)]
-        zero_counts(counters)
-        torch.cuda.reset_peak_memory_stats()
-        runs = {"dpcd": cli.main(base + ["--filter_method", "dpcd", "--gt_depth_path",
-                                         str(root / "gt_depths")])}
-        clouds = {"dpcd": (out / "scan1.ply").exists()}
-        for method in ("pcd", "gipuma"):
-            (out / "scan1.ply").unlink(missing_ok=True)
-            runs[method] = cli.main(base + ["--skip_depth", "--filter_method", method])
-            clouds[method] = (out / "scan1.ply").exists()
-        torch.cuda.synchronize()
-        launches = read_counts(counters)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        depth_run = runs["dpcd"]
-        files, finite, in_range, conf_u8 = True, True, True, True
-        for v in range(EVAL_CLI["views"]):
-            ref = f"{v:0>8}"
-            paths = [out / "scan1" / sub / name for sub, name in (
-                ("depth_est", f"{ref}.pfm"), ("confidence", f"{ref}.npy"),
-                ("cams", f"{ref}_cam.txt"), ("images", f"{ref}.jpg"))]
-            files &= all(p.exists() for p in paths)
-            if not files:
-                break
-            depth = read_pfm(paths[0])[0]
-            dmin, dint = map(float, paths[2].read_text().split()[-2:])
-            lo, hi = inverse_depth_bounds(dmin, dmin + (EVAL_CLI["depths"] - 1) * dint,
-                                          cfg["ndepths"], cfg["depth_interals_ratio"])
-            finite &= bool(np.isfinite(depth).all()) and depth.shape == (h, w)
-            in_range &= bool(((depth >= lo * (1 - 1e-5)) & (depth <= hi * (1 + 1e-5))).all())
-            conf = np.load(paths[1])
-            conf_u8 &= conf.dtype == np.uint8 and conf.shape == (h, w)
-        files &= (out / "depth_metric.txt").exists()
-        gt = (gt_fusion_check(root / "scan1", out / "scan1", root / "gt_depths" / "scan1")
-              if files else {})
+    root, out = work / "eval", work / "eval_out"
+    t0 = time.perf_counter()
+    make_geometric_eval_scan(root, "scan1", n_views=EVAL_CLI["views"], h=h, w=w,
+                             ndepth=EVAL_CLI["depths"])
+    write_s = time.perf_counter() - t0
+    (root / "list.txt").write_text("scan1\n")
+    image = root / "scan1" / "images" / "00000000.jpg"
+    t0 = time.perf_counter()
+    pixels = read_image_u8(image)
+    decode_alone_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    write_jpeg(work / "alone.jpg", pixels)
+    encode_alone_ms = (time.perf_counter() - t0) * 1e3
+    base = ["--config", str(CONFIG), "--testpath", str(root), "--testlist",
+            str(root / "list.txt"), "--outdir", str(out), "--num_view", str(EVAL_CLI["views"]),
+            "--numdepth", str(EVAL_CLI["depths"]), "--max_h", str(h), "--max_w", str(w)]
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"dpcd": cli.main(base + ["--filter_method", "dpcd", "--gt_depth_path",
+                                     str(root / "gt_depths")])}
+    clouds = {"dpcd": (out / "scan1.ply").exists()}
+    for method in ("pcd", "gipuma"):
+        (out / "scan1.ply").unlink(missing_ok=True)
+        runs[method] = cli.main(base + ["--skip_depth", "--filter_method", method])
+        clouds[method] = (out / "scan1.ply").exists()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    depth_run = runs["dpcd"]
+    written = eval_outputs(out, cfg, EVAL_CLI["views"], EVAL_CLI["hw"], EVAL_CLI["depths"])
+    files = written["output_files"] and (out / "depth_metric.txt").exists()
+    conf_u8 = files and all(
+        (c.dtype, c.shape) == (np.uint8, (h, w))
+        for c in (np.load(out / "scan1" / "confidence" / f"{v:0>8}.npy")
+                  for v in range(EVAL_CLI["views"])))
+    gt = (gt_fusion_check(root / "scan1", out / "scan1", root / "gt_depths" / "scan1")
+          if files else {})
     maps = depth_run["maps"]
     fwd = depth_run["forward_ms"]
     steady = np.diff(depth_run["map_done_s"]) * 1e3
     checks = {
+        **written,
         "output_files": files,
         "ply_per_method": all(clouds.values()),
-        "depth_finite": finite,
-        "depth_in_hypothesis_range": in_range,
         "confidence_uint8": conf_u8,
         "maps_and_forwards": maps == EVAL_CLI["views"] and len(fwd) == maps,
         "gt_clouds_non_empty": bool(gt) and all(r["points_cpu"] > 0 for r in gt.values()),
@@ -1744,6 +1887,220 @@ def run_eval_cli(counters):
     if not all(checks.values()):
         raise SystemExit(f"eval_cli checks failed: {checks}")
     return launches, row
+
+
+def eval_outputs(out: Path, cfg: dict, views: int, hw, depths: int) -> dict:
+    """The eval CLI's per-view outputs under out/scan1: every file written,
+    every depth map finite, of shape `hw` and inside the cascade's
+    hypothesis range (testing.inverse_depth_bounds of its cam's range)."""
+    from mvsformerplusplus_tpu_torch.data.io import read_pfm
+    from mvsformerplusplus_tpu_torch.testing import inverse_depth_bounds
+
+    files, finite, in_range = True, True, True
+    for v in range(views):
+        ref = f"{v:0>8}"
+        paths = [out / "scan1" / sub / name for sub, name in (
+            ("depth_est", f"{ref}.pfm"), ("confidence", f"{ref}.npy"),
+            ("cams", f"{ref}_cam.txt"), ("images", f"{ref}.jpg"))]
+        files &= all(p.exists() for p in paths)
+        if not files:
+            break
+        depth = read_pfm(paths[0])[0]
+        dmin, dint = map(float, paths[2].read_text().split()[-2:])
+        lo, hi = inverse_depth_bounds(dmin, dmin + (depths - 1) * dint, cfg["ndepths"],
+                                      cfg["depth_interals_ratio"])
+        finite &= bool(np.isfinite(depth).all()) and depth.shape == tuple(hw)
+        in_range &= bool(((depth >= lo * (1 - 1e-5)) & (depth <= hi * (1 + 1e-5))).all())
+    return {"output_files": files, "depth_finite": files and finite,
+            "depth_in_hypothesis_range": files and in_range}
+
+
+def run_casmvs_cli(counters, work: Path):
+    """CasMVSNet through both command lines in process on the card: the
+    training CLI with configs/casmvs.json at full width on train_cli's scan
+    and crops, at batch 4 (one micro-batch a step), one epoch validating on
+    the scan's 14 samples at 512 x 640; then the eval CLI with --ckpt of
+    that run on eval_cli's 5-view 1152 x 1536 scan (5 maps, dpcd fusion).
+    Checks the checkpoints, scalars.jsonl (a train record per logged step,
+    a val record per validation), a train panel and a val panel decoded,
+    finite losses and metrics, the steps per crop bucket and the
+    validation maps as scheduled, the eval outputs (eval_outputs) and the
+    cloud, every CasMVSNet kernel launched through the mma and vector
+    kernels and no flash kernel. Records ms per step per crop bucket,
+    validation ms per map, the eval CLI's ms per map and its forward's, and
+    peak memory."""
+    from mvsformerplusplus_tpu_torch.eval import cli as eval_cli
+    from mvsformerplusplus_tpu_torch.train import cli as train_cli
+
+    phase_t0 = time.perf_counter()
+    spec = family_spec("casmvs")
+    cfg = json.loads(CASMVS_CONFIG.read_text())["arch"]["args"]
+    save, out, scan = work / "casmvs_saved", work / "casmvs_eval_out", work / "eval"
+    argv = (["-c", str(CASMVS_CONFIG), "--save_dir", str(save), "--batch_size",
+             str(CAS_CLI["batch"]), "--epochs", str(CAS_CLI["epochs"])]
+            + cli_overrides(work / "dtu", CLI["scales"], CLI["val_hw"]))
+    h, w = EVAL_CLI["hw"]
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(argv)
+    train_s = time.perf_counter() - t0
+    logged, epoch_stats, val_stats = trainer.logged, trainer.epoch_stats, trainer.val_stats
+    is_casmvs = type(trainer.model).__name__ == "CasMVSNet"
+    del trainer
+    release()
+    t0 = time.perf_counter()
+    stats = eval_cli.main(["--config", str(CASMVS_CONFIG), "--testpath", str(scan), "--testlist",
+                           str(scan / "list.txt"), "--outdir", str(out), "--num_view",
+                           str(EVAL_CLI["views"]), "--numdepth", str(EVAL_CLI["depths"]),
+                           "--max_h", str(h), "--max_w", str(w), "--ckpt",
+                           str(save / "checkpoints"), "--filter_method", "dpcd"])
+    eval_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    release()
+    scalars, images = read_scalars(save), panels(save)
+    buckets = _bucket_totals(epoch_stats)
+    steps = schedule_steps(CLI["samples"], CLI["scales"], CAS_CLI["batch"], CAS_CLI["epochs"])
+    modes = [r["mode"] for r in scalars]
+    checks = {
+        "model_is_casmvs": is_casmvs,
+        "checkpoint_files": all((save / "checkpoints" / n).exists()
+                                for n in ("model_last.pth", "model_best.pth", "meta.json")),
+        "losses_and_grad_norms_finite": bool(logged) and all(
+            np.isfinite(v) for e in logged for k, v in e.items()
+            if k in ("loss", "grad_norm") or k.startswith("stage")),
+        "val_metrics_finite": len(val_stats) == CAS_CLI["epochs"] and all(
+            np.isfinite(v) for s_ in val_stats for v in s_["metrics"].values()),
+        "scalars_train_and_val": modes.count("train") == len(logged)
+        and modes.count("val") == len(val_stats),
+        "train_and_val_panels": bool(images["train"]) and bool(images["val"]),
+        "steps_per_bucket_as_scheduled": {hw: b["steps"] for hw, b in buckets.items()}
+        == {f"{a}x{b}": n for (a, b), n in steps.items() if n},
+        "val_maps_as_counted": sum(s_["maps"] for s_ in val_stats)
+        == CLI["samples"] * CAS_CLI["epochs"],
+        **eval_outputs(out, cfg, EVAL_CLI["views"], EVAL_CLI["hw"], EVAL_CLI["depths"]),
+        "eval_maps": stats["maps"] == EVAL_CLI["views"],
+        "ply": (out / "scan1.ply").exists(),
+        "every_kernel_launched": path_kernels_launched(launches, spec),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+        "no_flash_kernel": none_launched(launches, FLASH),
+    }
+    row = {"phase": "casmvs_cli", "config": str(CASMVS_CONFIG.relative_to(REPO)),
+           "argv": argv[4:], "buckets": buckets, "epochs": epoch_stats,
+           "val_ms_per_map": [s_["ms_per_map"] for s_ in val_stats],
+           "val_metrics": [s_["metrics"] for s_ in val_stats],
+           "scalars": {m: modes.count(m) for m in sorted(set(modes))}, "panels": images,
+           "eval_ms_per_map": stats["depth_s"] / max(stats["maps"], 1) * 1e3,
+           "eval_forward_ms_per_map": float(np.mean(stats["forward_ms"]))
+           if stats["forward_ms"] else None,
+           "eval_decode_ms_per_image": stats["decode_s"] / max(stats["decodes"], 1) * 1e3,
+           "fusion_s": stats["fusion_s"], "points": stats["points"], "peak_mem_gb": peak_gb,
+           "run_s": {"train": train_s, "eval": eval_s}, "launches": launches, "checks": checks,
+           "logged": logged, "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"casmvs_cli checks failed: {checks}")
+    return launches
+
+
+def run_blended_cli(counters, work: Path):
+    """The BlendedMVS fine-tune in process on the card: a BlendedMVS-layout
+    scan of BLENDED["views"] views at 1536 x 2048 (data/synthetic.make_blended_scan,
+    JPEG through the port's encoder), then the training CLI with
+    configs/mvsformerplusplus_ft.json at full width, --finetune
+    --dtu_model_path train_cli's checkpoints (the config's reset_sche: a
+    fresh optimizer and schedule), --debug, one epoch of 512 x 640 crops at
+    batch 4, validating the views whole at 1536 x 2048. Checks the
+    Blended datasets and the "blended" interval scale, finite losses and
+    validation metrics, scalars.jsonl's train, val and debug records, each
+    module's gradient norm finite (the frozen ViT's 0) and every non-finite
+    count 0, the panels, the steps and validation maps as scheduled, each
+    view decoded once per dataset, every flagship kernel launched through
+    the mma and vector kernels. Records ms per step, validation ms per map,
+    decode ms per image, peak memory."""
+    from mvsformerplusplus_tpu_torch.data.mvs_dataset import BlendedTrainDataset
+    from mvsformerplusplus_tpu_torch.data.synthetic import make_blended_scan
+    from mvsformerplusplus_tpu_torch.train import cli
+
+    phase_t0 = time.perf_counter()
+    data, save = work / "blended", work / "blended_saved"
+    h, w = BLENDED["hw"]
+    t0 = time.perf_counter()
+    make_blended_scan(data, "blended1", n_views=BLENDED["views"], h=h, w=w, ndepth=192)
+    write_s = time.perf_counter() - t0
+    argv = (["-c", str(FT_CONFIG), "--save_dir", str(save), "--finetune", "--dtu_model_path",
+             str(work / "saved" / "checkpoints"), "--debug", "--batch_size",
+             str(BLENDED["batch"]), "--epochs", str(BLENDED["epochs"])]
+            + cli_overrides(data, BLENDED["scales"], BLENDED["hw"]))
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    run_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    datasets = {"train": trainer.train_loader.dataset, "val": trainer.val_loader.dataset}
+    decodes = {k: (d.views.decodes, d.views.decode_s) for k, d in datasets.items()}
+    blended = all(isinstance(d, BlendedTrainDataset) for d in datasets.values())
+    logged, epoch_stats, val_stats = trainer.logged, trainer.epoch_stats, trainer.val_stats
+    interval_norm = trainer.interval_norm
+    del trainer, datasets
+    release()
+    scalars, images = read_scalars(save), panels(save)
+    modes = [r["mode"] for r in scalars]
+    debug = [r for r in scalars if r["mode"] == "debug"]
+    buckets = _bucket_totals(epoch_stats)
+    steps = schedule_steps(BLENDED["views"], BLENDED["scales"], BLENDED["batch"],
+                           BLENDED["epochs"])
+    trained = ("encoder", "decoder", "decoder_vit", "fmt", "cascade")
+    checks = {
+        "blended_datasets": blended,
+        "interval_norm_blended": interval_norm == "blended",
+        "losses_and_grad_norms_finite": bool(logged) and all(
+            np.isfinite(v) for e in logged for k, v in e.items()
+            if k in ("loss", "grad_norm") or k.startswith("stage")),
+        "val_metrics_finite": len(val_stats) == BLENDED["epochs"] and all(
+            np.isfinite(v) for s_ in val_stats for v in s_["metrics"].values()),
+        "scalars_train_val_debug": modes.count("train") == modes.count("debug") == len(logged)
+        and modes.count("val") == len(val_stats),
+        "gnorm_finite": bool(debug) and all(
+            np.isfinite(r[m]) and r[m] > 0 for r in debug for m in trained)
+        and all(r["vit"] == 0 for r in debug),
+        "nonfinite_zero": all(v == 0 for e in logged for k, v in e.items()
+                              if k.startswith("nonfinite/"))
+        and all(any(k.startswith("nonfinite/") for k in e) for e in logged),
+        "train_and_val_panels": bool(images["train"]) and bool(images["val"]),
+        "steps_as_scheduled": {hw: b["steps"] for hw, b in buckets.items()}
+        == {f"{a}x{b}": n for (a, b), n in steps.items() if n},
+        "val_maps_as_counted": sum(s_["maps"] for s_ in val_stats)
+        == BLENDED["views"] * BLENDED["epochs"],
+        "each_view_decoded_once_per_dataset": all(n == BLENDED["views"]
+                                                  for n, _ in decodes.values()),
+        "every_kernel_launched": path_kernels_launched(launches, family_spec("flagship")),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+    }
+    n_dec = sum(n for n, _ in decodes.values())
+    row = {"phase": "blended_cli", "config": str(FT_CONFIG.relative_to(REPO)),
+           "argv": argv[4:], "data": {"views": BLENDED["views"], "hw": [h, w], "write_s": write_s},
+           "buckets": buckets, "epochs": epoch_stats,
+           "val_ms_per_map": [s_["ms_per_map"] for s_ in val_stats],
+           "val_metrics": [s_["metrics"] for s_ in val_stats],
+           "decodes": {k: n for k, (n, _) in decodes.items()},
+           "decode_ms_per_image": sum(t for _, t in decodes.values()) / max(n_dec, 1) * 1e3,
+           "scalars": {m: modes.count(m) for m in sorted(set(modes))}, "debug": debug,
+           "panels": images, "peak_mem_gb": peak_gb, "run_s": run_s, "launches": launches,
+           "checks": checks, "logged": logged, "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"blended_cli checks failed: {checks}")
+    return launches
 
 
 def ptxas_by_kernel(log: str) -> dict:
@@ -1817,15 +2174,23 @@ def main() -> int:
     counters = launch_counters()
     results = run_kernel_phase(counters)
     assert set(counters) == set(results)
-    run_reference_phase()
-    run_reference_train_phase()
-    by_path = {"main_path": run_main_path(counters)}
-    torch.cuda.empty_cache()
-    by_path["train_step"] = run_train_step(counters)
-    torch.cuda.empty_cache()
-    by_path["train_cli"] = run_train_cli(counters)
-    torch.cuda.empty_cache()
-    by_path["eval_cli"], eval_row = run_eval_cli(counters)
+    for family in ("flagship", "casmvs"):
+        run_reference_phase(family)
+        run_reference_train_phase(family)
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        work = Path(tmp)
+        for path, run in (("main_path", lambda: run_main_path(counters)),
+                          ("train_step", lambda: run_train_step(counters)),
+                          ("train_cli", lambda: run_train_cli(counters, work)),
+                          ("eval_cli", lambda: run_eval_cli(counters, work)),
+                          ("casmvs_main_path", lambda: run_main_path(counters, "casmvs")),
+                          ("casmvs_train_step", lambda: run_train_step(counters, "casmvs")),
+                          ("casmvs_cli", lambda: run_casmvs_cli(counters, work)),
+                          ("blended_cli", lambda: run_blended_cli(counters, work))):
+            by_path[path] = run()
+            release()
+    by_path["eval_cli"], eval_row = by_path["eval_cli"]
     for name, res in results.items():
         res["launches_by_path"] = {path: by_path[path][name] for path in by_path}
         res["launches"] = sum(res["launches_by_path"].values())

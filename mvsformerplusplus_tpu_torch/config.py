@@ -120,13 +120,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
                 train: bool = False, **extra):
     """arch.args -> model on `device` with weights drawn from `seed`, in
-    eval mode, or in train mode when `train` (the training entry point).
+    eval mode, or in train mode when `train` (the training entry point):
+    DINOv2MVSNet for a "DINOv2..." model_type (the default), CasMVSNet for
+    "casmvs".
 
-    `arch.args.remat_stages` (default true) and `arch.args.remat_granularity`
-    ("cost_reg", the default and the repo's train protocol, or "stage")
-    choose the gradient checkpointing of the cascade, as the JAX package's
-    build_model reads them; `arch.args.freeze_vit` (default true) freezes
-    the ViT; `extra` overrides any model argument. The model runs on the
+    Both families take the JAX build_model's common arguments:
+    `arch.args.remat_granularity` ("cost_reg", the default and the repo's
+    train protocol, or "stage") chooses the gradient checkpointing of the
+    cascade, and the caller's dtype the compute type. The flagship also
+    reads `arch.args.remat_stages` (default true) and `arch.args.freeze_vit`
+    (default true); CasMVSNet keeps its class's remat_stages, as in the JAX
+    package. `extra` overrides any model argument. The model runs on the
     card unless the caller passes device="cpu"; without CUDA a CUDA device
     raises instead of falling back to the CPU.
 
@@ -144,9 +148,7 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
                            "the plain PyTorch path on the CPU")
     args = cfg["arch"]["args"]
     model_type = args.get("model_type", "DINOv2-base")
-    if "DINOv2" not in model_type:
-        if model_type == "casmvs":
-            raise NotImplementedError("model_type 'casmvs' is not ported yet")
+    if "DINOv2" not in model_type and model_type != "casmvs":
         raise ValueError(f"unknown model_type {model_type}")
     log_var = args.get("log_var", False)
     if any(log_var if isinstance(log_var, (list, tuple)) else [log_var]):
@@ -154,10 +156,7 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
                                   "not ported yet")
     ndepths = _to_tuple(args.get("ndepths", (32, 16, 8, 4)))
     _check_warp_keys(args, len(ndepths))
-    from .models.mvsformer import DINOv2MVSNet
-
-    dino_cfg = args.get("dino_cfg", {})
-    kwargs = dict(
+    common = dict(
         feat_chs=_to_tuple(args.get("feat_chs", (8, 16, 32, 64))),
         ndepths=ndepths,
         depth_intervals_ratio=_to_tuple(args.get("depth_interals_ratio", (4.0, 2.67, 1.5, 1.0))),
@@ -168,21 +167,32 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
         cost_reg_type=_to_tuple(args.get("cost_reg_type", ("Normal",) * 4)),
         transformer_config=tuple(args.get("transformer_config", [])) or None,
         use_pe3d=args.get("use_pe3d", False),
-        rescale=args.get("rescale", 0.4375),
-        vit_ch=args.get("vit_ch", 768),
-        out_ch=args.get("out_ch", 64),
-        vit_patch=args.get("vit_patch", 14),
-        vit_depth=args.get("vit_depth", 12),
-        vit_num_heads=args.get("vit_num_heads", 12),
-        cross_interval_layers=dino_cfg.get("cross_interval_layers", 3),
-        decoder_cfg=dino_cfg.get("decoder_cfg"),
-        fmt_config=args.get("FMT_config"),
-        freeze_vit=args.get("freeze_vit", True),
-        remat_stages=args.get("remat_stages", True),
         remat_granularity=args.get("remat_granularity", "cost_reg"),
         dtype=dtype,
     )
+    if model_type == "casmvs":
+        from .models.casmvs import CasMVSNet as cls
+
+        kwargs = common
+    else:
+        from .models.mvsformer import DINOv2MVSNet as cls
+
+        dino_cfg = args.get("dino_cfg", {})
+        kwargs = dict(
+            common,
+            rescale=args.get("rescale", 0.4375),
+            vit_ch=args.get("vit_ch", 768),
+            out_ch=args.get("out_ch", 64),
+            vit_patch=args.get("vit_patch", 14),
+            vit_depth=args.get("vit_depth", 12),
+            vit_num_heads=args.get("vit_num_heads", 12),
+            cross_interval_layers=dino_cfg.get("cross_interval_layers", 3),
+            decoder_cfg=dino_cfg.get("decoder_cfg"),
+            fmt_config=args.get("FMT_config"),
+            freeze_vit=args.get("freeze_vit", True),
+            remat_stages=args.get("remat_stages", True),
+        )
     kwargs.update(extra)
-    model = DINOv2MVSNet(**kwargs)
+    model = cls(**kwargs)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).train(train)

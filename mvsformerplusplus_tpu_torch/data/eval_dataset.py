@@ -14,15 +14,12 @@ scan decodes each view once.
 from __future__ import annotations
 
 import os
-import threading
-import time
-from collections import OrderedDict
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .image import resize_linear
-from .io import read_cam_file, read_image_u8, read_pair_file, read_pfm
+from .io import DecodedImages, read_cam_file, read_pair_file, read_pfm
 from .mvs_dataset import stage_cameras
 from .transforms import normalize_imagenet
 
@@ -50,10 +47,7 @@ class EvalDataset:
             for ref, srcs in read_pair_file(os.path.join(datapath, scan, "pair.txt")):
                 if len(srcs) > 0:
                     self.metas.append((scan, ref, srcs))
-        self._views: OrderedDict = OrderedDict()
-        self._lock = threading.Lock()
-        self.decodes = 0  # views decoded (the cache's misses)
-        self.decode_s = 0.0  # their seconds, file read and decode
+        self.views = DecodedImages(CACHED_VIEWS)
 
     def __len__(self):
         return len(self.metas)
@@ -76,26 +70,12 @@ class EvalDataset:
         return K, E, dmin, dint
 
     def _pixels(self, scan, vid) -> np.ndarray:
-        """The view's decoded uint8 RGB, from the cache or the file (images/,
-        else images_post/). The lock is held while a view decodes, so two
-        loader threads never decode one view twice (decoding is Python and
-        holds the interpreter lock, so they gain nothing by overlapping)."""
-        key = (scan, vid)
-        with self._lock:
-            if key in self._views:
-                self._views.move_to_end(key)
-                return self._views[key]
-            path = os.path.join(self.datapath, scan, "images", f"{vid:0>8}.jpg")
-            if not os.path.exists(path):
-                path = os.path.join(self.datapath, scan, "images_post", f"{vid:0>8}.jpg")
-            t0 = time.perf_counter()
-            pixels = read_image_u8(path)
-            self.decode_s += time.perf_counter() - t0
-            self.decodes += 1
-            self._views[key] = pixels
-            while len(self._views) > CACHED_VIEWS:
-                self._views.popitem(last=False)
-            return pixels
+        """The view's decoded uint8 RGB (images/, else images_post/), from
+        the cache or the file."""
+        path = os.path.join(self.datapath, scan, "images", f"{vid:0>8}.jpg")
+        if not os.path.exists(path):
+            path = os.path.join(self.datapath, scan, "images_post", f"{vid:0>8}.jpg")
+        return self.views.get(path)
 
     def _scale_to_max(self, img, K):
         """Resize toward (max_h, max_w): with fix_res exactly there, else by

@@ -15,7 +15,10 @@ from __future__ import annotations
 
 import re
 import struct
+import threading
+import time
 import zlib
+from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -263,6 +266,38 @@ def read_image_u8(filename) -> np.ndarray:
 def read_image(filename) -> np.ndarray:
     """PNG or JPEG file -> float32 [H, W, 3] in [0, 1] (read_image_u8 / 255)."""
     return np.asarray(read_image_u8(filename), np.float32) / 255.0
+
+
+class DecodedImages:
+    """The decoded uint8 RGB of the last `size` image files read
+    (read_image_u8), keyed by path. A file is decoded once under the lock,
+    so two loader threads never decode it twice (decoding is Python and
+    holds the interpreter lock: they would gain nothing by overlapping).
+    The arrays handed out are read-only. `decodes` and `decode_s` count the
+    misses and their seconds, file read included."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._images: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+        self.decodes = 0
+        self.decode_s = 0.0
+
+    def get(self, path) -> np.ndarray:
+        key = str(path)
+        with self._lock:
+            if key in self._images:
+                self._images.move_to_end(key)
+                return self._images[key]
+            t0 = time.perf_counter()
+            pixels = read_image_u8(path)
+            pixels.setflags(write=False)
+            self.decode_s += time.perf_counter() - t0
+            self.decodes += 1
+            self._images[key] = pixels
+            while len(self._images) > self.size:
+                self._images.popitem(last=False)
+            return pixels
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -1,14 +1,13 @@
 """Multi-view training samples (counterpart of
 mvsformerplusplus_tpu/data/mvs_dataset.py): the shared geometry, crop and
-augmentation of a sample, the DTU layout, and the epoch schedule of crop
-scales.
+augmentation of a sample, the DTU and BlendedMVS layouts, and the epoch
+schedule of crop scales.
 
 Every sample of a batch shares one crop scale; ShapeBucketSchedule assigns
 the scales to batches from (seed, epoch), so a run is reproducible. Each
 view's intrinsics are scaled by 0.125/0.25/0.5/1 into the per-stage
 [V, 2, 4, 4] camera stacks the model takes. numpy only (data/image.py
-stands in for OpenCV, data/io.py for PIL); BlendedMVS's dataset is not
-ported (ROADMAP.md §1 item 8c).
+stands in for OpenCV, data/io.py and data/jpeg.py for PIL).
 """
 from __future__ import annotations
 
@@ -20,7 +19,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from .image import resize_area, resize_nearest
-from .io import build_camera_stack, read_cam_file, read_image, read_pair_file, read_pfm, read_png
+from .io import (DecodedImages, build_camera_stack, read_cam_file, read_image, read_pair_file,
+                 read_pfm, read_png)
 from .transforms import apply_color_jitter, crop_normalize, sample_jitter_params, stage_pyramid
 
 STAGE_SCALES = (0.125, 0.25, 0.5, 1.0)
@@ -252,4 +252,64 @@ class DTUTrainDataset(MVSTrainDataset):
             m = read_png(os.path.join(
                 self.datapath, f"Depths_raw/{scan}/depth_visual_{vid:0>4}.png")).astype(np.float32)
             mask = (m > 10).astype(np.float32)
+        return img, depth, mask, K, E, dmin, dint
+
+
+class BlendedTrainDataset(MVSTrainDataset):
+    """BlendedMVS layout: {scan}/blended_images/{id:08d}.jpg,
+    {scan}/cams/{id:08d}_cam.txt and pair.txt, and
+    {scan}/rendered_depth_maps/{id:08d}.pfm, each scan flat under datapath
+    or nested as {scan}/{scan}/{scan}. metas = every reference view with a
+    source (light 0); the sources are shuffled within the pair's top 7; the
+    mask is depth > 0; a cam file with a depth_num field has its interval
+    re-derived as (depth_max - depth_min) / ndepths * interval_scale.
+
+    A view is read by several samples and its JPEG takes seconds to decode
+    at BlendedMVS's 1536 x 2048 (PERF.md): the dataset keeps the decoded
+    pixels of its last CACHED_VIEWS views (`views`, read-only; every sample
+    converts them into arrays of its own).
+    """
+
+    CACHED_VIEWS = 16  # 16 x 1536 x 2048 x 3 bytes = 151 MB
+
+    def __init__(self, datapath, listfile, mode="train", **kwargs):
+        super().__init__(**kwargs)
+        self.datapath = datapath
+        self.mode = mode
+        if mode != "train":
+            self.random_crop = False
+            self.augment = False
+        with open(listfile) as f:
+            scans = [ln.strip() for ln in f if ln.strip()]
+        self.metas = []
+        for scan in scans:
+            pair_path = os.path.join(datapath, scan, "cams", "pair.txt")
+            if not os.path.exists(pair_path):
+                pair_path = os.path.join(datapath, scan, scan, scan, "cams", "pair.txt")
+            self.metas += [(scan, 0, ref, srcs) for ref, srcs in read_pair_file(pair_path)
+                           if len(srcs) > 0]
+        self.views = DecodedImages(self.CACHED_VIEWS)
+
+    def shuffle_src_views(self, src_views, rng):
+        srcs = list(src_views[:7])
+        rng.shuffle(srcs)
+        return srcs
+
+    def _scan_dir(self, scan):
+        d = os.path.join(self.datapath, scan)
+        nested = os.path.join(d, scan, scan)
+        return nested if os.path.isdir(nested) else d
+
+    def load_view(self, meta, vid, want_depth):
+        base = self._scan_dir(meta[0])
+        pixels = self.views.get(os.path.join(base, "blended_images", f"{vid:0>8}.jpg"))
+        img = np.asarray(pixels, np.float32) / 255.0
+        K, E, dmin, dint, extra = read_cam_file(
+            os.path.join(base, "cams", f"{vid:0>8}_cam.txt"), self.interval_scale)
+        if extra.get("depth_num", 0) > 0:
+            dint = (extra["depth_max"] - dmin) / self.ndepths * self.interval_scale
+        depth = mask = None
+        if want_depth:
+            depth = read_pfm(os.path.join(base, "rendered_depth_maps", f"{vid:0>8}.pfm"))[0]
+            mask = (depth > 0).astype(np.float32)
         return img, depth, mask, K, E, dmin, dint

@@ -8,7 +8,8 @@ PNG, JPEG, PFM and cam writers.
   planar quads rendered by exact ray-quad intersection, so every view is
   photometrically consistent with every other and the ground-truth depth is
   closed-form; a short training run on it can converge;
-  `make_geometric_eval_scan` renders it into the MVSNet eval layout.
+  `make_geometric_eval_scan` renders it into the MVSNet eval layout and
+  `make_blended_scan` into the BlendedMVS training layout.
 """
 from __future__ import annotations
 
@@ -247,4 +248,39 @@ def make_geometric_eval_scan(root: Path, scan: str = "scan1", n_views: int = 5, 
         save_cam_file(sd / "cams" / f"{vid:0>8}_cam.txt", K, E, dmin, dint)
     save_pair_file(sd / "pair.txt", [(r, [(s, 100.0) for s in range(n_views) if s != r])
                                       for r in range(n_views)])
+    return scene
+
+
+def make_blended_scan(root: Path, scan: str = "scan1", n_views: int = 8, h: int = 1536,
+                      w: int = 2048, ndepth: int = 192, seed: int = 0, depth_num: bool = True,
+                      nested: bool = False, scene: "GeometricScene" = None):
+    """The BlendedMVS training layout rendered from the analytic scene:
+    <scan>/blended_images/{id:08d}.jpg (quality 95), <scan>/cams/{id:08d}_cam.txt
+    (with the depth_num and depth_max fields when `depth_num`, else the
+    two-field range line), <scan>/cams/pair.txt (every other view a source
+    of each) and <scan>/rendered_depth_maps/{id:08d}.pfm; with `nested`
+    under <scan>/<scan>/<scan>/. Appends the scan to root/train.txt.
+    Returns the scene."""
+    scene = scene or GeometricScene(seed)
+    sd = Path(root) / scan
+    if nested:
+        sd = sd / scan / scan
+    for sub in ("blended_images", "cams", "rendered_depth_maps"):
+        (sd / sub).mkdir(parents=True, exist_ok=True)
+    cams = geometric_cameras(n_views, h, w)
+    depths = []
+    for vid, (K, E) in enumerate(cams):
+        img, depth = scene.render(K, E, h, w)
+        write_jpeg(sd / "blended_images" / f"{vid:0>8}.jpg", (img * 255).astype(np.uint8))
+        save_pfm(sd / "rendered_depth_maps" / f"{vid:0>8}.pfm", depth)
+        depths.append(depth)
+    dmin, dint = _depth_range(np.stack(depths), ndepth)
+    extra = dict(depth_num=ndepth, depth_max=dmin + ndepth * dint) if depth_num else {}
+    for vid, (K, E) in enumerate(cams):
+        save_cam_file(sd / "cams" / f"{vid:0>8}_cam.txt", K, E, dmin, dint, **extra)
+    save_pair_file(sd / "cams" / "pair.txt",
+                   [(r, [(s, 100.0 - abs(s - r)) for s in range(n_views) if s != r])
+                    for r in range(n_views)])
+    with open(Path(root) / "train.txt", "a") as f:
+        f.write(f"{scan}\n")
     return scene

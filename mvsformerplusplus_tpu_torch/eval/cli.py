@@ -17,7 +17,8 @@ one --outdir/<scan>.ply per scan, coloured from the written images.
 Weights: --ckpt, a checkpoints directory of the training command line (its
 best epoch, else its last); --ckpt_npz, a converted reference checkpoint
 (convert.load_npz); with neither, weights drawn from a seed (a warning says
-so) and the frozen ViT from arch.args.vit_path when that file exists.
+so) and the frozen ViT from arch.args.vit_path when that file exists
+(CasMVSNet, model_type "casmvs", has none and loads nothing).
 
 It runs on the card; without CUDA it raises unless --device cpu is given.
 Scans spread over processes (--world > 1, --schedule queue,
@@ -124,7 +125,9 @@ def _load_weights(model, cfg, args) -> None:
     else:
         log.warning("no --ckpt given: using RANDOM weights (smoke mode)")
         vit_path = cfg.get_path("arch.args.vit_path")
-        if vit_path and Path(vit_path).exists():
+        if vit_path and not hasattr(model, "vit"):
+            log.info("%s has no ViT: nothing loaded from %s", type(model).__name__, vit_path)
+        elif vit_path and Path(vit_path).exists():
             n = load_vit_npz(vit_path, model)
             log.info("loaded %d pretrained ViT tensors from %s", n, vit_path)
 
@@ -235,8 +238,8 @@ def save_depths(args, cfg, device: torch.device, stats: dict):
             if pending is not None:
                 writeback(pending)
             done.append(scan)
-            dec_s += ds.decode_s
-            decodes += ds.decodes
+            dec_s += ds.views.decode_s
+            decodes += ds.views.decodes
     if metric_sums:
         avg = {k: float(np.mean([m[k] for m in metric_sums])) for k in metric_sums[0]}
         out_path = Path(args.outdir) / "depth_metric.txt"

@@ -5,21 +5,27 @@ device):
         [-r] [--finetune] [--dtu_model_path DIR] [--data_path DIR] [--save_dir DIR] \\
         [--epochs N] [--batch_size N] [-o 'a;b;c=value' ...] [--device cuda|cpu]
 
-It reads a reference-format JSON config, trains build_model(train=True) on
-the config's DTU-format data loaders (several entries train balanced),
-validates each epoch on data_loader[0].args.val_data_list when that file
-exists, and checkpoints under --save_dir (or trainer.save_dir)/checkpoints.
+It reads a reference-format JSON config, trains build_model(train=True)
+(the flagship, or CasMVSNet for model_type "casmvs") on the config's data
+loaders, DTULoader or BlendedLoader entries (several entries train
+balanced), validates each epoch on data_loader[0].args.val_data_list when
+that file exists (with the dataset class of the first entry; BlendedMVS
+metrics on the "blended" interval scale), and checkpoints under --save_dir
+(or trainer.save_dir)/checkpoints, with scalars.jsonl and, unless
+trainer.log_images is false, the depth panels in images/ beside them.
 -r resumes the last checkpoint there; --finetune starts from the best
 checkpoint of --dtu_model_path (or arch.dtu_model_path: a checkpoints
 directory or one .pth), with a fresh optimizer and schedule when
 arch.reset_sche is true (the default) and the checkpoint's otherwise. The
 frozen ViT loads arch.args.vit_path (the converted flax .npz) when it
-exists; otherwise a warning says the ViT is random.
+exists; otherwise a warning says the ViT is random (a model without a ViT
+loads nothing). --debug adds each top-level module's gradient norm and
+non-finite count to every logged step.
 
 It runs on the card; --device cpu runs the plain PyTorch path on the CPU.
 What the JAX CLI does across devices (--mesh with more than one device,
---distributed, --coordinator, --num_processes, --process_id) and --debug
-are not ported: each exits with an error naming the ROADMAP item.
+--distributed, --coordinator, --num_processes, --process_id) is not
+ported: each exits with an error naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import torch
 from ..config import build_model, load_config, parse_override
 from ..convert import load_vit_npz
 from ..data.loader import BalancedSchedule, ConcatDataset, TrainLoader
-from ..data.mvs_dataset import DTUTrainDataset, MultiScaleArgs
+from ..data.mvs_dataset import BlendedTrainDataset, DTUTrainDataset, MultiScaleArgs
 from .checkpoints import CheckpointManager, load_into
 from .optim import make_optimizer, scale_vit_grads_by_layer
 from .trainer import Trainer
@@ -41,11 +47,13 @@ from .trainer import Trainer
 log = logging.getLogger("mvsformerplusplus_tpu_torch")
 
 MULTI_DEVICE = "is not ported: one device only (ROADMAP.md §1 item 9, the mesh and view sharding)"
+DATASETS = {"DTULoader": DTUTrainDataset, "BlendedLoader": BlendedTrainDataset}
 
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m mvsformerplusplus_tpu_torch.train",
-                                description="Train the flagship on DTU-format data on one card.")
+                                description="Train the flagship or CasMVSNet on DTU or "
+                                            "BlendedMVS data on one card.")
     p.add_argument("-c", "--config", required=True, help="JSON config path")
     p.add_argument("-r", "--resume", action="store_true",
                    help="continue from the last checkpoint under the save dir")
@@ -62,7 +70,10 @@ def parser() -> argparse.ArgumentParser:
     for flag in ("--mesh", "--coordinator", "--num_processes", "--process_id"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     p.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--debug", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--debug", action="store_true",
+                   help="log each top-level module's gradient norm and non-finite count at "
+                        "every logged step (scalars.jsonl 'debug'); the JAX CLI's warp-window "
+                        "check has no counterpart: the port's warp is exact")
     return p
 
 
@@ -75,21 +86,22 @@ def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
             p.error(f"--{flag} {MULTI_DEVICE}")
     if args.distributed:
         p.error(f"--distributed {MULTI_DEVICE}")
-    if args.debug:
-        p.error("--debug (per-module gradient norms, warp-window checks) is not ported "
-                "(ROADMAP.md §1 item 8)")
+
+
+def _dataset_class(entry: dict):
+    if entry.get("type") not in DATASETS:
+        raise SystemExit(f"data_loader type {entry.get('type')!r}: not one of {sorted(DATASETS)}")
+    return DATASETS[entry["type"]]
 
 
 def _train_dataset(entry: dict, msa: MultiScaleArgs, datapath: Optional[str]):
-    if entry.get("type") != "DTULoader":
-        raise SystemExit(f"data_loader type {entry.get('type')!r} is not ported: DTU-format "
-                         "data only (BlendedMVS needs its BlendedTrainDataset, ROADMAP.md §1 item 8c)")
     a = entry["args"]
-    return DTUTrainDataset(datapath or a["datapath"], a["train_data_list"], mode="train",
-                           nviews=a.get("nviews", 5), ndepths=a.get("num_depths", 192),
-                           interval_scale=a.get("interval_scale", 1.06),
-                           random_crop=a.get("random_crop", True), augment=a.get("augment", True),
-                           aug_args=a.get("aug_args"), resize_range=msa.resize_range)
+    return _dataset_class(entry)(
+        datapath or a["datapath"], a["train_data_list"], mode="train",
+        nviews=a.get("nviews", 5), ndepths=a.get("num_depths", 192),
+        interval_scale=a.get("interval_scale", 1.06), random_crop=a.get("random_crop", True),
+        augment=a.get("augment", True), aug_args=a.get("aug_args"),
+        resize_range=msa.resize_range)
 
 
 def _finetune_source(cfg, args, trainer: Trainer) -> None:
@@ -147,10 +159,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         raise SystemExit(f"the training data gives no batch of {loader.batch_size} samples")
     val_loader = None
     val_list = dl_cfg.get("val_data_list")
+    first = cfg["data_loader"][0]
     if val_list and Path(val_list).exists():
-        val_ds = DTUTrainDataset(datapath, val_list, mode="val", nviews=dl_cfg.get("nviews", 5),
-                                 ndepths=dl_cfg.get("num_depths", 192),
-                                 interval_scale=dl_cfg.get("interval_scale", 1.06))
+        val_ds = _dataset_class(first)(datapath, val_list, mode="val",
+                                       nviews=dl_cfg.get("nviews", 5),
+                                       ndepths=dl_cfg.get("num_depths", 192),
+                                       interval_scale=dl_cfg.get("interval_scale", 1.06))
         val_loader = TrainLoader(val_ds, batch_size=1, num_workers=2,
                                  scales=[(dl_cfg.get("height", 1152), dl_cfg.get("width", 1536))])
 
@@ -178,16 +192,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         logging_every=tcfg.get("logging_every", 100), grad_clip=tcfg.get("grad_norm"),
         save_dir=args.save_dir or tcfg.get("save_dir", "saved"), config=dict(cfg),
         monitor=tcfg.get("monitor", "min mean_error"), early_stop=tcfg.get("early_stop", 10),
-        # BlendedMVS scenes have no metric scale (the JAX CLI picks "blended"
-        # for them); the DTU-format loaders this CLI takes are in mm
-        interval_norm="dtu")
-    if tcfg.get("log_images", True) or tcfg.get("tensorboard", False):
-        log.info("image panels and TensorBoard are not ported (ROADMAP.md §1 item 8): "
-                 "scalars go to this log only")
+        # BlendedMVS scenes have no metric scale: thresholds follow the
+        # per-sample depth interval there; DTU's are in mm
+        interval_norm="blended" if first["type"] == "BlendedLoader" else "dtu",
+        log_images=tcfg.get("log_images", True), debug=args.debug)
+    if args.debug:
+        log.info("--debug: per-module gradient norms at every logged step; no warp-window "
+                 "check, the port's warp is exact (no sampling windows)")
+    if tcfg.get("tensorboard", False):
+        log.info("trainer.tensorboard: nothing is mirrored (no tensorboard package); the "
+                 "scalars are in scalars.jsonl")
 
     vit_path = cfg.get_path("arch.args.vit_path")
     if vit_path and not (args.resume or args.finetune):
-        if not Path(vit_path).exists():
+        if not hasattr(model, "vit"):
+            log.info("%s has no ViT: nothing loaded from %s", type(model).__name__, vit_path)
+        elif not Path(vit_path).exists():
             log.warning("!!!No weight in %s: the frozen ViT is RANDOM; only smoke runs should "
                         "proceed", vit_path)
         elif not str(vit_path).endswith(".npz"):

@@ -15,7 +15,10 @@ case.
 batch: {imgs [B, V, H, W, 3], cams {stageN: [B, V, 2, 4, 4]}, depth_values
 [B, D], depth_gt {stageN: [B, h, w]}, mask {stageN: [B, h, w]}} as tensors
 on the model's device. logs: loss, the per-stage losses, grad_norm and the
-stage-4 depth (`depth_est`), as device tensors.
+refined depth (`depth_est`; with one micro-batch also the confidence,
+`conf_est`, as the JAX make_train_step logs them), as device tensors; with
+`debug`, also each top-level module's gradient norm and count of non-finite
+gradient entries (`gnorm/<module>`, `nonfinite/<module>`, debug_logs).
 """
 from __future__ import annotations
 
@@ -37,7 +40,30 @@ def _loss(model, batch, depth_types, dlossw, inverse_depth, clip_func):
         outputs, batch["depth_gt"], batch["mask"], dv[:, 1] - dv[:, 0],
         depth_types=depth_types, dlossw=dlossw, inverse_depth=inverse_depth,
         clip_func=clip_func)
-    return total, loss_dict, outputs["refined_depth"].detach()
+    return (total, loss_dict, outputs["refined_depth"].detach(),
+            outputs["photometric_confidence"].detach())
+
+
+def debug_logs(model) -> Dict[str, Tensor]:
+    """Per top-level module of `model`: the global norm of its gradients
+    (fp32) and the count of their inf and NaN entries, as device tensors
+    (the JAX package's _debug_logs, with its keys). A module whose
+    parameters took no gradient (the frozen ViT) reports 0 and 0, as the
+    JAX package's zero gradients of a stopped branch do."""
+    out: Dict[str, Tensor] = {}
+    for name, mod in model.named_children():
+        params = list(mod.parameters())
+        if not params:
+            continue
+        grads = [p.grad for p in params if p.grad is not None]
+        if grads:
+            out[f"gnorm/{name}"] = global_norm(params)
+            out[f"nonfinite/{name}"] = sum((~torch.isfinite(g)).sum() for g in grads)
+        else:
+            out[f"gnorm/{name}"] = torch.zeros((), device=params[0].device)
+            out[f"nonfinite/{name}"] = torch.zeros((), dtype=torch.int64,
+                                                   device=params[0].device)
+    return out
 
 
 def _update(optimizer, scheduler, grad_clip) -> Tensor:
@@ -60,21 +86,29 @@ def train_step_accum(model, optimizer, scheduler, micro_batches: Sequence[dict],
                      depth_types: Sequence[str] = ("ce", "ce", "ce", "ce"),
                      dlossw: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                      inverse_depth: bool = True, clip_func: Optional[str] = "dynamic",
-                     grad_clip: Optional[float] = None) -> Dict[str, Tensor]:
+                     grad_clip: Optional[float] = None, debug: bool = False
+                     ) -> Dict[str, Tensor]:
     """One AdamW update on the mean gradient of `micro_batches`; the logged
-    losses are their means and depth_est is the last micro-batch's."""
+    losses are their means and depth_est is the last micro-batch's. With
+    `debug`, debug_logs of the mean gradient before the clip."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     n = len(micro_batches)
     sums: Dict[str, Tensor] = {}
     for mb in micro_batches:
-        total, loss_dict, depth = _loss(model, mb, depth_types, dlossw, inverse_depth,
-                                        clip_func)
+        total, loss_dict, depth, conf = _loss(model, mb, depth_types, dlossw, inverse_depth,
+                                              clip_func)
         (total / n).backward()
         for k, v in {"loss": total, **loss_dict}.items():
             sums[k] = sums.get(k, 0.0) + v.detach()
-    norm = _update(optimizer, scheduler, grad_clip)
-    return {**{k: v / n for k, v in sums.items()}, "grad_norm": norm, "depth_est": depth}
+    logs = {k: v / n for k, v in sums.items()}
+    logs["depth_est"] = depth
+    if n == 1:
+        logs["conf_est"] = conf
+    if debug:
+        logs.update(debug_logs(model))
+    logs["grad_norm"] = _update(optimizer, scheduler, grad_clip)
+    return logs
 
 
 def eval_step(model, batch: dict, tmp: Sequence[float] = (5.0, 5.0, 5.0, 1.0),

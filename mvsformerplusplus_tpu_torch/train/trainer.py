@@ -7,13 +7,23 @@ into equal micro-batches whose mean gradient makes one update,
 train_step_accum) and a remat granularity from `remat_map` (crop-height
 classes whose steps checkpoint whole StageNets or only their regularizers).
 Every `logging_every` steps the loss, the per-stage losses, the gradient
-norm and the learning rate are logged; `train` returns those entries.
+norm and the learning rate are logged (with `debug`, also each top-level
+module's gradient norm and non-finite count); `train` returns those
+entries.
 
 With a validation loader, each epoch ends with `validate` (metric means over
 the validation batches, eval_step with its thresholds scaled by
 `interval_norm`); `monitor` ("min mean_error") picks the
 best epoch and drives the early stop. With a `save_dir`, each epoch is
-checkpointed (train/checkpoints.py); `resume` continues from the last one,
+checkpointed (train/checkpoints.py), and the scalars go to
+save_dir/scalars.jsonl as the JAX Trainer writes them (utils/logging.py):
+each logged step's loss, gradient norm and per-stage losses ("train"), each
+validation's metrics ("val") and, with `debug`, each logged step's
+per-module gradient norms ("debug"; train_step's debug_logs, with a warning
+naming the modules that have non-finite gradients); with `log_images`,
+the depth panels of sample 0 of each logged step's (last micro-)batch and
+of the first validation batch go to save_dir/images/ (a panel that fails
+is logged and never stops the run). `resume` continues from the last one,
 running an interrupted epoch again. SIGTERM and SIGINT during `train` set a
 flag: the step in flight finishes, an interrupted=True checkpoint is saved
 and `train` returns.
@@ -39,6 +49,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..utils.logging import ImageWriter, ScalarWriter
 from .checkpoints import CheckpointManager
 from .step import eval_step, train_step_accum
 
@@ -108,7 +119,8 @@ class Trainer:
                  remat_map: Optional[Dict[str, str]] = None,
                  logging_every: int = 100, grad_clip: Optional[float] = None,
                  save_dir=None, config: Optional[dict] = None, monitor: str = "min mean_error",
-                 early_stop: int = 10, interval_norm: str = "dtu"):
+                 early_stop: int = 10, interval_norm: str = "dtu", log_images: bool = True,
+                 debug: bool = False):
         self.model = model
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -129,6 +141,9 @@ class Trainer:
         # without a save_dir the manager writes nothing and only tracks the best
         self.ckpt = CheckpointManager(None if save_dir is None else Path(save_dir) / "checkpoints",
                                       mode=self.monitor_mode)
+        self.writer = None if save_dir is None else ScalarWriter(save_dir)
+        self.images = ImageWriter(save_dir) if save_dir is not None and log_images else None
+        self.debug = debug
         self.global_step = 0
         self.logged: List[dict] = []  # the entries the last `train` call logged
         self.epoch_stats: List[dict] = []
@@ -203,9 +218,10 @@ class Trainer:
                     self._set_remat(crop_hw[0])
                     lr = self.optimizer.param_groups[0]["lr"]
                     before = clock.mark()
+                    micro_batches = split_micro(batch, n_micro)
                     logs = train_step_accum(self.model, self.optimizer, self.scheduler,
-                                            split_micro(batch, n_micro), grad_clip=self.grad_clip,
-                                            **self.loss_kwargs)
+                                            micro_batches, grad_clip=self.grad_clip,
+                                            debug=self.debug, **self.loss_kwargs)
                     after = clock.mark()
                     steps += 1
                     self.global_step += 1
@@ -213,13 +229,24 @@ class Trainer:
                         entry = {"epoch": epoch, "step": self.global_step, "crop": list(crop_hw),
                                  "micro": n_micro, "lr": lr,
                                  **{k: float(v) for k, v in logs.items()
-                                    if k == "loss" or k == "grad_norm" or k.startswith("stage")}}
+                                    if k == "loss" or k == "grad_norm" or k.startswith("stage")
+                                    or k.startswith(("gnorm/", "nonfinite/"))}}
                         log.info("epoch %d step %d crop %s micro %d lr %.3g loss %.4f "
                                  "gnorm %.3f %s", epoch, i, crop_hw, n_micro, lr, entry["loss"],
                                  entry["grad_norm"],
                                  {k: round(v, 3) for k, v in entry.items()
                                   if k.startswith("stage")})
                         logged.append(entry)
+                        if self.writer is not None:
+                            self.writer.write("train", {k: v for k, v in entry.items()
+                                                        if k == "loss" or k == "grad_norm"
+                                                        or k.startswith("stage")},
+                                              self.global_step)
+                        if self.debug:
+                            self._report_debug(entry, epoch, i)
+                        if self.images is not None and "depth_est" in logs:
+                            self._write_panels("train", logs["depth_est"], micro_batches[-1],
+                                               logs.get("conf_est"))
                     records.append((tuple(crop_hw), t_got - t_fetch,
                                     time.perf_counter() - t_fetch, before, after))
                     if self._preempted:
@@ -242,6 +269,35 @@ class Trainer:
             for sig, handler in previous.items():
                 signal.signal(sig, handler)
         return logged
+
+    def _report_debug(self, entry: dict, epoch: int, i: int) -> None:
+        """Per-module gradient norms to the log and to scalars.jsonl
+        ("debug"); a warning names the modules with non-finite gradients."""
+        gnorms = {k.split("/", 1)[1]: v for k, v in entry.items() if k.startswith("gnorm/")}
+        bad = {k.split("/", 1)[1]: int(v) for k, v in entry.items()
+               if k.startswith("nonfinite/") and v > 0}
+        log.info("debug epoch %d step %d per-module gnorm %s", epoch, i,
+                 {k: round(v, 4) for k, v in gnorms.items()})
+        if self.writer is not None:
+            self.writer.write("debug", gnorms, self.global_step)
+        if bad:
+            log.warning("NON-FINITE gradients at epoch %d step %d: %s (module -> count)",
+                        epoch, i, bad)
+
+    def _write_panels(self, mode: str, depth, batch, conf=None) -> None:
+        """The panel of sample 0: depth, the last stage's ground truth and
+        mask where the batch has them, and the confidence where given."""
+        try:
+            key = f"stage{len(batch['depth_gt'])}" if "depth_gt" in batch else None
+
+            def first(x):
+                return None if x is None else x[0].float().cpu().numpy()
+
+            self.images.write(mode, self.global_step, first(depth),
+                              first(batch["depth_gt"][key]) if key else None, first(conf),
+                              first(batch["mask"][key]) if key else None)
+        except Exception as e:  # a panel must never stop a training run
+            log.warning("%s panel write failed: %s", mode, e)
 
     def _summarise(self, epoch: int, records, clock: _Clock, wall_s: float) -> None:
         """Per crop bucket: steps, ms per step (device between the events
@@ -273,6 +329,8 @@ class Trainer:
             start = clock.mark()
             m = eval_step(self.model, batch, interval_norm=self.interval_norm)
             times.append((start, clock.mark(), batch["imgs"].shape[0]))
+            if self.images is not None and n == 0:
+                self._write_panels("val", m["depth"], batch, m["confidence"])
             for k, v in m.items():
                 if k not in ("depth", "confidence"):
                     sums[k] = sums.get(k, 0.0) + float(v)
@@ -284,4 +342,6 @@ class Trainer:
         self.val_stats.append({"epoch": epoch, "metrics": metrics, "batches": n, "maps": maps,
                                "ms_per_map": ms / max(maps, 1)})
         log.info("epoch %d val %s", epoch, {k: round(v, 4) for k, v in metrics.items()})
+        if self.writer is not None:
+            self.writer.write("val", metrics, self.global_step)
         return metrics

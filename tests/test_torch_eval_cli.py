@@ -10,7 +10,11 @@ fuse_scan against the JAX test.py's, its refusals, and convert.load_npz.
   (the robust plane scene of test_torch_fusion.py): the ply files hold the
   same points (rtol 1e-5) and colours (exact), for each method.
 - load_npz round-trips tools/convert_reference.save_npz of random flax
-  variables into the state from_jax_variables gives, strictly."""
+  variables into the state from_jax_variables gives, strictly.
+- configs/casmvs.json's CasMVSNet at a tiny width: seeded weights with an
+  existing vit_path (nothing loaded, one log line), and --ckpt of a
+  checkpoints directory, whose depth maps are the loaded model's own
+  forward on the dataset's samples."""
 import importlib.util
 import io
 import json
@@ -25,6 +29,7 @@ from PIL import Image
 
 from mvsformerplusplus_tpu.models.mvsformer import DINOv2MVSNet as JaxFlagship
 from mvsformerplusplus_tpu.train.metrics import depth_metrics as jax_depth_metrics
+from mvsformerplusplus_tpu_torch.config import Config, build_model
 from mvsformerplusplus_tpu_torch.convert import load_npz
 from mvsformerplusplus_tpu_torch.data.eval_dataset import EvalDataset
 from mvsformerplusplus_tpu_torch.data.io import read_cam_file, read_pfm, save_cam_file, save_pfm
@@ -35,6 +40,8 @@ from mvsformerplusplus_tpu_torch.eval import cli
 from mvsformerplusplus_tpu_torch.fusion.ply import read_ply
 from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
 from mvsformerplusplus_tpu_torch.testing import inverse_depth_bounds
+from mvsformerplusplus_tpu_torch.train.checkpoints import CheckpointManager
+from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
 from tests.test_casmvs import make_inputs
 from tests.test_torch_flagship import TINY, TINY_ARCH_ARGS
 from tests.test_torch_fusion import _scene
@@ -228,3 +235,60 @@ def test_load_npz_is_strict(flax_npz, tmp_path):
     assert load_npz(tmp_path / "partial.npz", model) == len(partial) + sum(
         k.startswith("batch_stats:") and k.endswith("/mean") for k in partial)
     torch.testing.assert_close(model.state_dict()["encoder.ConvBlock_0.Conv_0.weight"], before)
+
+
+@pytest.fixture(scope="module")
+def casmvs(tmp_path_factory):
+    """configs/casmvs.json at a tiny width, its vit_path an existing file
+    that is no ViT, and a checkpoints directory of the model (as the
+    training command line writes it)."""
+    root = tmp_path_factory.mktemp("casmvs")
+    cfg = json.loads((REPO / "configs" / "casmvs.json").read_text())
+    cfg["arch"]["args"].update(feat_chs=[4, 8, 16, 32], ndepths=[8, 4, 4, 4],
+                               base_ch=[4, 4, 4, 4], vit_path=str(root / "vit.npz"))
+    (root / "vit.npz").write_bytes(b"not a ViT")
+    (root / "cfg.json").write_text(json.dumps(cfg))
+    model = build_model(Config(cfg), dtype=torch.float32, device="cpu", seed=3, train=True)
+    opt, sched = make_optimizer(model)
+    CheckpointManager(root / "checkpoints").save(0, model, opt, sched, 0, config=cfg,
+                                                 monitor_value=1.0)
+    return root, cfg
+
+
+def _casmvs_argv(scan, root, out, *extra):
+    argv = _argv(scan, out, *extra)
+    argv[argv.index("--config") + 1] = str(root / "cfg.json")
+    return argv
+
+
+def test_casmvs_eval_cli_loads_no_vit(scan, casmvs, tmp_path, caplog):
+    root, _ = casmvs
+    with caplog.at_level(logging.INFO, logger="mvsformerplusplus_tpu_torch"):
+        stats = cli.main(_casmvs_argv(scan, root, tmp_path))
+    assert sum("CasMVSNet has no ViT: nothing loaded" in r.getMessage()
+               for r in caplog.records) == 1
+    assert stats["maps"] == 3 and stats["points"]["scan1"] >= 0
+    assert (tmp_path / "scan1.ply").exists()
+    for v in range(3):
+        depth = read_pfm(tmp_path / "scan1" / "depth_est" / f"{v:0>8}.pfm")[0]
+        assert depth.shape == (H, W) and np.isfinite(depth).all()
+
+
+def test_casmvs_eval_cli_depth_is_the_checkpoint_forward(scan, casmvs, tmp_path):
+    """--ckpt: each written depth map is the checkpoint's model (bf16, as
+    the CLI builds it) on the dataset's sample, exactly."""
+    root, cfg = casmvs
+    stats = cli.main(_casmvs_argv(scan, root, tmp_path, "--ckpt", str(root / "checkpoints"),
+                                  "--filter_method", "none"))
+    assert stats["maps"] == 3
+    model = build_model(Config(cfg), dtype=torch.bfloat16, device="cpu")
+    model.load_state_dict(CheckpointManager(root / "checkpoints").load(0)["state_dict"])
+    ds = EvalDataset(str(scan), ["scan1"], nviews=3, ndepths=48, max_h=H, max_w=W)
+    with torch.inference_mode():
+        for i in range(3):
+            sample = ds[i]
+            out = model(torch.from_numpy(sample["imgs"])[None],
+                        {k: torch.from_numpy(c)[None] for k, c in sample["cams"].items()},
+                        torch.from_numpy(sample["depth_values"])[None])
+            got = read_pfm(tmp_path / "scan1" / "depth_est" / f"{sample['ref_view']:0>8}.pfm")[0]
+            np.testing.assert_array_equal(got, out["refined_depth"][0].float().numpy())

@@ -97,7 +97,7 @@ def test_eval_dataset_matches_jax(scans, case):
         assert (a["scan"], a["ref_view"], a["filename"]) == (b["scan"], b["ref_view"],
                                                               b["filename"])
     # each of the scan's views decoded once over its three samples
-    assert port.decodes == 3
+    assert port.views.decodes == 3
 
 
 @pytest.mark.parametrize("rank,world", [(0, 1), (0, 2), (1, 2)])

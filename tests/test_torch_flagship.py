@@ -13,8 +13,10 @@ import torch
 from mvsformerplusplus_tpu.config import Config as JaxConfig
 from mvsformerplusplus_tpu.config import build_model as jax_build_model
 from mvsformerplusplus_tpu.config import parse_override as jax_parse_override
+from mvsformerplusplus_tpu.models.casmvs import CasMVSNet as JaxCasMVSNet
 from mvsformerplusplus_tpu.models.mvsformer import DINOv2MVSNet as JaxFlagship
 from mvsformerplusplus_tpu_torch.config import Config, build_model, load_config, parse_override
+from mvsformerplusplus_tpu_torch.models.casmvs import CasMVSNet
 from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
 from mvsformerplusplus_tpu_torch.testing import well_conditioned
 from tests.test_casmvs import make_inputs
@@ -101,10 +103,20 @@ def test_build_model_defaults_to_the_card(monkeypatch):
         build_model(cfg)
 
 
-def test_build_model_rejects_unported_casmvs():
+def test_build_model_builds_casmvs():
+    """configs/casmvs.json builds the port's CasMVSNet with the cascade the
+    JAX build_model gives the JAX CasMVSNet (bf16, "cost_reg" remat)."""
     cfg = load_config(REPO / "configs" / "casmvs.json")
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+    jm = jax_build_model(JaxConfig(cfg))
+    model = build_model(cfg, device="cpu")
+    assert isinstance(jm, JaxCasMVSNet) and isinstance(model, CasMVSNet)
+    c = model.cascade
+    assert (c.ndepths, c.depth_intervals_ratio, c.inverse_depth, c.cost_reg_type, c.use_pe3d,
+            c.remat_stages, c.remat_granularity) == (
+        jm.ndepths, jm.depth_intervals_ratio, jm.inverse_depth, jm.cost_reg_type, jm.use_pe3d,
+        jm.remat_stages, jm.remat_granularity) == (
+        (32, 16, 8, 4), (4.0, 2.67, 1.5, 1.0), True, ("Normal",) * 4, False, True, "cost_reg")
+    assert model.dtype == torch.bfloat16 and jm.dtype == jax.numpy.bfloat16
 
 
 TINY_ARCH_ARGS = dict(feat_chs=[4, 8, 16, 32], vit_ch=48, vit_depth=1, vit_num_heads=2, out_ch=32,

@@ -3,22 +3,33 @@ the tiny flagship on an 80 x 120 geometric DTU scan (one reference view,
 7 lights), 64 x 96 and 64 x 64 crops, two epochs with validation, then -r
 to a third epoch and --finetune from the run's checkpoints with the
 schedule continued. Asserts the checkpoint files, a bit-equal restore of
-model_last.pth, the resumed epoch, step and learning rate, and finite
-losses and metrics; and that each flag of the JAX CLI that the port does
-not have exits with an error naming its ROADMAP item."""
+model_last.pth, the resumed epoch, step and learning rate, finite losses
+and metrics, and scalars.jsonl and the panels; --debug's per-module
+gradient norms; a BlendedLoader config (BlendedTrainDataset, the
+"blended" interval scale, validation with the Blended class); a tiny
+CasMVSNet through configs/casmvs.json's settings (no ViT to load); and
+that each flag of the JAX CLI that the port does not have exits with an
+error naming its ROADMAP item."""
 import json
+import logging
 import math
+from pathlib import Path
 
 import pytest
 import torch
 
 from mvsformerplusplus_tpu_torch.config import Config, build_model
-from mvsformerplusplus_tpu_torch.data.synthetic import GeometricScene, make_geometric_dtu
+from mvsformerplusplus_tpu_torch.data.io import read_png
+from mvsformerplusplus_tpu_torch.data.mvs_dataset import BlendedTrainDataset
+from mvsformerplusplus_tpu_torch.data.synthetic import (GeometricScene, make_blended_scan,
+                                                        make_geometric_dtu)
+from mvsformerplusplus_tpu_torch.models.casmvs import CasMVSNet
 from mvsformerplusplus_tpu_torch.train import cli
 from mvsformerplusplus_tpu_torch.train.optim import warmup_cosine
 from tests.test_torch_flagship import TINY_ARCH_ARGS
 
 WARMUP, MIN_LR, LR = 3, 0.01, 1e-3
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _config(tmp_path, data):
@@ -61,6 +72,10 @@ def scan(tmp_path_factory):
     pairs = (root / "Cameras" / "pair.txt").read_text().splitlines()
     (root / "Cameras" / "pair.txt").write_text("\n".join(["1"] + pairs[1:3]) + "\n")
     return root
+
+
+def _scalars(save):
+    return [json.loads(ln) for ln in (save / "scalars.jsonl").read_text().splitlines()]
 
 
 def _finite(entries):
@@ -121,23 +136,119 @@ def test_train_resume_finetune(tmp_path, scan):
                                                rel=1e-12)
     assert (tmp_path / "ft" / "checkpoints" / "model_last.pth").exists()
 
+    # scalars.jsonl across the first two runs: every logged step, then each
+    # validation at the epoch's last step; the panels at each of those steps
+    recs = _scalars(save)
+    assert [(r["mode"], r["step"]) for r in recs] == [
+        ("train", s) for s in range(1, spe + 1)] + [("val", spe)] + [
+        ("train", s) for s in range(spe + 1, 2 * spe + 1)] + [("val", 2 * spe)] + [
+        ("train", s) for s in range(2 * spe + 1, 3 * spe + 1)] + [("val", 3 * spe)]
+    first = t1.logged[0]
+    assert recs[0] == {"time": recs[0]["time"], "mode": "train", "step": 1,
+                       **{k: v for k, v in first.items()
+                          if k in ("loss", "grad_norm") or k.startswith("stage")}}
+    assert recs[spe]["mean_error"] == t1.val_stats[0]["metrics"]["mean_error"]
+    names = sorted(p.name for p in (save / "images").iterdir())
+    assert names == sorted([f"train_step{s:08d}.png" for s in range(1, 3 * spe + 1)]
+                           + [f"val_step{s:08d}.png" for s in (spe, 2 * spe, 3 * spe)])
+    # two micro-batches a step: gt, depth and error of the last one's sample
+    # 0, no confidence (as the JAX accumulated step); validation adds it
+    for name in names[:-3]:
+        assert read_png(save / "images" / name).shape in ((64, 3 * 64, 3), (64, 3 * 96, 3))
+    assert read_png(save / "images" / f"val_step{spe:08d}.png").shape == (64, 4 * 96, 3)
+
+
+def test_debug_logs_per_module_gradient_norms(tmp_path, scan, caplog):
+    """--debug: each logged step's per-module gradient norms, finite, in
+    the log and in scalars.jsonl ("debug", with the step's "train" record),
+    the frozen ViT's 0; one log line says the port has no warp-window
+    check; no non-finite warning."""
+    _, path = _config(tmp_path, scan)
+    save = tmp_path / "saved"
+    with caplog.at_level(logging.INFO, logger="mvsformerplusplus_tpu_torch"):
+        t = cli.main(["-c", str(path), "--device", "cpu", "--save_dir", str(save), "--epochs",
+                      "1", "--debug"])
+    assert t.debug and sum("no warp-window check" in r.message for r in caplog.records) == 1
+    assert not any("NON-FINITE" in r.message for r in caplog.records)
+    recs = _scalars(save)
+    debug = [r for r in recs if r["mode"] == "debug"]
+    assert [r["step"] for r in debug] == [r["step"] for r in recs if r["mode"] == "train"] \
+        == [e["step"] for e in t.logged] and len(debug) == t.global_step
+    for r in debug:
+        assert set(r) == {"time", "mode", "step", "encoder", "decoder", "vit", "decoder_vit",
+                          "fmt", "cascade"}
+        assert r["vit"] == 0 and all(math.isfinite(r[k]) and r[k] > 0 for k in
+                                     ("encoder", "decoder", "decoder_vit", "fmt", "cascade"))
+    for e, r in zip(t.logged, debug):  # the returned entries hold the counts too
+        assert {k: e[f"gnorm/{k}"] for k in r if k not in ("time", "mode", "step")} == \
+            {k: v for k, v in r.items() if k not in ("time", "mode", "step")}
+        assert [e[f"nonfinite/{k}"] for k in ("encoder", "decoder", "vit", "decoder_vit", "fmt",
+                                              "cascade")] == [0] * 6
+
 
 @pytest.mark.parametrize("flags,item", [(["--mesh", "1,2"], "item 9"),
                                         (["--mesh", "2,1"], "item 9"),
                                         (["--distributed"], "item 9"),
                                         (["--coordinator", "h:1"], "item 9"),
                                         (["--num_processes", "2"], "item 9"),
-                                        (["--process_id", "0"], "item 9"),
-                                        (["--debug"], "item 8")])
+                                        (["--process_id", "0"], "item 9")])
 def test_unported_flags_exit_naming_the_roadmap(tmp_path, capsys, flags, item):
     with pytest.raises(SystemExit):
         cli.main(["-c", str(tmp_path / "cfg.json"), "--device", "cpu"] + flags)
     assert f"ROADMAP.md §1 {item}" in capsys.readouterr().err
 
 
-def test_blended_loader_exits_naming_the_roadmap(tmp_path, scan):
-    cfg, _ = _config(tmp_path, scan)
+def test_blended_loader_trains_and_validates(tmp_path):
+    """A BlendedLoader config (the fine-tune's interval_scale 1.0, its
+    96 x 128 views validated whole): BlendedTrainDataset for training and
+    validation, metrics on the "blended" interval scale, --debug, the
+    scalars' train, val and debug records and both panels."""
+    data = tmp_path / "blended"
+    make_blended_scan(data, "5a3ca9cb", n_views=5, h=96, w=128, ndepth=48,
+                      scene=GeometricScene(seed=3, tex_res=128))
+    cfg, _ = _config(tmp_path, data)
+    a = cfg["data_loader"][0]["args"]
     cfg["data_loader"][0]["type"] = "BlendedLoader"
+    a.update(interval_scale=1.0, height=96, width=128, batch_size=2,
+             multi_scale_args={"scales": [[64, 96]], "resize_range": [1.0, 1.2],
+                               "scale_batch_map": {"64": 2}})
     (tmp_path / "b.json").write_text(json.dumps(cfg))
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 8"):
-        cli.main(["-c", str(tmp_path / "b.json"), "--device", "cpu"])
+    save = tmp_path / "saved"
+    t = cli.main(["-c", str(tmp_path / "b.json"), "--device", "cpu", "--save_dir", str(save),
+                  "--epochs", "1", "--debug"])
+    assert t.interval_norm == "blended"
+    assert isinstance(t.train_loader.dataset, BlendedTrainDataset)
+    assert isinstance(t.val_loader.dataset, BlendedTrainDataset)
+    assert t.global_step == 2 and [v["maps"] for v in t.val_stats] == [5]
+    assert _finite(t.logged) and all(math.isfinite(x) for x in t.val_stats[0]["metrics"].values())
+    assert sorted({r["mode"] for r in _scalars(save)}) == ["debug", "train", "val"]
+    assert {p.name for p in (save / "images").iterdir()} == {
+        "train_step00000001.png", "train_step00000002.png", "val_step00000002.png"}
+    assert read_png(save / "images" / "val_step00000002.png").shape == (96, 4 * 128, 3)
+
+
+def test_casmvs_trains_without_a_vit(tmp_path, scan, caplog):
+    """configs/casmvs.json's arch.args at a tiny width: CasMVSNet, one
+    optimizer group, nothing loaded from an existing vit_path (one log line
+    says the model has none), checkpoints that restore into a fresh
+    build_model."""
+    cfg, _ = _config(tmp_path, scan)
+    (tmp_path / "vit.npz").write_bytes(b"not a ViT")
+    cfg["arch"]["args"] = {**json.loads((REPO / "configs" / "casmvs.json").read_text())["arch"][
+        "args"], "feat_chs": [4, 8, 16, 32], "ndepths": [8, 4, 4, 4], "base_ch": [4, 4, 4, 4],
+        "vit_path": str(tmp_path / "vit.npz")}
+    # a 3D U-Net at stage 1 halves H/8 and W/8 three times: crops of 64s
+    a = cfg["data_loader"][0]["args"]
+    a.update(width=64, multi_scale_args={**a["multi_scale_args"], "scales": [[64, 64]]})
+    path = tmp_path / "cas.json"
+    path.write_text(json.dumps(cfg))
+    save = tmp_path / "saved"
+    with caplog.at_level(logging.INFO, logger="mvsformerplusplus_tpu_torch"):
+        t = cli.main(["-c", str(path), "--device", "cpu", "--save_dir", str(save),
+                      "--epochs", "1"])
+    assert isinstance(t.model, CasMVSNet) and len(t.optimizer.param_groups) == 1
+    assert sum("CasMVSNet has no ViT: nothing loaded" in r.message for r in caplog.records) == 1
+    assert _finite(t.logged) and t.global_step == 3 and [v["maps"] for v in t.val_stats] == [7]
+    payload = torch.load(save / "checkpoints" / "model_last.pth", weights_only=True)
+    fresh = build_model(Config(cfg), dtype=torch.float32, device="cpu", train=True)
+    fresh.load_state_dict(payload["state_dict"])
