@@ -93,13 +93,34 @@ Phases, one JSON line each:
               the "blended" interval scale, scalars.jsonl's train, val and
               debug records, every module's gradient norm finite and no
               non-finite gradient, the panels, ms per step, validation ms per
-              map, decode ms per image, peak memory.
+              map, decode ms per image, peak memory;
+  dist_step   the flagship's train step on train_step's global batch (B=2,
+              512 x 640) on one rank, again, and on images a bf16 ulp apart (its
+              rounding sensitivity), then through parallel.dist.launch three
+              ways, each held to the one-rank step by the reference_train
+              phase's rule, its sensitivity measured by re-runs and bf16-ulp
+              probes (compare_steps: the losses, the gradients and the
+              BatchNorm running statistics, the parameters after AdamW): two gloo ranks
+              sharing the card at --mesh 2,1 (one sample each), two at
+              --mesh 1,2 (view-sharded: two source views each), and the NCCL
+              path at world 1; ms per step and peak memory per rank;
+  train_cli_mesh
+              the training command line with --mesh 2,1 (two gloo ranks on
+              the card) on train_cli's scan: one epoch with validation, then
+              -r to a second; one set of checkpoints, one scalars.jsonl, both
+              ranks' losses, metrics and final weights equal, ms per step;
+  eval_queue  eval_cli's scan copied into 3 scans: depth maps by two eval
+              command line processes with --schedule queue sharing the card,
+              then by one process; every scan claimed once and done, every
+              depth map the one process's, maps/s at 2 and at 1 worker.
 Each path (main_path, train_step, train_cli, eval_cli, casmvs_main_path,
-casmvs_train_step, casmvs_cli, blended_cli) is run with every kernel's
-launch count set to 0 just before it and read just after; the kernel phase's
-cases must add up to those counts (so the f32 flash and conv kernels and the
-warps' scalar kernels, whose cases belong to no path, must not launch there,
-nor any flash kernel on a CasMVSNet path).
+casmvs_train_step, casmvs_cli, blended_cli, dist_step, train_cli_mesh,
+eval_queue) is run with every kernel's launch count set to 0 just before it
+and read just after, the counts of the processes it starts reported back by
+each (ops.cuda.launch_counts) and added; the kernel phase's cases must add
+up to those counts (so the f32 flash and conv kernels and the warps' scalar
+kernels, whose cases belong to no path, must not launch there, nor any flash
+kernel on a CasMVSNet path).
 Then the eval CLI's metric line, the {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
@@ -253,6 +274,23 @@ CLI = dict(samples=14, refs=2, batch=2, scales=((512, 640), (512, 768)), val_hw=
 # then fusion of the 5 reference views, each against its 4 sources
 EVAL_CLI = dict(views=5, hw=(1152, 1536), depths=192)
 
+# the dist_step phase: the flagship's train step on the global batch of
+# train_step (B=2, 512 x 640) on one rank, DIST_PROBES' five times (the step
+# every layout is compared with, and its sensitivity probes), then 1 +
+# `timed` steps (the compared one and the timed ones)
+# on each of: two gloo ranks at --mesh 2,1 (B=1 each), two gloo ranks at
+# --mesh 1,2 (2 source views each), the NCCL path at world 1 (B=2)
+DIST = dict(timed=2)
+
+# the train_cli_mesh phase: the training CLI at --mesh 2,1 (two gloo ranks
+# on the card) on train_cli's scan at batch 4 (2 samples per rank: the
+# train_step shapes; 3 steps an epoch), one epoch, then -r to a second
+CLI_MESH = dict(epochs=2, batch=4)
+
+# the eval_queue phase: eval_cli's scan copied into 3 scans, depth maps by
+# two --schedule queue workers sharing the card, then by one process
+EVAL_QUEUE = dict(scans=3, workers=2)
+
 # the casmvs_cli phase: configs/casmvs.json through the training CLI on
 # train_cli's scan and crops at batch 4 (its scale_batch_map's micro-batch
 # at 512 rows: one micro-batch a step), one epoch validating on the 14
@@ -288,26 +326,39 @@ def cli_counts():
 
 def shape_configs():
     """(name, 'eval' or 'train', (B, H, W), batch seed, {path: runs of that
-    shape per run of the path}, model family): the flagship's DTU eval
-    forward, its train step at 512 x 640 (the train_step path and the CLI's
-    512 x 640 bucket), the CLI's 512 x 768 bucket and the CLI's validation
-    forwards (B=1, 512 x 640, eval mode); CasMVSNet's DTU eval forward
-    (casmvs_main_path and the casmvs_cli's eval maps), its train step at
-    micro-batch 4 at 512 x 640 and 512 x 768 and its validation forwards;
-    the flagship's BlendedMVS validation forward at 1536 x 2048 and its
-    fine-tune step at micro-batch 4 at 512 x 640. A config no path runs is
-    left out."""
+    shape per run of the path}, model family, source views a rank warps,
+    {path: runs}): the flagship's DTU eval forward, its train step at
+    512 x 640 (the train_step path and the CLI's 512 x 640 bucket), the
+    CLI's 512 x 768 bucket and the CLI's validation forwards (B=1, 512 x
+    640, eval mode); CasMVSNet's DTU eval forward (casmvs_main_path and the
+    casmvs_cli's eval maps), its train step at micro-batch 4 at 512 x 640 and
+    512 x 768 and its validation forwards; the flagship's BlendedMVS
+    validation forward at 1536 x 2048 and its fine-tune step at micro-batch
+    4 at 512 x 640; the ranks' train steps at B=1 (dist_step's --mesh 2,1;
+    train_cli_mesh's ranks step at train_step's B=2) and the view-sharded rank's
+    step (dist_step's --mesh 1,2: B=2, 2 of the 4 source views). Only the
+    warps and the visibility nets see a view split: the other kernels of a
+    view-sharded rank run at its unsharded twin's shapes, whose last field
+    counts them. A config no path runs is left out."""
     steps, val_maps = cli_counts()
     cas = schedule_steps(CLI["samples"], CLI["scales"], CAS_CLI["batch"], CAS_CLI["epochs"])
     blended = schedule_steps(BLENDED["views"], BLENDED["scales"], BLENDED["batch"],
                              BLENDED["epochs"])
+    mesh = schedule_steps(CLI["samples"], CLI["scales"], CLI_MESH["batch"], CLI_MESH["epochs"])
+    rank_steps = 2 * (1 + DIST["timed"])  # two ranks, a compared step and the timed ones
+    queue_maps = 2 * EVAL_QUEUE["scans"] * EVAL_CLI["views"]  # the queue's run and one process's
     configs = [
-        ("eval1152", "eval", (1, 1152, 1536), 0, {"main_path": 1, "eval_cli": EVAL_CLI["views"]},
-         "flagship"),
+        ("eval1152", "eval", (1, 1152, 1536), 0,
+         {"main_path": 1, "eval_cli": EVAL_CLI["views"], "eval_queue": queue_maps}, "flagship"),
         ("train640", "train", (2, 512, 640), 1,
-         {"train_step": 1, "train_cli": steps[(512, 640)]}, "flagship"),
-        ("train768", "train", (2, 512, 768), 1, {"train_cli": steps[(512, 768)]}, "flagship"),
-        ("eval640", "eval", (1, 512, 640), 1, {"train_cli": val_maps}, "flagship"),
+         {"train_step": 1, "train_cli": steps[(512, 640)],
+          "dist_step": len(DIST_PROBES) + 1 + DIST["timed"],
+          "train_cli_mesh": 2 * mesh[(512, 640)]}, "flagship", 4, {"dist_step": rank_steps}),
+        ("train768", "train", (2, 512, 768), 1,
+         {"train_cli": steps[(512, 768)], "train_cli_mesh": 2 * mesh[(512, 768)]}, "flagship"),
+        ("eval640", "eval", (1, 512, 640), 1,
+         {"train_cli": val_maps, "train_cli_mesh": CLI["samples"] * CLI_MESH["epochs"]},
+         "flagship"),
         ("casmvs_eval", "eval", (1, 1152, 1536), 0,
          {"casmvs_main_path": 1, "casmvs_cli": EVAL_CLI["views"]}, "casmvs"),
         ("casmvs_train", "train", (4, 512, 640), 1,
@@ -319,7 +370,10 @@ def shape_configs():
          {"blended_cli": BLENDED["views"] * BLENDED["epochs"]}, "flagship"),
         ("blended_train", "train", (BLENDED["batch"],) + BLENDED["scales"][0], 1,
          {"blended_cli": blended[BLENDED["scales"][0]]}, "flagship"),
+        ("rank640", "train", (1, 512, 640), 1, {"dist_step": rank_steps}, "flagship"),
+        ("shard640", "train", (2, 512, 640), 1, {"dist_step": rank_steps}, "flagship", 2),
     ]
+    configs = [c + (4, {})[len(c) - 6:] for c in configs]
     return [c for c in configs if any(c[4].values())]
 
 
@@ -330,6 +384,10 @@ def _config_batch(bhw, seed):
 
 def _times(runs, n):
     return {path: n * k for path, k in runs.items() if k}
+
+
+def _plus(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
 
 
 def make_train_batch(b=2, v=5, h=512, w=640, dfull=192, seed=1):
@@ -344,18 +402,19 @@ def make_train_batch(b=2, v=5, h=512, w=640, dfull=192, seed=1):
             "mask": {k: (rng.rand(*g.shape) > 0.2).astype(np.float32) for k, g in gt.items()}}
 
 
-def stage_coords(cams, dv, stage, nd, hh, ww):
-    """Warp coordinates of one stage with the source views folded into the
-    batch, view-major, as StageNet.build_volume folds them: [(V-1)*B, D, hh,
-    ww, 2], on the inverse-depth init range."""
+def stage_coords(cams, dv, stage, nd, hh, ww, views=4):
+    """Warp coordinates of one stage with the first `views` source views
+    (all 4, or cv rank 0's under view sharding) folded into the batch,
+    view-major, as StageNet.build_volume folds them: [views*B, D, hh, ww,
+    2], on the inverse-depth init range."""
     from mvsformerplusplus_tpu_torch.ops.geometry import compose_projection, plane_sweep_coords
     from mvsformerplusplus_tpu_torch.ops.sampling import init_inverse_range
 
     projs = compose_projection(cams[f"stage{stage}"])  # [B, V, 4, 4]
-    b, v = projs.shape[:2]
-    src = projs[:, 1:].transpose(0, 1).reshape((v - 1) * b, 4, 4)
-    ref = projs[:, 0].repeat(v - 1, 1, 1)
-    hypo = init_inverse_range(dv, nd, hh, ww).repeat(v - 1, 1, 1, 1)
+    b = projs.shape[0]
+    src = projs[:, 1:1 + views].transpose(0, 1).reshape(views * b, 4, 4)
+    ref = projs[:, 0].repeat(views, 1, 1)
+    hypo = init_inverse_range(dv, nd, hh, ww).repeat(views, 1, 1, 1)
     return plane_sweep_coords(src, ref, hypo, hh, ww)[0]
 
 
@@ -387,11 +446,11 @@ def warp_cases():
     the 512 x 768 crop's stage 3 the depth-folded blend's (row 12); then
     fusion's samples (fusion_warp_cases)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for name, _, bhw, seed, runs, _ in shape_configs():
+    for name, _, bhw, seed, runs, _, views, _ in shape_configs():
         imgs, cams, dv = _config_batch(bhw, seed)
-        nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
+        nsrc = views * imgs.shape[0]
         for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
-            coords = stage_coords(cams, dv, stage, nd, hh, ww)
+            coords = stage_coords(cams, dv, stage, nd, hh, ww, views)
             src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
             yield (f"{name}_stage{stage}", _times(runs, 1), (src, coords),
                    warp_tpu_rows(stage, nd, c, ww))
@@ -468,13 +527,13 @@ def warp_bwd_cases():
     y-grouped blend's VJP, is its transpose where the pallas mode ran rows
     10 and 12, and no model path reaches it."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for name, kind, bhw, seed, runs, _ in shape_configs():
+    for name, kind, bhw, seed, runs, _, views, _ in shape_configs():
         if kind != "train":
             continue
         imgs, cams, dv = _config_batch(bhw, seed)
-        nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
+        nsrc = views * imgs.shape[0]
         for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
-            coords = stage_coords(cams, dv, stage, nd, hh, ww)
+            coords = stage_coords(cams, dv, stage, nd, hh, ww, views)
             g = torch.randn(nsrc, nd, hh, ww, c, generator=gen, device="cuda")
             rows = (7,) if ww % 128 == 0 and ww >= 384 else (6,)
             if c <= 16 and ww % 128 == 0:
@@ -520,9 +579,10 @@ def flash_cases():
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for name, kind, (b, h, w), _, runs, model in shape_configs():
-        if model != "flagship":
+    for name, kind, (b, h, w), _, runs, model, views, shared in shape_configs():
+        if model != "flagship" or views != 4:
             continue
+        runs = _plus(runs, shared)
         v = TRAIN["v"]  # every config has 5 views
         n_vit, n_cta = _tokens(h, w)
         train = kind == "train"
@@ -585,9 +645,10 @@ def flash_bwd_cases():
                                                                       flash_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for name, kind, (b, h, w), _, runs, model in shape_configs():
-        if kind != "train" or model != "flagship":
+    for name, kind, (b, h, w), _, runs, model, views, shared in shape_configs():
+        if kind != "train" or model != "flagship" or views != 4:
             continue
+        runs = _plus(runs, shared)
         n = _tokens(h, w)[1]
         scale = entropy_inv_scale(16, n, 12185)
         q, k, v, dout = (torch.randn(b, n, 4, 16, generator=gen, device="cuda") * std
@@ -640,10 +701,21 @@ CONV_SHAPES = ([("encoder_7x7_3to8", 1, (5, 1, 3, 8, 7)), ("encoder_5x5_8to8", 1
                + [(f"fmt_smooth_{c}", 5, (1, c // 8, c, c, 3)) for c in (32, 16, 8)])
 
 
-def _batched_conv(shapes, b, model):
+def _conv_runs(conv, runs, views, shared):
+    """A conv case's runs: a visibility net's follow the config's view
+    split; the others run at a view-sharded config's shape only as its
+    unsharded twin's (`shared` there), and not at its own."""
+    if conv.startswith("visibility"):
+        return runs
+    return _plus(runs, shared) if views == 4 else None
+
+
+def _batched_conv(shapes, b, model, views=4):
     """The same convs on B samples (the batch of each grows B-fold), those
-    of `model`: CasMVSNet has no FMT."""
-    return [(name, n, (b * bb, div, ci, co, k)) for name, n, (bb, div, ci, co, k) in shapes
+    of `model` (CasMVSNet has no FMT); a visibility net sees the `views`
+    source views a rank warps (4, or 4 / n_cv under view sharding)."""
+    return [(name, n, (b * (views if name.startswith("visibility") else bb), div, ci, co, k))
+            for name, n, (bb, div, ci, co, k) in shapes
             if model == "flagship" or not name.startswith("fmt_")]
 
 
@@ -656,13 +728,16 @@ CONV_DX_SHAPES = [sh for sh in CONV_SHAPES
 
 def conv_cases():
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for name, _, (b, h, w), _, runs, model in shape_configs():
-        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b, model):
+    for name, _, (b, h, w), _, runs, model, views, shared in shape_configs():
+        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b, model, views):
+            conv_runs = _conv_runs(conv, runs, views, shared)
+            if conv_runs is None:
+                continue
             x = torch.randn(bb, h // div, w // div, ci, generator=gen,
                             device="cuda").to(torch.bfloat16)
             kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
                     * (k * k * ci) ** -0.5).to(torch.bfloat16)
-            yield f"{name}_{conv}", _times(runs, count), (x, kern), (3,)
+            yield f"{name}_{conv}", _times(conv_runs, count), (x, kern), (3,)
 
 
 # the tiny flagship's convs (TINY on the reference phase's 3 x 128 x 256
@@ -694,15 +769,18 @@ def conv_dx_cases():
     """dx = the conv kernel on the cotangent [B, H, W, Co] with the weights
     flipped and ci/co swapped, at each train conv whose input needs it."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for name, kind, (b, h, w), _, runs, model in shape_configs():
+    for name, kind, (b, h, w), _, runs, model, views, shared in shape_configs():
         if kind != "train":
             continue
-        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b, model):
+        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b, model, views):
+            conv_runs = _conv_runs(conv, runs, views, shared)
+            if conv_runs is None:
+                continue
             g = torch.randn(bb, h // div, w // div, co, generator=gen,
                             device="cuda").to(torch.bfloat16)
             kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
                     * (k * k * co) ** -0.5).to(torch.bfloat16)
-            yield f"{name}_{conv}", _times(runs, count), (g, kern), (9,)
+            yield f"{name}_{conv}", _times(conv_runs, count), (g, kern), (9,)
 
 
 def conv_dx_f32_cases():
@@ -2103,6 +2181,380 @@ def run_blended_cli(counters, work: Path):
     return launches
 
 
+# ------------------------------------------------------------- across ranks
+
+# the optimizer of the dist_step comparison: AdamW's first step at lr 1e-3
+# moves every trained entry (the reference phases' settings)
+DIST_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10, freeze_vit=True)
+# dist_step's one-rank steps: the reference, then its sensitivity probes (the
+# same batch twice more, the images a bf16 ulp up and down)
+DIST_PROBES = (("ref", 0), ("rerun", 0), ("rerun2", 0), ("ulp_up", 1), ("ulp_down", -1))
+
+
+def child_counts(counters, children) -> dict:
+    """Kernel launches reported by spawned processes (ops.cuda.launch_counts
+    of each), summed under this script's counter names."""
+    return {name: sum(c[f"{fn.__name__}.{attr}"] for c in children)
+            for name, (fn, attr) in counters.items()}
+
+
+def _add(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def bf16_ulp(x, step):
+    """x rounded to bf16 and moved `step` bf16 ulps (its bit pattern +
+    step)."""
+    b = x.to(torch.bfloat16).contiguous()
+    return (b.view(torch.int16) + step).view(torch.bfloat16).float()
+
+
+def step_result(model, logs):
+    return dict(logs={k: float(v) for k, v in logs.items()
+                      if k in ("loss", "grad_norm") or k.startswith("stage")},
+                grads={n: p.grad.float().cpu() for n, p in model.named_parameters()
+                       if p.grad is not None},
+                state={k: v.cpu() for k, v in model.state_dict().items()})
+
+
+def _rel_l2(a, b, keys) -> float:
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in keys)
+    return (num / max(sum(float((b[k].double() ** 2).sum()) for k in keys), 1e-30)) ** 0.5
+
+
+def compare_steps(ref, probes, got, before) -> dict:
+    """One layout's step (`got`, each rank's) against the one-rank step
+    `ref` on the same global batch. The full-width bf16 step is chaotic
+    under rounding: the card's atomics reorder sums from run to run, and a
+    CE stage hands its argmax depth on, so a change in the last bit moves
+    later stages' hypotheses at near-tied pixels (random weights give many).
+    The reference_train phase's rule (a tolerance, or twice the step's
+    measured sensitivity where larger) is therefore applied with the
+    sensitivity measured by `probes`, one-rank steps run again on the same
+    batch and on images a bf16 ulp up and down, each statistic's tolerance
+    twice the largest probe's distance from `ref`: the per-stage losses
+    (or 1e-4 relative where larger); all the gradients together (their
+    relative L2 distance, or 1e-3); all the running statistics together
+    (relative L2, or 1e-4); the parameters after AdamW where |g| is above
+    its tensor's tolerance (1e-3 of its largest entry + 1e-5 of the largest
+    gradient, or twice the probes' largest distance) within 1e-6, and
+    everywhere AdamW's first step on the rank's own gradient (1e-6); every
+    rank the same state. Each tensor's own distance over its tolerance is
+    reported (worst_grads), not held to 1: with hundreds of tensors some
+    fall past twice a few samples of the noise by chance."""
+    grads = list(ref["grads"])
+    stats = [k for k in ref["state"] if k.endswith(("running_mean", "running_var"))]
+    gmax = max(g.abs().max().item() for g in ref["grads"].values())
+    loss_ratio = 0.0
+    for k, v in ref["logs"].items():
+        if k == "grad_norm":
+            continue
+        tol = max(1e-4 * abs(v), 2 * max(abs(p["logs"][k] - v) for p in probes))
+        loss_ratio = max(loss_ratio, max(abs(r["logs"][k] - v) for r in got) / tol)
+    grad_tol = max(1e-3, 2 * max(_rel_l2(p["grads"], ref["grads"], grads) for p in probes))
+    stat_tol = max(1e-4, 2 * max(_rel_l2(p["state"], ref["state"], stats) for p in probes))
+    tol, rows = {}, []
+    for n, g in ref["grads"].items():
+        tol[n] = max(1e-3 * g.abs().max().item() + 1e-5 * gmax,
+                     2 * max((p["grads"][n] - g).abs().max().item() for p in probes))
+        rows.append((max((r["grads"][n] - g).abs().max().item() for r in got) / tol[n], n))
+    rows.sort()
+    firm_err, update_err = 0.0, 0.0
+    lr, eps = DIST_OPT["lr"], 1e-8
+    for n, g in ref["grads"].items():
+        firm = g.abs() > tol[n]
+        for r in got:
+            if firm.any():
+                firm_err = max(firm_err, (r["state"][n] - ref["state"][n])[firm].abs().max().item())
+            gg = r["grads"][n]
+            step = r["state"][n] - before[n]
+            update_err = max(update_err, (step + lr * gg / (gg.abs() + eps)).abs().max().item())
+    same = all(torch.equal(r["state"][k], v) for r in got[1:] for k, v in got[0]["state"].items())
+    return {"loss_err_over_tol": loss_ratio,
+            "grads_rel_l2": max(_rel_l2(r["grads"], ref["grads"], grads) for r in got),
+            "grads_rel_l2_tol": grad_tol,
+            "bn_stats_rel_l2": max(_rel_l2(r["state"], ref["state"], stats) for r in got),
+            "bn_stats_rel_l2_tol": stat_tol, "worst_grads": rows[-3:],
+            "params_firm_max_abs_err": firm_err, "params_update_max_abs_err": update_err,
+            "ranks_hold_the_same_state": same,
+            "same_params_with_grad": all(set(r["grads"]) == set(ref["grads"]) for r in got)}
+
+
+def dist_ways_rank(ctx, ways, batch, opt_kwargs, loss_kwargs, timed):
+    """One rank of dist_step: testing.train_step_rank for each (make_model,
+    mesh) of `ways` in turn (one process start for several layouts), then
+    this process's kernel launches."""
+    from mvsformerplusplus_tpu_torch.ops.cuda import launch_counts
+    from mvsformerplusplus_tpu_torch.testing import train_step_rank
+
+    return [train_step_rank(ctx, make, batch, mesh, None, opt_kwargs, loss_kwargs, timed)
+            for make, mesh in ways] + [launch_counts()]
+
+
+def run_dist_step(counters):
+    """The flagship's train step (configs/mvsformerplusplus.json, bf16, the
+    train_step phase's global batch: B=2, 5 views, 512 x 640, 192 depths) on
+    one rank in this process, and its sensitivity probes (DIST_PROBES); then,
+    from the same seeded weights and optimizer, through
+    parallel.dist.launch (testing.train_step_rank) three ways, each compared
+    with the one-rank step (compare_steps): two gloo ranks on the card at
+    --mesh 2,1 (one sample each), two gloo ranks at --mesh 1,2 (shard_views:
+    two source views each), and the NCCL path at world 1. Each way runs
+    DIST["timed"] more steps for its ms per step and peak memory per rank;
+    the children report their kernel launches."""
+    import functools
+
+    from mvsformerplusplus_tpu_torch.config import build_model, load_config
+    from mvsformerplusplus_tpu_torch.parallel.dist import backend_for, launch
+    from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
+    from mvsformerplusplus_tpu_torch.train.step import train_step
+    from mvsformerplusplus_tpu_torch.train.trainer import to_device as batch_to
+
+    phase_t0 = time.perf_counter()
+    cfg = load_config(CONFIG)
+    loss_kwargs = dict(clip_func=cfg["arch"]["loss"]["clip_func"])
+    batch = make_train_batch(**TRAIN)
+    zero_counts(counters)
+    model = build_model(cfg, dtype=torch.bfloat16, train=True)
+    before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    one = {}
+    for run, ulps in DIST_PROBES:
+        model.load_state_dict(before)
+        b = batch_to(batch, "cuda")
+        if ulps:
+            b["imgs"] = bf16_ulp(b["imgs"], ulps)
+        opt, sched = make_optimizer(model, **DIST_OPT)
+        one[run] = step_result(model, train_step(model, opt, sched, b, **loss_kwargs))
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    del model, opt, sched, b
+    release()
+    rows, children = {}, []
+
+    def make(mesh):
+        return functools.partial(build_model, cfg, torch.bfloat16, "cpu", 0, True,
+                                 shard_views=mesh[1] > 1)
+
+    for ways, ranks in (((("gloo_2x1", (2, 1)), ("gloo_1x2", (1, 2))), 2),
+                        ((("nccl_1x1", (1, 1)),), 1)):
+        backend = backend_for("cuda", ranks)  # two ranks on the one card: gloo
+        t0 = time.perf_counter()
+        got = launch(dist_ways_rank, ranks,
+                     ([(make(mesh), mesh) for _, mesh in ways], batch, DIST_OPT, loss_kwargs,
+                      DIST["timed"]), device="cuda")
+        children += [r[-1] for r in got]
+        for i, (way, mesh) in enumerate(ways):
+            way_ranks = [r[i] for r in got]
+            rows[way] = {"ranks": ranks, "mesh": list(mesh), "backend": backend,
+                         "ms_per_step": [r["ms_per_step"] for r in way_ranks],
+                         "peak_mem_gb": [r["peak_mem_gb"] for r in way_ranks],
+                         "logs": way_ranks[0]["logs"], "launch_s": time.perf_counter() - t0,
+                         **compare_steps(one["ref"], [one[r] for r, _ in DIST_PROBES[1:]],
+                                         way_ranks, before)}
+        del got
+    launches = _add(launches, child_counts(counters, children))
+    checks = {f"{way}_{k}": ok for way, r in rows.items() for k, ok in (
+        ("losses", r["loss_err_over_tol"] <= 1),
+        ("grads", r["grads_rel_l2"] <= r["grads_rel_l2_tol"]),
+        ("bn_stats", r["bn_stats_rel_l2"] <= r["bn_stats_rel_l2_tol"]),
+        ("params_firm", r["params_firm_max_abs_err"] <= 1e-6),
+        ("params_update", r["params_update_max_abs_err"] <= 1e-6),
+        ("ranks_same_state", r["ranks_hold_the_same_state"]),
+        ("same_params_with_grad", r["same_params_with_grad"]))}
+    checks.update({
+        "every_kernel_launched": path_kernels_launched(launches, family_spec("flagship")),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR)})
+    row = {"phase": "dist_step", "config": str(CONFIG.relative_to(REPO)),
+           "global_shape": [TRAIN["b"], TRAIN["v"], TRAIN["h"], TRAIN["w"], 3],
+           "depths": TRAIN["dfull"], "dtype": "bfloat16", "timed_steps": DIST["timed"],
+           "one_rank_logs": {r: one[r]["logs"] for r, _ in DIST_PROBES},
+           "probes_grads_rel_l2": {r: _rel_l2(one[r]["grads"], one["ref"]["grads"],
+                                              list(one["ref"]["grads"]))
+                                   for r, _ in DIST_PROBES[1:]},
+           "ways": rows, "launches": launches,
+           "checks": checks, "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"dist_step checks failed: {checks}")
+    return launches
+
+
+def run_train_cli_mesh(counters, work: Path):
+    """The training command line with --mesh 2,1 (two gloo ranks sharing
+    the card; the batch of 4 is the process's, 2 samples per rank) on
+    train_cli's scan and crops: one epoch with validation (the 14 samples
+    split 7 + 7 over the data ranks), then -r to a second. Checks one set
+    of checkpoints, scalars.jsonl written once (a record per logged step
+    and validation, not one per rank), the resumed run at epoch 1 with the
+    step count continued, both ranks' losses, validation metrics and final
+    weights (a SHA-1 of the state) equal, everything finite, the steps per
+    crop bucket as scheduled. The ranks report their kernel launches."""
+    from mvsformerplusplus_tpu_torch.train import cli
+
+    phase_t0 = time.perf_counter()
+    data, save = work / "dtu", work / "saved_mesh"
+    argv = (["-c", str(CONFIG), "--save_dir", str(save), "--batch_size", str(CLI_MESH["batch"]),
+             "--epochs", "1", "--mesh", "2,1"] + cli_overrides(data, CLI["scales"], CLI["val_hw"]))
+    runs, run_s = [], []
+    for extra in ([], ["-r", "--epochs", str(CLI_MESH["epochs"])]):
+        t0 = time.perf_counter()
+        runs.append(cli.main(argv + extra))
+        run_s.append(time.perf_counter() - t0)
+    launches = child_counts(counters, [r["launches"] for ranks in runs for r in ranks])
+    ck = save / "checkpoints"
+    scalars = read_scalars(save)
+    logged = [r["logged"] for r in runs[0]], [r["logged"] for r in runs[1]]
+    vals = [[v["metrics"] for v in r["val_stats"]] for ranks in runs for r in ranks]
+    buckets = _bucket_totals([e for ranks in runs for e in ranks[0]["epoch_stats"]])
+    steps = schedule_steps(CLI["samples"], CLI["scales"], CLI_MESH["batch"], CLI_MESH["epochs"])
+    spe = sum(steps.values()) // CLI_MESH["epochs"]
+    resumed = runs[1][0]
+    checks = {
+        "two_ranks_each_run": [len(r) for r in runs] == [2, 2],
+        "checkpoint_files": all((ck / n).exists() for n in (
+            "model_last.pth", "model_best.pth", "meta.json", "checkpoint-epoch0.pth",
+            "checkpoint-epoch1.pth")),
+        "one_scalar_log": [r["mode"] for r in scalars].count("train")
+        == len(logged[0][0]) + len(logged[1][0])
+        and [r["mode"] for r in scalars].count("val") == CLI_MESH["epochs"],
+        "ranks_log_the_same_losses": all(a == b for a, b in logged),
+        "ranks_same_validation": vals[0] == vals[1] and vals[2] == vals[3],
+        "val_maps_split_over_ranks": [sum(v["maps"] for v in r["val_stats"])
+                                      for ranks in runs for r in ranks] == [7, 7, 7, 7],
+        "resumed_step_count_continued": resumed["logged"][0]["step"] == spe + 1
+        and all(r["global_step"] == CLI_MESH["epochs"] * spe for r in runs[1]),
+        "ranks_same_final_weights": all(r["state_sha1"] == runs[i][0]["state_sha1"]
+                                        for i, ranks in enumerate(runs) for r in ranks),
+        "losses_finite": all(np.isfinite(v) for e in logged[0][0] + logged[1][0]
+                             for k, v in e.items()
+                             if k in ("loss", "grad_norm") or k.startswith("stage")),
+        "val_metrics_finite": all(np.isfinite(x) for v in vals for m in v for x in m.values()),
+        "steps_per_bucket_as_scheduled": {hw: b["steps"] for hw, b in buckets.items()}
+        == {f"{h}x{w}": n for (h, w), n in steps.items() if n},
+        "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+    }
+    row = {"phase": "train_cli_mesh", "config": str(CONFIG.relative_to(REPO)),
+           "argv": argv[4:], "mesh": [2, 1], "steps_per_epoch": spe, "buckets": buckets,
+           "epochs_by_rank": [[r["epoch_stats"] for r in ranks] for ranks in runs],
+           "val_ms_per_map_by_rank": [[v["ms_per_map"] for v in r["val_stats"]]
+                                      for ranks in runs for r in ranks],
+           "run_s": run_s, "launches": launches, "checks": checks,
+           "logged": logged[0][0] + logged[1][0], "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"train_cli_mesh checks failed: {checks}")
+    return launches
+
+
+def eval_worker(argv):
+    """One eval command line process (spawned): its stats, pid and kernel
+    launches."""
+    import os
+
+    from mvsformerplusplus_tpu_torch.eval import cli
+    from mvsformerplusplus_tpu_torch.ops.cuda import launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    stats = cli.main(argv)
+    return {"stats": stats, "pid": os.getpid(), "wall_s": time.perf_counter() - t0,
+            "launches": launch_counts()}
+
+
+def run_eval_queue(counters, work: Path):
+    """eval_cli's scan copied into EVAL_QUEUE["scans"] scans; their depth
+    maps by two eval command line processes with --schedule queue sharing
+    the card (each cuda:0), then by one process over the same list (no
+    fusion in either). Checks every scan claimed once (one g0 claim file,
+    no stolen generation) and done, the workers' maps adding up, and every
+    depth map of the queue's run equal to the one process's (bitwise on all
+    but at most 1e-4 of the pixels, those within 1e-3). Records maps/s at 2
+    and at 1 worker, by the wall clock from starting the processes to their
+    end (process start and model build included) and by the workers' own
+    depth time, as a reading."""
+    import multiprocessing
+    import shutil
+
+    from mvsformerplusplus_tpu_torch.data.io import read_pfm
+
+    phase_t0 = time.perf_counter()
+    h, w = EVAL_CLI["hw"]
+    root = work / "eval"
+    names = [f"scan{i + 1}" for i in range(EVAL_QUEUE["scans"])]
+    for name in names[1:]:
+        for d in (root, root / "gt_depths"):
+            if not (d / name).exists():
+                shutil.copytree(d / "scan1", d / name)
+    (root / "list_queue.txt").write_text("".join(f"{n}\n" for n in names))
+    base = ["--config", str(CONFIG), "--testpath", str(root), "--testlist",
+            str(root / "list_queue.txt"), "--num_view", str(EVAL_CLI["views"]),
+            "--numdepth", str(EVAL_CLI["depths"]), "--max_h", str(h), "--max_w", str(w),
+            "--filter_method", "none"]
+    ctx = multiprocessing.get_context("spawn")
+    runs = {}
+    for way, workers, extra in (("queue", EVAL_QUEUE["workers"], ["--schedule", "queue"]),
+                                ("one", 1, [])):
+        out = work / f"eval_{way}"
+        t0 = time.perf_counter()
+        with ctx.Pool(workers) as pool:
+            res = pool.map(eval_worker, [base + ["--outdir", str(out)] + extra] * workers)
+        runs[way] = {"out": out, "workers": res, "wall_s": time.perf_counter() - t0}
+    launches = child_counts(counters, [r["launches"] for run in runs.values()
+                                       for r in run["workers"]])
+    claims = work / "eval_queue" / ".claims"
+    claim_files = sorted(p.name for p in claims.iterdir())
+    pids = {f"pid{r['pid']}": r["stats"]["maps"] for r in runs["queue"]["workers"]}
+    owners = [(claims / f"{n}.claim.g0").read_text() for n in names]
+    differ, bitwise = 0.0, True
+    for name in names:
+        for v in range(EVAL_CLI["views"]):
+            a, b = (read_pfm(runs[way]["out"] / name / "depth_est" / f"{v:0>8}.pfm")[0]
+                    for way in ("queue", "one"))
+            bitwise &= bool(np.array_equal(a, b))
+            far = np.abs(a - b) > 1e-3 * np.abs(b)
+            differ = max(differ, float(far.mean()))
+    maps = EVAL_QUEUE["scans"] * EVAL_CLI["views"]
+    readings = {way: {"workers": len(run["workers"]), "maps": maps,
+                      "maps_per_s_wall": maps / run["wall_s"],
+                      "maps_per_s_depth": maps / max(r["stats"]["depth_s"]
+                                                     for r in run["workers"]),
+                      "wall_s": run["wall_s"],
+                      "depth_s": [r["stats"]["depth_s"] for r in run["workers"]],
+                      "maps_by_worker": [r["stats"]["maps"] for r in run["workers"]],
+                      "forward_ms_per_map": float(np.mean([x for r in run["workers"]
+                                                           for x in r["stats"]["forward_ms"]]))}
+                for way, run in runs.items()}
+    checks = {
+        "claims_once_and_done": claim_files == sorted(f"{n}.{x}" for n in names
+                                                      for x in ("claim.g0", "done")),
+        "each_scan_one_worker": all(o in pids for o in owners)
+        and all(pids[p] == EVAL_CLI["views"] * owners.count(p) for p in pids),
+        "maps_add_up": sum(pids.values()) == maps and runs["one"]["workers"][0]["stats"]["maps"]
+        == maps,
+        "depths_equal_one_process": differ <= 1e-4,
+        "every_forward_kernel_launched": all(
+            launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd", "conv2d_same")),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+    }
+    row = {"phase": "eval_queue", "config": str(CONFIG.relative_to(REPO)),
+           "scans": EVAL_QUEUE["scans"], "views": EVAL_CLI["views"], "hw": [h, w],
+           "readings": readings, "depths_bitwise_equal": bitwise,
+           "depth_pixels_differing_share": differ, "launches": launches, "checks": checks,
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"eval_queue checks failed: {checks}")
+    return launches
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """nvcc -Xptxas -v output -> {kernel (mangled): its registers, shared
     memory and spills}."""
@@ -2187,7 +2639,10 @@ def main() -> int:
                           ("casmvs_main_path", lambda: run_main_path(counters, "casmvs")),
                           ("casmvs_train_step", lambda: run_train_step(counters, "casmvs")),
                           ("casmvs_cli", lambda: run_casmvs_cli(counters, work)),
-                          ("blended_cli", lambda: run_blended_cli(counters, work))):
+                          ("blended_cli", lambda: run_blended_cli(counters, work)),
+                          ("dist_step", lambda: run_dist_step(counters)),
+                          ("train_cli_mesh", lambda: run_train_cli_mesh(counters, work)),
+                          ("eval_queue", lambda: run_eval_queue(counters, work))):
             by_path[path] = run()
             release()
     by_path["eval_cli"], eval_row = by_path["eval_cli"]

@@ -1,17 +1,27 @@
-"""Host-side input pipeline (counterpart of mvsformerplusplus_tpu/data/loader.py,
-for one process): threaded prefetch, batching, balanced multi-dataset
-sampling, and the evaluation loader.
+"""Host-side input pipeline (counterpart of mvsformerplusplus_tpu/data/loader.py):
+threaded prefetch, batching, balanced multi-dataset sampling, the sample
+stream split over processes and ranks, and the evaluation loader.
 
 TrainLoader walks a ShapeBucketSchedule (one crop scale per batch,
 reproducible from (seed, epoch)); its worker threads load the next two
 batches while the current one trains (the reading, decoding and resizing
 is numpy and zlib work that releases the interpreter lock for much of its
 time).
+
+Across processes it is the JAX TrainLoader: `rank` and `world` count
+processes (hosts), the schedule draws global batches of batch_size * world
+and process `rank` takes idxs[rank::world][:batch_size], its host batch.
+One process of the JAX package shards that host batch over its local
+devices; here each rank loads only its part of it (`shard`), the samples
+the JAX package's device of the same data index gets, micro-batches
+included (`micro_count`); the cv ranks of one data index load the same
+part. `stride` hands a rank every n-th host batch instead (validation:
+one batch per data index in turn).
 """
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,29 +42,74 @@ def collate(samples: List[dict]) -> dict:
     return out
 
 
+def micro_count(scale_batch_map: Dict[str, int], crop_hw, batch_size: int,
+                ld: int = 1) -> int:
+    """Micro-batches of a host batch of `batch_size` at crop `crop_hw`
+    (the JAX Trainer's _micro_count): batch_size // micro for the largest
+    micro <= scale_batch_map[crop height] that divides the batch and is a
+    multiple of the `ld` data shards of the host (a micro below ld clamps
+    up to ld), or 1."""
+    micro = (scale_batch_map or {}).get(str(crop_hw[0]))
+    if not micro or micro >= batch_size:
+        return 1
+    micro = max(micro, ld)
+    while micro >= ld and (batch_size % micro != 0 or micro % ld != 0):
+        micro -= 1
+    if micro < ld or micro >= batch_size:
+        return 1
+    return batch_size // micro
+
+
 class TrainLoader:
     """Multi-scale bucketed training loader: `epoch(e)` yields (batch dict,
     crop_hw) per step."""
 
     def __init__(self, dataset: MVSTrainDataset, batch_size: int,
-                 scales: Sequence[Tuple[int, int]], seed: int = 0, num_workers: int = 4,
-                 order_fn=None):
+                 scales: Sequence[Tuple[int, int]],
+                 scale_batch_map: Optional[Dict[str, int]] = None, rank: int = 0,
+                 world: int = 1, seed: int = 0, num_workers: int = 4, order_fn=None,
+                 shard: Tuple[int, int] = (0, 1), stride: Tuple[int, int] = (0, 1)):
         """order_fn(epoch) -> index array replaces the schedule's permutation
-        (BalancedSchedule for balanced multi-dataset training)."""
+        (BalancedSchedule for balanced multi-dataset training). `rank` and
+        `world` are the process's, `batch_size` the host batch; shard=(j, n)
+        loads part j of n of each host batch, stride=(j, n) host batches j,
+        j + n, ..."""
         self.dataset = dataset
         self.batch_size = batch_size
-        self.schedule = ShapeBucketSchedule(len(dataset), scales, batch_size, seed)
+        self.schedule = ShapeBucketSchedule(len(dataset), scales, batch_size * world, seed)
+        self.scale_batch_map = scale_batch_map or {}
+        self.rank, self.world = rank, world
         self.num_workers = num_workers
         self.order_fn = order_fn
+        self.shard, self.stride = shard, stride
+        if batch_size % shard[1]:
+            raise ValueError(f"a host batch of {batch_size} does not split over {shard[1]} "
+                             "data ranks")
 
     def steps_per_epoch(self) -> int:
         n = len(self.order_fn(0)) if self.order_fn else len(self.dataset)
-        return n // self.batch_size
+        return n // (self.batch_size * self.world)
+
+    def host_batches(self, epoch: int):
+        """The epoch's [(sample indices, crop_hw), ...] of this process (the
+        JAX TrainLoader's)."""
+        order = self.order_fn(epoch) if self.order_fn is not None else None
+        return [(idxs[self.rank::self.world][:self.batch_size], hw)
+                for idxs, hw in self.schedule.epoch(epoch, order=order)]
 
     def batches(self, epoch: int):
-        """The epoch's [(sample indices, crop_hw), ...], as `epoch` loads them."""
-        order = self.order_fn(epoch) if self.order_fn is not None else None
-        return self.schedule.epoch(epoch, order=order)
+        """The epoch's [(sample indices, crop_hw), ...], as `epoch` loads them:
+        this rank's stride of the host batches and its shard of each. The
+        shard of a batch split into micro-batches is micro-batch by
+        micro-batch: part j of each."""
+        j, n = self.shard
+        out = []
+        for idxs, hw in self.host_batches(epoch)[self.stride[0]::self.stride[1]]:
+            if n > 1:
+                n_micro = micro_count(self.scale_batch_map, hw, len(idxs), n)
+                idxs = np.asarray(idxs).reshape(n_micro, n, -1)[:, j].reshape(-1)
+            out.append((idxs, hw))
+        return out
 
     def _load(self, idxs, crop_hw, epoch):
         return collate([self.dataset.get_sample(int(i), crop_hw, epoch) for i in idxs]), crop_hw

@@ -1,11 +1,11 @@
-"""The evaluation command line (counterpart of the repo's test.py, for one
-device): depth inference over MVSNet-format scans, then geometric fusion
-of each scan into a point cloud.
+"""The evaluation command line (counterpart of the repo's test.py): depth
+inference over MVSNet-format scans, then geometric fusion of each scan into
+a point cloud.
 
     python -m mvsformerplusplus_tpu_torch.eval --config configs/mvsformerplusplus.json \\
         --testpath DIR --testlist LIST [--outdir outputs] [--ckpt DIR | --ckpt_npz FILE] \\
         [--filter_method dpcd|pcd|gipuma|none] [--gt_depth_path DIR] [--skip_depth] \\
-        [--device cuda|cpu] ...
+        [--device cuda|cpu] [--rank R --world N | --schedule queue [--reclaim_stale S]] ...
 
 Per reference view it writes, under --outdir/<scan>/, the depth map
 (depth_est/<view>.pfm), the confidence as uint8 (confidence/<view>.npy,
@@ -21,14 +21,26 @@ so) and the frozen ViT from arch.args.vit_path when that file exists
 (CasMVSNet, model_type "casmvs", has none and loads nothing).
 
 It runs on the card; without CUDA it raises unless --device cpu is given.
-Scans spread over processes (--world > 1, --schedule queue,
---reclaim_stale) are not ported: each exits naming the ROADMAP item.
+
+Workers: several processes of this command line share the scans, as
+test.py's do. --rank/--world strides the scan list (all_scans[rank::world]);
+--schedule queue claims scans from the file-system work queue under
+--outdir (parallel/scheduler.py, the JAX package's claim files: workers of
+either package can share one queue), heartbeating its claim after every
+view and marking a scan done after its last view's files are written; with
+--reclaim_stale S it also takes over claims whose owner has been silent
+for S seconds. Each worker fuses the scans it did. With --world > 1 the
+depth metrics go to depth_metric.rank{rank}.txt, under the queue to
+depth_metric.pid{pid}.txt, and each worker then merges every such file into
+depth_metric.txt (a mean weighted by views). On the card each worker takes
+cuda:{rank % card count}, so several workers can share one card.
 """
 from __future__ import annotations
 
 import argparse
 import functools
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -46,18 +58,18 @@ from ..data.jpeg import write_jpeg
 from ..data.loader import EvalLoader
 from ..fusion.fusion import dpcd_fuse, gipuma_fuse, pcd_fuse
 from ..fusion.ply import write_ply
+from ..parallel.scheduler import WorkQueue
 from ..train.checkpoints import CheckpointManager
 from ..train.metrics import depth_metrics
 
 log = logging.getLogger("mvsformerplusplus_tpu_torch")
 
-MULTI_PROCESS = "is not ported: one process on one device (ROADMAP.md §1 item 9)"
 
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m mvsformerplusplus_tpu_torch.eval",
                                 description="Depth maps and point clouds of MVSNet-format scans "
-                                            "on one card.")
+                                            "on one card, by one worker of several.")
     p.add_argument("--config", required=True)
     p.add_argument("--dataset", default="dtu", choices=["dtu", "tt", "eth3d", "custom"])
     p.add_argument("--testpath", required=True)
@@ -87,8 +99,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--fusion_view", type=int, default=10)
     p.add_argument("--rank", type=int, default=0)
     p.add_argument("--world", type=int, default=1)
-    p.add_argument("--schedule", default="static", choices=["static", "queue"])
-    p.add_argument("--reclaim_stale", type=float, default=0.0)
+    p.add_argument("--schedule", default="static", choices=["static", "queue"],
+                   help="static: stride scans by --rank/--world; queue: claim them from the "
+                        "work queue under --outdir")
+    p.add_argument("--reclaim_stale", type=float, default=0.0,
+                   help="queue: take over claims with no heartbeat for this many seconds")
     p.add_argument("--window_check", default="auto", choices=["auto", "off"])
     p.add_argument("--gt_depth_path", default=None,
                    help="DTU ground-truth depth directory -> depth_metric.txt")
@@ -97,18 +112,37 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
-    if args.world > 1:
-        p.error(f"--world {args.world} {MULTI_PROCESS}")
-    if args.schedule == "queue":
-        p.error(f"--schedule queue {MULTI_PROCESS}")
-    if args.reclaim_stale:
-        p.error(f"--reclaim_stale {MULTI_PROCESS}")
-
-
 def _scans(args):
     with open(args.testlist) as f:
         return [ln.strip() for ln in f if ln.strip()][args.rank::args.world]
+
+
+def _metric_file(args) -> str:
+    if args.world > 1:
+        return f"depth_metric.rank{args.rank}.txt"
+    if args.schedule == "queue":
+        return f"depth_metric.pid{os.getpid()}.txt"
+    return "depth_metric.txt"
+
+
+def _merge_depth_metrics(outdir: Path) -> None:
+    """depth_metric.txt from every worker's depth_metric.*.txt, each mean
+    weighted by its n_views (test.py's merge: the last worker to finish
+    leaves the whole result)."""
+    sums: dict = {}
+    n_total = 0
+    for part in sorted(outdir.glob("depth_metric.*.txt")):
+        kv = dict(line.split(": ") for line in part.read_text().strip().splitlines())
+        n = int(float(kv.pop("n_views", 1)))
+        n_total += n
+        for k, v in kv.items():
+            sums[k] = sums.get(k, 0.0) + float(v) * n
+    if not n_total:
+        return
+    with open(outdir / "depth_metric.txt", "w") as f:
+        f.write(f"n_views: {n_total}\n")
+        for k in sorted(sums):
+            f.write(f"{k}: {sums[k] / n_total:.6f}\n")
 
 
 def _load_weights(model, cfg, args) -> None:
@@ -165,6 +199,11 @@ def save_depths(args, cfg, device: torch.device, stats: dict):
     decodes = 0
     fwd_ms, map_s = [], []
     t_start = time.perf_counter()
+    queue = None
+    if args.schedule == "queue":
+        with open(args.testlist) as f:
+            queue = WorkQueue(args.outdir, [ln.strip() for ln in f if ln.strip()],
+                              reclaim_stale_s=args.reclaim_stale or None)
 
     def writeback(staged: _Staged):
         nonlocal enc_s
@@ -195,10 +234,12 @@ def save_depths(args, cfg, device: torch.device, stats: dict):
             metric_sums.append({k: float(v) for k, v in m.items()})
         map_s.append(time.perf_counter() - t_start)
         log.info("%s view %d done", scan, ref)
+        if queue is not None:
+            queue.heartbeat(scan)
 
     window_logged = False
     with torch.inference_mode():
-        for scan in _scans(args):
+        for scan in queue if queue is not None else _scans(args):
             ds = EvalDataset(args.testpath, [scan], nviews=args.num_view,
                              ndepths=args.numdepth, interval_scale={scan: args.interval_scale},
                              max_h=args.max_h, max_w=args.max_w, dataset_name=args.dataset,
@@ -238,16 +279,20 @@ def save_depths(args, cfg, device: torch.device, stats: dict):
             if pending is not None:
                 writeback(pending)
             done.append(scan)
+            if queue is not None:  # after every file of the scan is written
+                queue.mark_done(scan)
             dec_s += ds.views.decode_s
             decodes += ds.views.decodes
     if metric_sums:
         avg = {k: float(np.mean([m[k] for m in metric_sums])) for k in metric_sums[0]}
-        out_path = Path(args.outdir) / "depth_metric.txt"
+        out_path = Path(args.outdir) / _metric_file(args)
         with open(out_path, "w") as f:
             f.write(f"n_views: {len(metric_sums)}\n")
             for k, v in sorted(avg.items()):
                 f.write(f"{k}: {v:.6f}\n")
         log.info("depth metrics -> %s: %s", out_path, {k: round(v, 4) for k, v in avg.items()})
+        if out_path.name != "depth_metric.txt":
+            _merge_depth_metrics(Path(args.outdir))
     stats.update(maps=len(map_s), depth_s=time.perf_counter() - t_start, map_done_s=map_s,
                  forward_ms=fwd_ms, loader_wait_s=wait_s, encode_s=enc_s, decode_s=dec_s,
                  decodes=decodes)
@@ -342,12 +387,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     and points."""
     p = parser()
     args = p.parse_args(argv)
-    _refuse_unported(p, args)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the eval CLI runs on the card and CUDA is not available; pass "
                            "--device cpu to run the plain PyTorch path on the CPU")
+    if args.device == "cuda":
+        device = torch.device("cuda", args.rank % torch.cuda.device_count())
     cfg = load_config(args.config)
     stats: dict = {"fusion_s": {}, "points": {}}
     scans = _scans(args) if args.skip_depth else save_depths(args, cfg, device, stats)

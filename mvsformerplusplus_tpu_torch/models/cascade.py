@@ -4,7 +4,8 @@ mvsformerplusplus_tpu/models/cascade.py): hypothesis scheduling per stage,
 averaging across stages. The previous stage's depth reaches the next stage's
 hypotheses without a gradient. With `remat_stages`, granularity "stage"
 checkpoints whole StageNets (the warp is replayed in the backward) and
-"cost_reg" only their regularizers (the warp's volume is kept)."""
+"cost_reg" only their regularizers (the warp's volume is kept). With
+`shard_views` every StageNet splits its source views over the cv ranks."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
@@ -30,7 +31,7 @@ class CascadeDepth(nn.Module):
                  groups: Sequence[int] = (8, 8, 8, 8), use_pe3d: bool = True,
                  transformer_config: Optional[Sequence[dict]] = None,
                  remat_stages: bool = True, remat_granularity: str = "cost_reg",
-                 dtype=torch.float32):
+                 shard_views: bool = False, dtype=torch.float32):
         super().__init__()
         self.remat_stages = remat_stages
         self.ndepths = tuple(ndepths)
@@ -43,7 +44,8 @@ class CascadeDepth(nn.Module):
             if cost_reg_type[i] == "PureTransformerCostReg" and transformer_config:
                 tc = transformer_config[min(i, len(transformer_config) - 1)]
             self.add_module(f"stage{i + 1}", StageNet(
-                nd, groups[i], cost_reg_type[i], depth_type[i], tc, dtype=dtype))
+                nd, groups[i], cost_reg_type[i], depth_type[i], tc, shard_views=shard_views,
+                dtype=dtype))
         self.set_remat_granularity(remat_granularity)
 
     def set_remat_granularity(self, granularity: str) -> None:

@@ -27,13 +27,13 @@ class CasMVSNet(nn.Module):
                  cost_reg_type: Sequence[str] = ("Normal",) * 4,
                  transformer_config: Optional[Sequence[dict]] = None, use_pe3d: bool = False,
                  remat_stages: bool = True, remat_granularity: str = "stage",
-                 dtype=torch.float32):
+                 shard_views: bool = False, dtype=torch.float32):
         super().__init__()
         self.encoder = FPNEncoder(feat_chs, dtype)
         self.decoder = FPNDecoder(feat_chs, dtype)
         self.cascade = CascadeDepth(ndepths, depth_intervals_ratio, inverse_depth, cost_reg_type,
                                     depth_type, groups, use_pe3d, transformer_config,
-                                    remat_stages, remat_granularity, dtype)
+                                    remat_stages, remat_granularity, shard_views, dtype)
         self.dtype = dtype
 
     def forward(self, imgs: Tensor, cams: Dict[str, Tensor], depth_values: Tensor,

@@ -75,11 +75,27 @@ def batch_norm(bn: nn.BatchNorm1d, x: Tensor) -> Tensor:
     E[x²] - E[x]² (clipped at 0), the gradient flows through both, and the
     running mean and the running BIASED variance (torch's BatchNorm would
     keep the unbiased one) move 0.1 of the way towards them; in eval mode
-    they are the running statistics."""
+    they are the running statistics.
+
+    A BatchNorm given a group (`bn.sync`, parallel.dist.Layout.attach)
+    takes its batch statistics over the rows of every rank of that group,
+    as sharded jit gives the JAX package the global batch's: Σx, Σx² and
+    the row count are summed over the group (the backward sums their
+    gradients the same way), so the running statistics stay the same on
+    every rank. A checkpoint replay runs the same sums again, in the same
+    order on every rank."""
     xf = x.float().reshape(-1, x.shape[-1])
     if bn.training:
-        mean = xf.mean(0)
-        var = ((xf * xf).mean(0) - mean * mean).clamp(min=0)
+        group = getattr(bn, "sync", None)
+        if group is not None and group.active:
+            c = xf.shape[1]
+            sums = group.sum(torch.cat([xf.sum(0), (xf * xf).sum(0),
+                                        xf.new_full((1,), xf.shape[0])]))
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0)
+        else:
+            mean = xf.mean(0)
+            var = ((xf * xf).mean(0) - mean * mean).clamp(min=0)
         if not getattr(bn, "stats_frozen", False):
             with torch.no_grad():
                 bn.running_mean.lerp_(mean, bn.momentum)

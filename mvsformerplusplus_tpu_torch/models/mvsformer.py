@@ -35,7 +35,8 @@ class DINOv2MVSNet(nn.Module):
                                                  "Normal"),
                  transformer_config: Optional[Sequence[dict]] = None, use_pe3d: bool = True,
                  freeze_vit: bool = True, remat_stages: bool = True,
-                 remat_granularity: str = "cost_reg", dtype=torch.float32):
+                 remat_granularity: str = "cost_reg", shard_views: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.encoder = FPNEncoder(feat_chs, dtype)
         self.decoder = FPNDecoder(feat_chs, dtype)
@@ -60,7 +61,7 @@ class DINOv2MVSNet(nn.Module):
         self.fmt = FMTWithPathway(groups[0], fmt_config, dtype)
         self.cascade = CascadeDepth(ndepths, depth_intervals_ratio, inverse_depth, cost_reg_type,
                                     depth_type, groups, use_pe3d, transformer_config,
-                                    remat_stages, remat_granularity, dtype)
+                                    remat_stages, remat_granularity, shard_views, dtype)
         self.rescale, self.vit_patch, self.vit_ch = rescale, vit_patch, vit_ch
         self.dtype = dtype
 

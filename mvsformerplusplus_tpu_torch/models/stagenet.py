@@ -14,6 +14,15 @@ moves the next stage's hypotheses), and with `remat_cost_reg` the
 regularizer is checkpointed (recomputed in the backward, with the running
 BatchNorm statistics left alone on the replay). The similarity that feeds
 the entropy and the confidence carry no gradient in either mode.
+
+With `shard_views` (the JAX StageNet's, on a mesh with cv > 1) each rank of
+the cv group `self.cv` (parallel.dist.Layout.attach) warps its own
+nsrc / n_cv source views, and Σ_v prod·vis and Σ_v vis are summed over the
+group before the division: every cv rank then holds the whole volume and
+computes the same loss. The backward of that sum carries n_cv times the
+volume's gradient into the layers before it, and the volume's gradient
+once into those after it; the train step's mean of the gradients over cv
+makes both right (parallel.dist.Layout.reduce_grads).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch.nn as nn
 from ..ops.geometry import compose_projection
 from ..ops.grid_sample import homography_warp
 from ..ops.sampling import conf_regression, depth_regression
+from ..parallel.dist import Group
 from .cost_reg import CostRegNet, CostRegNet3D, PureTransformerCostReg
 from .layers import ConvBnReLU, MMConv, remat
 
@@ -53,7 +63,8 @@ class StageNet(nn.Module):
 
     def __init__(self, ndepth: int, groups: int = 8, cost_reg_type: str = "Normal",
                  depth_type: str = "ce", transformer_config: Optional[dict] = None,
-                 model_th: int = 8, remat_cost_reg: bool = False, dtype=torch.float32):
+                 model_th: int = 8, remat_cost_reg: bool = False, shard_views: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.vis = VisibilityNet(dtype)
         if cost_reg_type == "PureTransformerCostReg":
@@ -68,6 +79,8 @@ class StageNet(nn.Module):
         self.ndepth, self.groups = ndepth, groups
         self.cost_reg_type, self.depth_type = cost_reg_type, depth_type
         self.remat_cost_reg = remat_cost_reg
+        self.shard_views = shard_views
+        self.cv = Group()
         self.dtype = dtype
 
     def build_volume(self, features: Tensor, cams: Tensor, depth_values: Tensor) -> Tensor:
@@ -79,9 +92,16 @@ class StageNet(nn.Module):
         sub = c // self.groups
         ref_feat = features[:, 0].float()
         projs = compose_projection(cams)
-        # views folded into the batch, view-major: row i*B + j is view i+1 of batch j
-        src = features[:, 1:].transpose(0, 1).reshape(nsrc * b, h, w, c)
-        src_projs = projs[:, 1:].transpose(0, 1).reshape(nsrc * b, 4, 4)
+        views = slice(1, v)
+        if self.shard_views:
+            if nsrc % self.cv.size:
+                raise ValueError(f"shard_views: {nsrc} source views do not split over "
+                                 f"{self.cv.size} cv ranks")
+            nsrc //= self.cv.size
+            views = slice(1 + self.cv.index * nsrc, 1 + (self.cv.index + 1) * nsrc)
+        # views folded into the batch, view-major: row i*B + j is view `views`[i] of batch j
+        src = features[:, views].transpose(0, 1).reshape(nsrc * b, h, w, c)
+        src_projs = projs[:, views].transpose(0, 1).reshape(nsrc * b, 4, 4)
         ref_proj = projs[:, 0].repeat(nsrc, 1, 1)
         dv = depth_values.repeat(nsrc, *([1] * (depth_values.ndim - 1)))
         warped, _ = homography_warp(src, src_projs, ref_proj, dv)  # [nsrc*B, D, H, W, C]
@@ -91,7 +111,10 @@ class StageNet(nn.Module):
         p = torch.softmax(sim, dim=2)
         entropy = -torch.sum(p * torch.log(p + 1e-7), dim=2)  # [nsrc, B, H, W]
         vis = self.vis(entropy.reshape(nsrc * b, h, w, 1)).reshape(nsrc, b, 1, h, w, 1)
-        volume = (prod * vis).sum(dim=0) / (vis.sum(dim=0) + 1e-6)  # [B, D, H, W, C]
+        volume_sum, vis_sum = (prod * vis).sum(dim=0), vis.sum(dim=0)
+        if self.shard_views:
+            volume_sum, vis_sum = self.cv.sum(volume_sum), self.cv.sum(vis_sum)
+        volume = volume_sum / (vis_sum + 1e-6)  # [B, D, H, W, C]
         return volume.reshape(b, d, h, w, self.groups, sub).mean(dim=-1)
 
     def forward(self, features: Tensor, cams: Tensor, depth_values: Tensor, tmp: float = 1.0,

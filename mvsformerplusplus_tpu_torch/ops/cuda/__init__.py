@@ -117,3 +117,19 @@ def dtype_code(t: torch.Tensor) -> int:
     if t.dtype == torch.bfloat16:
         return 1
     raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+
+
+def launch_counts() -> dict:
+    """This process's launch counters of every kernel wrapper,
+    {"<wrapper>.<counter>": n}: what a rank started by parallel.dist.launch
+    reports to the process that started it."""
+    from . import conv2d, flash_attention, warp
+
+    out = {}
+    for mod in (conv2d, flash_attention, warp):
+        for fn in vars(mod).values():
+            if callable(fn) and getattr(fn, "__module__", None) == mod.__name__:
+                for k, v in vars(fn).items():
+                    if k.startswith("launches"):
+                        out[f"{fn.__name__}.{k}"] = v
+    return out

@@ -1,6 +1,8 @@
 """Inputs for the checks that hold the port to a reference (the CPU parity
 tests against the JAX package and chip_smoke.py's card-vs-CPU phases), kept
-in one place so that both hold the same batch: numpy only."""
+in one place so that both hold the same batch (numpy only), and the train
+step of one rank of a (data, cv) layout that both run through
+parallel.dist.launch (train_step_rank, which imports torch when called)."""
 from __future__ import annotations
 
 import numpy as np
@@ -60,3 +62,83 @@ def inverse_depth_bounds(dmin: float, dmax: float, ndepths=(32, 16, 8, 4),
         ext += r * itv
         itv = 2 * r * itv / (nd - 1)
     return 1.0 / (hi_inv + ext), (1.0 / (lo_inv - ext) if lo_inv > ext else float("inf"))
+
+
+def batch_part(batch, part: int, parts: int):
+    """Rows part * B / parts ... (part + 1) * B / parts of every array of a
+    (nested) batch dict: the rows one data rank holds of a global batch."""
+    if isinstance(batch, dict):
+        return {k: batch_part(v, part, parts) for k, v in batch.items()}
+    b = len(batch) // parts
+    return batch[part * b:(part + 1) * b]
+
+
+def train_step_rank(ctx, make_model, batch, mesh, state=None, opt_kwargs=None,
+                    loss_kwargs=None, timed=0, probe=False):
+    """One rank of a (n_data, n_cv) = `mesh` train step of `make_model()`
+    (picklable: a class or a functools.partial) on its data part of the
+    global `batch` (numpy), with `state` (or rank 0's seeded weights) on
+    every rank; for parallel.dist.launch. Returns the step's logged losses
+    and gradient norm, every gradient and the state after the update (on the
+    CPU); with `probe`, the losses of a forward before the step (running
+    statistics restored after it) as this rank's share of the global loss
+    ("shares") and as the mean over its own pixels ("local"); with `timed`,
+    the ms per step of that many more steps and the peak memory; and the
+    kernel launches of the whole run."""
+    import time
+
+    import torch
+
+    from .ops.cuda import launch_counts
+    from .losses import multi_stage_loss
+    from .parallel.dist import make_layout
+    from .train.optim import make_optimizer
+    from .train.step import train_step
+    from .train.trainer import to_device
+
+    n_data, n_cv = mesh
+    layout = make_layout(n_data, n_cv, data_per_process=n_data)
+    model = make_model().to(ctx.device).train()
+    if state is not None:
+        model.load_state_dict(state)
+    layout.attach(model)
+    layout.world.broadcast_(list(model.state_dict().values()))
+    mine = to_device(batch_part(batch, layout.data_index, n_data), ctx.device)
+    loss_kwargs = dict(loss_kwargs or {})
+    out = {}
+    if probe:
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        with torch.no_grad():
+            outputs = model(mine["imgs"], mine["cams"], mine["depth_values"])
+            dv = mine["depth_values"]
+            for name, group in (("shares", layout.data), ("local", None)):
+                _, losses = multi_stage_loss(outputs, mine["depth_gt"], mine["mask"],
+                                             dv[:, 1] - dv[:, 0], group=group, **loss_kwargs)
+                out[name] = {k: float(v) for k, v in losses.items()}
+        model.load_state_dict(before)
+    opt, sched = make_optimizer(model, **(opt_kwargs or {}))
+    logs = train_step(model, opt, sched, mine, layout=layout, **loss_kwargs)
+    out["logs"] = {k: float(v) for k, v in logs.items()
+                   if k in ("loss", "grad_norm") or k.startswith("stage")}
+    out["grads"] = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                    if p.grad is not None}
+    out["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    if timed:
+        cuda = ctx.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(ctx.device)
+            torch.cuda.reset_peak_memory_stats(ctx.device)
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            train_step(model, opt, sched, mine, layout=layout, **loss_kwargs)
+        if cuda:
+            marks[1].record()
+            torch.cuda.synchronize(ctx.device)
+            out["ms_per_step"] = marks[0].elapsed_time(marks[1]) / timed
+            out["peak_mem_gb"] = torch.cuda.max_memory_allocated(ctx.device) / 1e9
+        else:
+            out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / timed
+    out["launches"] = launch_counts()
+    return out

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.dist import is_writer
 from .optim import refresh_lr
 
 
@@ -74,11 +75,11 @@ class CheckpointManager:
         and model_last.pth; when `monitor_value` improves on the best, also
         model_best.pth. interrupted=True marks a save taken mid-epoch:
         resume runs that epoch again. Returns whether this epoch is the new
-        best."""
+        best. Across ranks only rank 0 writes."""
         is_best = self.improved(monitor_value)
         if is_best:
             self.monitor_best, self.best = float(monitor_value), epoch
-        if self.directory is None:
+        if self.directory is None or not is_writer():
             return is_best
         payload = {"arch": type(model).__name__, "epoch": epoch, "step": step,
                    "state_dict": model.state_dict(), "optimizer": optimizer.state_dict(),

@@ -19,6 +19,14 @@ refined depth (`depth_est`; with one micro-batch also the confidence,
 `conf_est`, as the JAX make_train_step logs them), as device tensors; with
 `debug`, also each top-level module's gradient norm and count of non-finite
 gradient entries (`gnorm/<module>`, `nonfinite/<module>`, debug_logs).
+
+Across ranks (`layout`, parallel.dist.Layout): the losses divide by the
+valid counts of the global batch (the data group's), and after the
+backward of the last micro-batch one coalesced all-reduce makes every
+gradient its sum over the data axis and its mean over the cv axis, before
+the global norm and the clip (the JAX step clips the global gradient); the
+logged losses are summed over the data group, so every rank logs the
+global ones, and debug_logs reads the reduced gradients.
 """
 from __future__ import annotations
 
@@ -27,19 +35,20 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..losses import multi_stage_loss
+from ..parallel.dist import Layout
 from .metrics import depth_metrics
 from .optim import clip_by_global_norm, global_norm
 
 Tensor = torch.Tensor
 
 
-def _loss(model, batch, depth_types, dlossw, inverse_depth, clip_func):
+def _loss(model, batch, depth_types, dlossw, inverse_depth, clip_func, group=None):
     outputs = model(batch["imgs"], batch["cams"], batch["depth_values"])
     dv = batch["depth_values"]
     total, loss_dict = multi_stage_loss(
         outputs, batch["depth_gt"], batch["mask"], dv[:, 1] - dv[:, 0],
         depth_types=depth_types, dlossw=dlossw, inverse_depth=inverse_depth,
-        clip_func=clip_func)
+        clip_func=clip_func, group=group)
     return (total, loss_dict, outputs["refined_depth"].detach(),
             outputs["photometric_confidence"].detach())
 
@@ -66,8 +75,7 @@ def debug_logs(model) -> Dict[str, Tensor]:
     return out
 
 
-def _update(optimizer, scheduler, grad_clip) -> Tensor:
-    params = [p for g in optimizer.param_groups for p in g["params"]]
+def _update(optimizer, scheduler, grad_clip, params) -> Tensor:
     norm = global_norm(params)
     if grad_clip is not None:
         clip_by_global_norm(params, grad_clip, norm)
@@ -86,28 +94,34 @@ def train_step_accum(model, optimizer, scheduler, micro_batches: Sequence[dict],
                      depth_types: Sequence[str] = ("ce", "ce", "ce", "ce"),
                      dlossw: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                      inverse_depth: bool = True, clip_func: Optional[str] = "dynamic",
-                     grad_clip: Optional[float] = None, debug: bool = False
-                     ) -> Dict[str, Tensor]:
+                     grad_clip: Optional[float] = None, debug: bool = False,
+                     layout: Optional[Layout] = None) -> Dict[str, Tensor]:
     """One AdamW update on the mean gradient of `micro_batches`; the logged
     losses are their means and depth_est is the last micro-batch's. With
-    `debug`, debug_logs of the mean gradient before the clip."""
+    `debug`, debug_logs of the mean gradient before the clip. With
+    `layout`, the global batch's losses and gradients (module docstring)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     n = len(micro_batches)
+    group = None if layout is None else layout.data
     sums: Dict[str, Tensor] = {}
     for mb in micro_batches:
         total, loss_dict, depth, conf = _loss(model, mb, depth_types, dlossw, inverse_depth,
-                                              clip_func)
+                                              clip_func, group)
         (total / n).backward()
         for k, v in {"loss": total, **loss_dict}.items():
             sums[k] = sums.get(k, 0.0) + v.detach()
     logs = {k: v / n for k, v in sums.items()}
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    if layout is not None:
+        layout.reduce_grads(params)
+        layout.data.sum_(list(logs.values()))
     logs["depth_est"] = depth
     if n == 1:
         logs["conf_est"] = conf
     if debug:
         logs.update(debug_logs(model))
-    logs["grad_norm"] = _update(optimizer, scheduler, grad_clip)
+    logs["grad_norm"] = _update(optimizer, scheduler, grad_clip, params)
     return logs
 
 

@@ -1,5 +1,4 @@
-"""The training loop (counterpart of mvsformerplusplus_tpu/train/trainer.py,
-on one device).
+"""The training loop (counterpart of mvsformerplusplus_tpu/train/trainer.py).
 
 Each loader step gives (batch, crop_hw). The crop height selects a
 micro-batch size from `scale_batch_map` (a batch larger than it is split
@@ -35,6 +34,20 @@ each step; `val_stats` holds each validation's metrics and its device (or host) 
 
 The loader interface is the JAX package's TrainLoader: `epoch(e)` yields
 (batch dict of numpy arrays, crop_hw) and `steps_per_epoch()`.
+
+Across ranks (`layout`, parallel.dist.Layout; one Trainer per rank, each
+fed its part of every host batch by its loader): `train` first gives every
+rank rank 0's weights; each step's losses and gradients are the global
+batch's (train/step.py); the micro-batch count is the JAX Trainer's for the
+host batch, clamped to the process's data shards. Validation follows the
+JAX Trainer's: each data index runs its own validation batches (the cv
+ranks of one data index the same ones, since view sharding reduces across
+them), with no collective across data indices until the end, where one
+all-reduce of every rank's (metric sums, batch count) gives the global
+means; every rank must have run at least one batch. Only rank 0 writes
+checkpoints, scalars and panels, and every rank waits for its checkpoint
+before going on; every rank restores from it on resume. Each rank reads its
+own preemption flag, as each JAX process does.
 """
 from __future__ import annotations
 
@@ -49,6 +62,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..data.loader import micro_count
+from ..parallel.dist import Layout
 from ..utils.logging import ImageWriter, ScalarWriter
 from .checkpoints import CheckpointManager
 from .step import eval_step, train_step_accum
@@ -120,8 +135,9 @@ class Trainer:
                  logging_every: int = 100, grad_clip: Optional[float] = None,
                  save_dir=None, config: Optional[dict] = None, monitor: str = "min mean_error",
                  early_stop: int = 10, interval_norm: str = "dtu", log_images: bool = True,
-                 debug: bool = False):
+                 debug: bool = False, layout: Optional[Layout] = None):
         self.model = model
+        self.layout = layout or Layout()
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.optimizer = optimizer
@@ -151,14 +167,11 @@ class Trainer:
         self._preempted = False
 
     def _micro_count(self, crop_hw, batch_size: int) -> int:
-        """Micro-batches per step: batch_size // micro for the largest
-        micro <= scale_batch_map[crop height] that divides the batch, or 1."""
-        micro = self.scale_batch_map.get(str(crop_hw[0]))
-        if not micro or micro >= batch_size:
-            return 1
-        while batch_size % micro:
-            micro -= 1
-        return batch_size // micro
+        """Micro-batches per step of this rank's `batch_size` samples: the
+        JAX Trainer's count for the host batch they are part of
+        (data.loader.micro_count)."""
+        ld = self.layout.data_per_process
+        return micro_count(self.scale_batch_map, crop_hw, batch_size * ld, ld)
 
     def _set_remat(self, crop_h) -> None:
         gran = self.remat_map.get(str(crop_h), self.remat_default)
@@ -194,8 +207,11 @@ class Trainer:
         return {sig: signal.signal(sig, flag) for sig in (signal.SIGTERM, signal.SIGINT)}
 
     def _save(self, epoch, **kw) -> bool:
-        return self.ckpt.save(epoch, self.model, self.optimizer, self.scheduler,
+        """Rank 0 writes; every rank waits for it."""
+        best = self.ckpt.save(epoch, self.model, self.optimizer, self.scheduler,
                               self.global_step, config=self.config, **kw)
+        self.layout.world.barrier()
+        return best
 
     def train(self, epochs: int, max_steps: Optional[int] = None,
               start_epoch: int = 0) -> List[dict]:
@@ -206,6 +222,7 @@ class Trainer:
         self._preempted = False
         previous = self._install_preemption_handler()
         clock = _Clock(self.device)
+        self.layout.world.broadcast_(list(self.model.state_dict().values()))
         try:
             for epoch in range(start_epoch, epochs):
                 t0, records = time.perf_counter(), []
@@ -221,7 +238,8 @@ class Trainer:
                     micro_batches = split_micro(batch, n_micro)
                     logs = train_step_accum(self.model, self.optimizer, self.scheduler,
                                             micro_batches, grad_clip=self.grad_clip,
-                                            debug=self.debug, **self.loss_kwargs)
+                                            debug=self.debug, layout=self.layout,
+                                            **self.loss_kwargs)
                     after = clock.mark()
                     steps += 1
                     self.global_step += 1
@@ -320,8 +338,9 @@ class Trainer:
         log.info("epoch %d: %d steps in %.1f s %s", epoch, len(records), wall_s, stats["buckets"])
 
     def validate(self, epoch: int = -1) -> Dict[str, float]:
-        """Means over the validation loader's batches of eval_step's metrics;
-        they and the time per map are appended to `val_stats`."""
+        """Means over the validation batches of eval_step's metrics (across
+        ranks: over every data index's batches); they and this rank's time
+        per map are appended to `val_stats`."""
         sums: Dict[str, float] = {}
         clock, times, n = _Clock(self.device), [], 0
         for batch, _ in self.val_loader.epoch(0):
@@ -337,11 +356,30 @@ class Trainer:
             n += 1
         clock.sync()
         maps = sum(b for _, _, b in times)
-        metrics = {k: v / max(1, n) for k, v in sums.items()}
         ms = sum(clock.ms(a, b) for a, b, _ in times)
+        total = n
+        if self.layout.world.active:
+            sums, total = self._merge(sums, n)
+        metrics = {k: v / max(1, total) for k, v in sums.items()}
         self.val_stats.append({"epoch": epoch, "metrics": metrics, "batches": n, "maps": maps,
                                "ms_per_map": ms / max(maps, 1)})
         log.info("epoch %d val %s", epoch, {k: round(v, 4) for k, v in metrics.items()})
         if self.writer is not None:
             self.writer.write("val", metrics, self.global_step)
         return metrics
+
+    def _merge(self, sums: Dict[str, float], n: int):
+        """The (metric sums, batch count) of every data index: one all-reduce
+        over the data group, the division left to the caller (a mean of the
+        ranks' means would weigh a rank with fewer batches more)."""
+        empty = self.layout.world.sum(torch.tensor([float(n == 0)], device=self.device))
+        if empty.item():
+            raise RuntimeError(
+                "multi-rank validation requires >= 1 val batch per data index (the "
+                "metric-key vector must agree across ranks for the all-reduce); give the "
+                "val loader at least n_data samples per process")
+        keys = sorted(sums)
+        vec = self.layout.data.sum(torch.tensor([sums[k] for k in keys] + [float(n)],
+                                                dtype=torch.float64, device=self.device))
+        vec = vec.tolist()
+        return dict(zip(keys, vec[:-1])), vec[-1]

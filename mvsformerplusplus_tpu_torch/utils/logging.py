@@ -18,6 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..data.io import write_png
+from ..parallel.dist import is_writer
 
 
 class ScalarWriter:
@@ -29,6 +30,8 @@ class ScalarWriter:
         self.path.parent.mkdir(parents=True, exist_ok=True)
 
     def write(self, mode: str, scalars: Dict[str, float], step: int):
+        if not is_writer():  # across ranks only rank 0 writes
+            return
         rec = {"time": time.time(), "mode": mode, "step": int(step)}
         rec.update({k: float(v) for k, v in scalars.items()})
         with open(self.path, "a") as f:
@@ -72,6 +75,8 @@ class ImageWriter:
               depth_gt: Optional[np.ndarray] = None, confidence: Optional[np.ndarray] = None,
               mask: Optional[np.ndarray] = None):
         """All inputs [H, W] host arrays (the first sample of a batch)."""
+        if not is_writer():  # across ranks only rank 0 writes
+            return
         depth_est = np.asarray(depth_est, np.float32)
         m = None if mask is None else np.asarray(mask, np.float32)
         if depth_gt is not None:

@@ -3,8 +3,9 @@ PyTorch version, forward and backward, on the card (marker `cuda`; skipped
 without one), with a planted fault per backward kernel and per flash kernel
 that the same check must reject. The bf16 flash kernels (tensor cores) are
 held within their rounding budget (flash_attention.budget_tolerance), the
-f32 ones within `tolerance`. Imports
-no JAX, so it also runs on a machine without it:
+f32 ones within `tolerance`. The last cases take the shapes a rank of
+parallel.dist meets on the train crop (one sample per rank, or half the
+source views). Imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -434,3 +435,91 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         flash_attention.flash_attention_bwd_dkv(qb, qb, qb, qb, lse, lse, 0.2)
     with pytest.raises(TypeError):
         flash_attention.flash_attention_fwd(qb.half(), qb.half(), qb.half(), 0.2)
+
+
+# the train crop (512 x 640) as the ranks of parallel.dist see it: per stage
+# (D, C, H/8..H, W/8..W); a rank at --mesh 2,1 holds one sample and warps its
+# 4 source views, a rank at --mesh 1,2 holds two samples and warps 2 of
+# their 4 (shard_views): 4 folded views either way, each rank its own
+RANK_STAGES = [(32, 64, 64, 80), (16, 32, 128, 160), (8, 16, 256, 320), (4, 8, 512, 640)]
+
+
+def _rank_warp_coords(views, b, d, hh, ww, dev):
+    """Plane-sweep coordinates of `views` source views of `b` samples folded
+    view-major, as StageNet.build_volume folds them."""
+    cams = torch.from_numpy(np.stack([_camera(0.0, 0.0, hh, ww)]
+                                     + [_camera(0.05 * i, 0.3 * i, hh, ww)
+                                        for i in range(1, views + 1)]))
+    projs = compose_projection(cams)
+    src = projs[1:].repeat_interleave(b, 0)
+    ref = projs[:1].expand(views * b, 4, 4)
+    dv = torch.linspace(2.0, 6.0, d)[None].expand(views * b, d)
+    return plane_sweep_coords(src, ref, dv, hh, ww)[0].to(dev)
+
+
+@pytest.mark.parametrize("views,b", [(4, 1), (2, 2)], ids=["mesh2x1", "mesh1x2"])
+@pytest.mark.parametrize("d,c,hh,ww", RANK_STAGES)
+def test_warp_at_the_ranks_shapes(dev, views, b, d, c, hh, ww):
+    """The warp and its image gradient at a rank's shapes, each through the
+    vector kernel, against the plain version, with the planted faults."""
+    g = torch.Generator(device=dev).manual_seed(d + c + views)
+    coords = _rank_warp_coords(views, b, d, hh, ww, dev)
+    src = torch.randn(views * b, hh, ww, c, generator=g, device=dev).to(torch.bfloat16)
+    assert _check_warp(src, coords) == "vec"
+    cot = torch.randn(views * b, d, hh, ww, c, generator=g, device=dev)
+    assert _check_warp_bwd(cot, coords, (views * b, hh, ww, c)) == "vec"
+
+
+@pytest.mark.parametrize("part,b,n,heads,dh", [("vit", 5, 321, 12, 64), ("cta", 1, 5120, 4, 16)])
+def test_flash_at_one_sample_per_rank(dev, part, b, n, heads, dh):
+    """Flash at a --mesh 2,1 rank's train shapes (one sample, 512 x 640):
+    the ViT's 5 views of 321 tokens and the CTA's 5120 tokens, forward
+    through the mma kernel; the CTA's backward too (q, k at std 1.5, as
+    chip_smoke.py draws them), each with its planted fault."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    q, k = (1.5 * torch.randn(b, n, heads, dh, generator=g, device=dev) for _ in range(2))
+    v, dout = (torch.randn(b, n, heads, dh, generator=g, device=dev) for _ in range(2))
+    q, k, v, dout = (x.to(torch.bfloat16) for x in (q, k, v, dout))
+    scale = dh ** -0.5
+    out = _flash_fwd_check(q, k, v, scale)
+    if part == "vit":
+        return
+    _, lse = flash_attention.flash_attention_plain(q, k, v, scale, return_lse=True)
+    delta = flash_attention.attention_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, scale)
+    before = flash_attention.flash_attention_bwd.launches_mma
+    grads = flash_attention.flash_attention_bwd(*args)
+    assert flash_attention.flash_attention_bwd.launches_mma == before + 1
+    want = flash_attention.flash_attention_bwd_plain(*args)
+    budgets = flash_attention.flash_bwd_budget(*args)
+    for got, w, bud in zip(grads, want, budgets):
+        _flash_close(got, w, bud)
+    bad = flash_attention.flash_attention_bwd(q, k, v, dout, lse, 0.92 * delta, scale)
+    assert _flash_fails(bad[0], want[0], budgets[0])
+
+
+# a rank's convs at 512 x 640 (B, H, W, Ci, Co, k): the encoder's on one
+# sample's 5 views, the decoder heads, a visibility net on 4 folded views
+# (either layout), the FMT smoothing on one view
+RANK_CONVS = [(5, 512, 640, 3, 8, 7), (5, 512, 640, 8, 8, 5), (5, 256, 320, 16, 16, 3),
+              (5, 128, 160, 32, 32, 3), (5, 64, 80, 64, 64, 3), (5, 128, 160, 64, 32, 3),
+              (5, 256, 320, 64, 16, 3), (5, 512, 640, 64, 8, 3), (4, 64, 80, 1, 16, 3),
+              (4, 512, 640, 16, 16, 3), (4, 512, 640, 16, 8, 3), (1, 64, 80, 32, 32, 3),
+              (1, 512, 640, 8, 8, 3)]
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k", RANK_CONVS)
+def test_conv_at_one_sample_per_rank(dev, b, h, w, ci, co, k):
+    """The conv through the mma kernel at a rank's shapes, and its dx where
+    the train path needs it (not on the images, not on the entropy), each
+    with its planted fault."""
+    g = torch.Generator(device=dev).manual_seed(h + ci + co)
+    x = torch.randn(b, h, w, ci, generator=g, device=dev).to(torch.bfloat16)
+    kern = (torch.randn(k, k, ci, co, generator=g, device=dev) * (k * k * ci) ** -0.5).to(
+        torch.bfloat16)
+    assert _conv_check(conv2d.conv2d_same, conv2d.conv2d_same_plain, _conv_fault, x, kern) == "mma"
+    if ci in (1, 3):
+        return
+    cot = torch.randn(b, h, w, co, generator=g, device=dev).to(torch.bfloat16)
+    assert _conv_check(conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, _conv_dx_fault, cot,
+                       kern) == "mma"

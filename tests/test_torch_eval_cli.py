@@ -1,5 +1,5 @@
 """The port's eval command line end to end on the CPU (--device cpu), its
-fuse_scan against the JAX test.py's, its refusals, and convert.load_npz.
+fuse_scan against the JAX test.py's, its workers, and convert.load_npz.
 
 - The tiny flagship on a 3-view 128 x 192 geometric scan (JPEG images, GT
   depths): the MVSNet output layout, each file's type and shape, the cams
@@ -9,6 +9,10 @@ fuse_scan against the JAX test.py's, its refusals, and convert.load_npz.
 - fuse_scan against JAX's test.fuse_scan on the same written depth maps
   (the robust plane scene of test_torch_fusion.py): the ply files hold the
   same points (rtol 1e-5) and colours (exact), for each method.
+- Workers on three copies of the scan: --world 2 strides the scans, two
+  --schedule queue processes claim each once, --reclaim_stale takes over a
+  planted stale claim; each gives the one-process run's depth maps and the
+  per-worker depth metric files merged into depth_metric.txt.
 - load_npz round-trips tools/convert_reference.save_npz of random flax
   variables into the state from_jax_variables gives, strictly.
 - configs/casmvs.json's CasMVSNet at a tiny width: seeded weights with an
@@ -19,6 +23,10 @@ import importlib.util
 import io
 import json
 import logging
+import os
+import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import cv2
@@ -174,12 +182,97 @@ def test_fuse_scan_ply_matches_jax(written, method):
     np.testing.assert_array_equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("flags", [["--world", "2"], ["--schedule", "queue"],
-                                   ["--reclaim_stale", "30"]], ids=lambda f: f[0])
-def test_multi_process_flags_exit_naming_the_roadmap(scan, tmp_path, capsys, flags):
-    with pytest.raises(SystemExit):
-        cli.main(_argv(scan, tmp_path, *flags))
-    assert "ROADMAP.md §1 item 9" in capsys.readouterr().err
+@pytest.fixture(scope="module")
+def scans(scan):
+    """scan1 (with its ground truth) copied as scan2 and scan3, and the
+    one-process run over the three (no fusion)."""
+    for name in ("scan2", "scan3"):
+        for d in (scan, scan / "gt_depths"):
+            if not (d / name).exists():
+                shutil.copytree(d / "scan1", d / name)
+    (scan / "list3.txt").write_text("scan1\nscan2\nscan3\n")
+    out = scan / "one_process"
+    cli.main(_argv(scan, out, "--filter_method", "none") + ["--testlist", str(scan / "list3.txt")])
+    return scan, out
+
+
+def _depths(out, scan):
+    return {p.name: read_pfm(p)[0] for p in sorted((out / scan / "depth_est").glob("*.pfm"))}
+
+
+def _assert_same_depths(out, want_out, names):
+    for name in names:
+        got, want = _depths(out, name), _depths(want_out, name)
+        assert len(want) == 3 and got.keys() == want.keys(), name
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{name}/{k}")
+
+
+def test_world_2_strides_the_scans(scans, tmp_path):
+    """--world 2: rank 0 takes scan1 and scan3, rank 1 scan2 (test.py's
+    all_scans[rank::world]), each writes depth_metric.rank{r}.txt and
+    leaves depth_metric.txt merged over both, fuses its own scans, and the
+    depth maps are the one-process run's."""
+    root, want_out = scans
+    gt = ["--gt_depth_path", str(root / "gt_depths"), "--testlist", str(root / "list3.txt")]
+    done = {}
+    for rank in (0, 1):
+        stats = cli.main(_argv(root, tmp_path, "--world", "2", "--rank", str(rank), *gt))
+        done[rank] = sorted(stats["points"])
+        lines = dict(ln.split(": ") for ln in
+                     (tmp_path / f"depth_metric.rank{rank}.txt").read_text().splitlines())
+        assert lines["n_views"] == str(3 * len(done[rank]))
+    assert done == {0: ["scan1", "scan3"], 1: ["scan2"]}
+    assert sorted(p.name for p in tmp_path.glob("*.ply")) == ["scan1.ply", "scan2.ply",
+                                                               "scan3.ply"]
+    merged = dict(ln.split(": ") for ln in (tmp_path / "depth_metric.txt").read_text().splitlines())
+    assert merged["n_views"] == "9"
+    _assert_same_depths(tmp_path, want_out, ["scan1", "scan2", "scan3"])
+
+
+def test_queue_workers_cover_every_scan_once(scans, tmp_path):
+    """Two --schedule queue processes on the three scans: each scan claimed
+    once (one g0 claim file, no later generation) and done, every depth map
+    the one-process run's, one depth_metric.pid{pid}.txt per worker that did
+    a scan, merged into depth_metric.txt."""
+    root, want_out = scans
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
+    argv = [sys.executable, "-m", "mvsformerplusplus_tpu_torch.eval"] + _argv(
+        root, tmp_path, "--schedule", "queue", "--filter_method", "none", "--gt_depth_path",
+        str(root / "gt_depths"), "--testlist", str(root / "list3.txt"))
+    procs = [subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    claims = sorted(p.name for p in (tmp_path / ".claims").iterdir())
+    assert claims == sorted(f"scan{i}.{x}" for i in (1, 2, 3) for x in ("claim.g0", "done"))
+    owners = {(tmp_path / ".claims" / f"scan{i}.claim.g0").read_text() for i in (1, 2, 3)}
+    parts = sorted(p.name for p in tmp_path.glob("depth_metric.pid*.txt"))
+    assert parts == sorted(f"depth_metric.{o}.txt" for o in owners)
+    merged = dict(ln.split(": ") for ln in (tmp_path / "depth_metric.txt").read_text().splitlines())
+    assert merged["n_views"] == "9"
+    _assert_same_depths(tmp_path, want_out, ["scan1", "scan2", "scan3"])
+
+
+def test_reclaim_stale_takes_a_planted_claim(scans, tmp_path):
+    """A g0 claim on scan1 whose owner went silent an hour ago and never
+    marked it done: --reclaim_stale 60 takes it as g1 and finishes the
+    scan; without --reclaim_stale a worker leaves it alone."""
+    root, want_out = scans
+    (root / "list1.txt").write_text("scan1\n")
+    claims = tmp_path / ".claims"
+    claims.mkdir()
+    planted = claims / "scan1.claim.g0"
+    planted.write_text("pid1")
+    os.utime(planted, (planted.stat().st_atime - 3600, planted.stat().st_mtime - 3600))
+    argv = _argv(root, tmp_path, "--schedule", "queue", "--filter_method", "none",
+                 "--testlist", str(root / "list1.txt"))
+    assert cli.main(argv)["maps"] == 0 and not (claims / "scan1.done").exists()
+    stats = cli.main(argv + ["--reclaim_stale", "60"])
+    assert stats["maps"] == 3
+    assert (claims / "scan1.claim.g1").read_text() == f"pid{os.getpid()}"
+    assert (claims / "scan1.done").exists() and planted.read_text() == "pid1"
+    _assert_same_depths(tmp_path, want_out, ["scan1"])
 
 
 def test_window_check_logs_one_line(scan, tmp_path, caplog):

@@ -8,11 +8,16 @@ and metrics, and scalars.jsonl and the panels; --debug's per-module
 gradient norms; a BlendedLoader config (BlendedTrainDataset, the
 "blended" interval scale, validation with the Blended class); a tiny
 CasMVSNet through configs/casmvs.json's settings (no ViT to load); and
-that each flag of the JAX CLI that the port does not have exits with an
-error naming its ROADMAP item."""
+the JAX CLI's distribution flags: --mesh 2,1 and --mesh 1,2 on CPU ranks
+and two --distributed processes train to the one-rank run's checkpoint,
+and a layout that cannot split the batch or the source views exits with
+its message."""
 import json
 import logging
 import math
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -24,6 +29,7 @@ from mvsformerplusplus_tpu_torch.data.mvs_dataset import BlendedTrainDataset
 from mvsformerplusplus_tpu_torch.data.synthetic import (GeometricScene, make_blended_scan,
                                                         make_geometric_dtu)
 from mvsformerplusplus_tpu_torch.models.casmvs import CasMVSNet
+from mvsformerplusplus_tpu_torch.parallel.dist import free_port
 from mvsformerplusplus_tpu_torch.train import cli
 from mvsformerplusplus_tpu_torch.train.optim import warmup_cosine
 from tests.test_torch_flagship import TINY_ARCH_ARGS
@@ -186,16 +192,119 @@ def test_debug_logs_per_module_gradient_norms(tmp_path, scan, caplog):
                                               "cascade")] == [0] * 6
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh", "1,2"], "item 9"),
-                                        (["--mesh", "2,1"], "item 9"),
-                                        (["--distributed"], "item 9"),
-                                        (["--coordinator", "h:1"], "item 9"),
-                                        (["--num_processes", "2"], "item 9"),
-                                        (["--process_id", "0"], "item 9")])
-def test_unported_flags_exit_naming_the_roadmap(tmp_path, capsys, flags, item):
+def _one_epoch(tmp_path, scan, name, *flags):
+    """One epoch of the tiny config at batch 2 without micro-batches (a
+    micro-batch of 1 clamps up to one sample per data rank, so --mesh 2,1
+    would step on the whole batch where one rank steps twice)."""
+    _, path = _config(tmp_path, scan)
+    save = tmp_path / name
+    out = cli.main(["-c", str(path), "--device", "cpu", "--save_dir", str(save), "--epochs", "1",
+                    "-o", "data_loader;0;args;multi_scale_args;scale_batch_map={}", *flags])
+    return out, save
+
+
+def _checkpoint(save):
+    return torch.load(save / "checkpoints" / "model_last.pth", weights_only=True)
+
+
+def _assert_same_state(got, want, steps):
+    """Parameters within what AdamW makes of rounding-level gradient
+    differences: an entry whose gradient is near 0 (a bias before a
+    BatchNorm) may move up to 2 lr a step the other way. Running statistics
+    within 2e-3 of each tensor's largest entry: after the first step they
+    are taken through weights that moved apart so."""
+    for k, w in want.items():
+        g = got[k]
+        if not w.dtype.is_floating_point:
+            assert torch.equal(g, w), k
+        elif "running" in k:
+            assert (g - w).abs().max() <= 2e-3 * w.abs().max() + 1e-5, k
+        else:
+            assert (g - w).abs().max() <= 2 * LR * steps + 1e-5, k
+
+
+def _assert_same_training(save, want_save, steps):
+    """The same checkpoint as the one-rank run's (_assert_same_state), the
+    first step's losses at rtol 1e-4 and the later steps' (on weights that
+    moved apart as _assert_same_state allows) at 1e-3, and scalars.jsonl
+    written once."""
+    got, want = _checkpoint(save), _checkpoint(want_save)
+    assert (got["epoch"], got["step"]) == (want["epoch"], want["step"]) == (0, steps)
+    _assert_same_state(got["state_dict"], want["state_dict"], steps)
+    recs, want_recs = _scalars(save), _scalars(want_save)
+    assert [(r["mode"], r["step"]) for r in recs] == [(r["mode"], r["step"]) for r in want_recs]
+    for r, w in zip(recs, want_recs):
+        if r["mode"] == "train":
+            for k in w:
+                if k == "loss" or k.startswith("stage"):
+                    rel = 1e-4 if r["step"] == 1 else 1e-3
+                    assert r[k] == pytest.approx(w[k], rel=rel), (r["step"], k)
+
+
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory, scan):
+    return _one_epoch(tmp_path_factory.mktemp("mesh11"), scan, "saved", "--mesh", "1,1")
+
+
+@pytest.mark.parametrize("mesh", ["2,1", "1,2"])
+def test_mesh_trains_to_the_one_rank_checkpoint(tmp_path, scan, one_rank, mesh):
+    """--mesh 2,1 (a sample per rank) and --mesh 1,2 (a source view per
+    rank) train the tiny config to the checkpoint of --mesh 1,1, with one
+    scalars.jsonl; the ranks return their summaries: the same logged
+    losses, and the same validation metrics on both ranks (7 batches split
+    4 + 3 over the data ranks under 2,1), near the one-rank run's (rtol
+    1e-2: the bucketed error metrics of weights that moved apart by up to
+    2 lr a step where a gradient is near 0)."""
+    t, want_save = one_rank
+    ranks, save = _one_epoch(tmp_path, scan, "saved", "--mesh", mesh)
+    assert [r["rank"] for r in ranks] == [0, 1] and all(r["global_step"] == 3 for r in ranks)
+    _assert_same_training(save, want_save, 3)
+    assert ranks[0]["logged"] == ranks[1]["logged"]
+    maps = [r["val_stats"][0]["maps"] for r in ranks]
+    assert maps == ([4, 3] if mesh == "2,1" else [7, 7])
+    assert ranks[0]["val_stats"][0]["metrics"] == ranks[1]["val_stats"][0]["metrics"]
+    for k, v in t.val_stats[0]["metrics"].items():
+        assert ranks[0]["val_stats"][0]["metrics"][k] == pytest.approx(v, rel=1e-2), k
+    assert not (save / "images").exists() or len(list((save / "images").iterdir())) == len(
+        list((want_save / "images").iterdir()))
+
+
+def test_distributed_processes_train_as_one(tmp_path, scan):
+    """Two --distributed processes (one rank each, rendezvous at
+    --coordinator) train the tiny config at 2 samples per process to the
+    checkpoint of one process with --mesh 2,1 and a batch of 4."""
+    _, want_save = _one_epoch(tmp_path, scan, "one", "--mesh", "2,1", "--batch_size", "4")
+    _, path = _config(tmp_path, scan)
+    port = free_port()
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mvsformerplusplus_tpu_torch.train", "-c", str(path), "--device",
+         "cpu", "--save_dir", str(tmp_path / "two"), "--epochs", "1", "-o",
+         "data_loader;0;args;multi_scale_args;scale_batch_map={}", "-o",
+         "data_loader;0;args;val_data_list=none", "--distributed", "--coordinator",
+         f"127.0.0.1:{port}", "--num_processes", "2", "--process_id", str(i)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert "process 1 of 2: 1 cpu rank(s) over gloo" in outs[1]
+    got, want = _checkpoint(tmp_path / "two"), _checkpoint(want_save)
+    assert got["step"] == want["step"] == 1
+    _assert_same_state(got["state_dict"], want["state_dict"], 1)
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--mesh", "3,1"], "the batch of 2 per process does not split over 3 data ranks"),
+    (["--mesh", "1,3"], "2 source views do not split over 3 cv ranks"),
+    (["--mesh", "2"], "give the two sizes n_data,n_cv"),
+    (["--distributed"], "--distributed needs --coordinator, --num_processes and --process_id"),
+    (["--distributed", "--coordinator", "h:1", "--num_processes", "2", "--process_id", "0",
+      "--mesh", "1,1"], "1 ranks cannot split over 2 processes")])
+def test_layout_that_cannot_split_exits(tmp_path, scan, capsys, flags, message):
+    _, path = _config(tmp_path, scan)
     with pytest.raises(SystemExit):
-        cli.main(["-c", str(tmp_path / "cfg.json"), "--device", "cpu"] + flags)
-    assert f"ROADMAP.md §1 {item}" in capsys.readouterr().err
+        cli.main(["-c", str(path), "--device", "cpu"] + flags)
+    assert message in capsys.readouterr().err
 
 
 def test_blended_loader_trains_and_validates(tmp_path):
