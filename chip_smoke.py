@@ -94,16 +94,32 @@ Phases, one JSON line each:
               debug records, every module's gradient norm finite and no
               non-finite gradient, the panels, ms per step, validation ms per
               map, decode ms per image, peak memory;
+  variants_reference, variants_reference_train, variants_reference_modules
+              the reference phases on a small variant flagship (fp32; the
+              JAX package's variants no shipped config selects: the log_var
+              uncertainty head, reg depth at stages 3-4, SwiGLU in the ViT
+              decoder and FMT; its log_var heads tempered), then an
+              FPNEncoder(norm="IN") at the flagship's widths and a
+              CostRegNet2D, forward and backward, card against CPU;
+  variants_main_path
+              configs/mvsformerplusplus.json with those variants
+              (VARIANT_OVERRIDES) at main_path's shape, as main_path (no
+              profile): log_var finite at stages 3-4 and absent at 1-2;
+  variants_train_step
+              the same config at train_step's protocol, as train_step (no
+              profile): the uncertainty terms logged and finite, the
+              2-channel heads and the SwiGLU blocks moved;
   dist_step   the flagship's train step on train_step's global batch (B=2,
               512 x 640) on one rank, again, and on images a bf16 ulp apart (its
-              rounding sensitivity), then through parallel.dist.launch three
+              rounding sensitivity), then through parallel.dist.launch four
               ways, each held to the one-rank step by the reference_train
               phase's rule, its sensitivity measured by re-runs and bf16-ulp
               probes (compare_steps: the losses, the gradients and the
               BatchNorm running statistics, the parameters after AdamW): two gloo ranks
               sharing the card at --mesh 2,1 (one sample each), two at
-              --mesh 1,2 (view-sharded: two source views each), and the NCCL
-              path at world 1; ms per step and peak memory per rank;
+              --mesh 1,2 (view-sharded: two source views each), two at
+              --mesh 1,2 depth-sharded (half the hypotheses each), and the
+              NCCL path at world 1; ms per step and peak memory per rank;
   train_cli_mesh
               the training command line with --mesh 2,1 (two gloo ranks on
               the card) on train_cli's scan: one epoch with validation, then
@@ -114,8 +130,8 @@ Phases, one JSON line each:
               then by one process; every scan claimed once and done, every
               depth map the one process's, maps/s at 2 and at 1 worker.
 Each path (main_path, train_step, train_cli, eval_cli, casmvs_main_path,
-casmvs_train_step, casmvs_cli, blended_cli, dist_step, train_cli_mesh,
-eval_queue) is run with every kernel's launch count set to 0 just before it
+casmvs_train_step, variants_main_path, variants_train_step, casmvs_cli,
+blended_cli, dist_step, train_cli_mesh, eval_queue) is run with every kernel's launch count set to 0 just before it
 and read just after, the counts of the processes it starts reported back by
 each (ops.cuda.launch_counts) and added; the kernel phase's cases must add
 up to those counts (so the f32 flash and conv kernels and the warps' scalar
@@ -156,6 +172,17 @@ TINY = dict(feat_chs=(4, 8, 16, 32), vit_ch=64, vit_depth=3, vit_num_heads=4, ou
                                      mlp_ratio=2, layer_num=2),),
             cost_reg_type=("PureTransformerCostReg", "Normal", "Normal", "Normal"))
 TINY_CASMVS = dict(feat_chs=(4, 8, 16, 32), ndepths=(8, 4, 4, 4), groups=(4, 4, 4, 4))
+# the variant flagship: the JAX package's variants that no shipped config
+# selects, over configs/mvsformerplusplus.json (the uncertainty head at the
+# CostRegNet3D stages, reg depth at stages 3-4, SwiGLU in the ViT decoder and
+# FMT), and its tiny fp32 twin for the reference phases
+VARIANT_OVERRIDES = {"arch;args;log_var": True,
+                     "arch;args;depth_type": ["ce", "ce", "reg", "reg"],
+                     "arch;args;dino_cfg;decoder_cfg;ffn_type": "glu",
+                     "arch;args;FMT_config;ffn_type": "glu"}
+TINY_VARIANT = dict(TINY, decoder_cfg=dict(TINY["decoder_cfg"], ffn_type="glu"),
+                    fmt_config=dict(TINY["fmt_config"], ffn_type="glu"),
+                    depth_type=("ce", "ce", "reg", "reg"), log_var=True)
 
 
 def emit(obj) -> None:
@@ -327,19 +354,25 @@ def cli_counts():
 def shape_configs():
     """(name, 'eval' or 'train', (B, H, W), batch seed, {path: runs of that
     shape per run of the path}, model family, source views a rank warps,
-    {path: runs}): the flagship's DTU eval forward, its train step at
+    {path: runs}, {path: runs}, parts of the hypotheses a rank warps): the
+    flagship's DTU eval forward (also the variant flagship's,
+    variants_main_path), its train step at
     512 x 640 (the train_step path and the CLI's 512 x 640 bucket), the
     CLI's 512 x 768 bucket and the CLI's validation forwards (B=1, 512 x
-    640, eval mode); CasMVSNet's DTU eval forward (casmvs_main_path and the
+    640, eval mode; its train step also the variant flagship's,
+    variants_train_step); CasMVSNet's DTU eval forward (casmvs_main_path and the
     casmvs_cli's eval maps), its train step at micro-batch 4 at 512 x 640 and
     512 x 768 and its validation forwards; the flagship's BlendedMVS
     validation forward at 1536 x 2048 and its fine-tune step at micro-batch
     4 at 512 x 640; the ranks' train steps at B=1 (dist_step's --mesh 2,1;
-    train_cli_mesh's ranks step at train_step's B=2) and the view-sharded rank's
-    step (dist_step's --mesh 1,2: B=2, 2 of the 4 source views). Only the
-    warps and the visibility nets see a view split: the other kernels of a
-    view-sharded rank run at its unsharded twin's shapes, whose last field
-    counts them. A config no path runs is left out."""
+    train_cli_mesh's ranks step at train_step's B=2), the view-sharded rank's
+    step (dist_step's --mesh 1,2: B=2, 2 of the 4 source views) and the
+    depth-sharded rank's (dist_step's --mesh 1,2 with shard_depth: B=2, half
+    the hypotheses of every stage). Only the warps and the visibility nets
+    see a view split, only the warps a depth split: the other kernels of a
+    split rank run at its unsharded twin's shapes, whose eighth field counts
+    them (the ninth, those of its visibility nets). A config no path runs is
+    left out."""
     steps, val_maps = cli_counts()
     cas = schedule_steps(CLI["samples"], CLI["scales"], CAS_CLI["batch"], CAS_CLI["epochs"])
     blended = schedule_steps(BLENDED["views"], BLENDED["scales"], BLENDED["batch"],
@@ -349,11 +382,13 @@ def shape_configs():
     queue_maps = 2 * EVAL_QUEUE["scans"] * EVAL_CLI["views"]  # the queue's run and one process's
     configs = [
         ("eval1152", "eval", (1, 1152, 1536), 0,
-         {"main_path": 1, "eval_cli": EVAL_CLI["views"], "eval_queue": queue_maps}, "flagship"),
+         {"main_path": 1, "eval_cli": EVAL_CLI["views"], "eval_queue": queue_maps,
+          "variants_main_path": 1}, "flagship"),
         ("train640", "train", (2, 512, 640), 1,
          {"train_step": 1, "train_cli": steps[(512, 640)],
           "dist_step": len(DIST_PROBES) + 1 + DIST["timed"],
-          "train_cli_mesh": 2 * mesh[(512, 640)]}, "flagship", 4, {"dist_step": rank_steps}),
+          "train_cli_mesh": 2 * mesh[(512, 640)], "variants_train_step": 1}, "flagship", 4,
+         {"dist_step": 2 * rank_steps}, {"dist_step": rank_steps}),
         ("train768", "train", (2, 512, 768), 1,
          {"train_cli": steps[(512, 768)], "train_cli_mesh": 2 * mesh[(512, 768)]}, "flagship"),
         ("eval640", "eval", (1, 512, 640), 1,
@@ -372,8 +407,10 @@ def shape_configs():
          {"blended_cli": blended[BLENDED["scales"][0]]}, "flagship"),
         ("rank640", "train", (1, 512, 640), 1, {"dist_step": rank_steps}, "flagship"),
         ("shard640", "train", (2, 512, 640), 1, {"dist_step": rank_steps}, "flagship", 2),
+        ("depth640", "train", (2, 512, 640), 1, {"dist_step": rank_steps}, "flagship", 4, {}, {},
+         2),
     ]
-    configs = [c + (4, {})[len(c) - 6:] for c in configs]
+    configs = [c + (4, {}, {}, 1)[len(c) - 6:] for c in configs]
     return [c for c in configs if any(c[4].values())]
 
 
@@ -402,11 +439,12 @@ def make_train_batch(b=2, v=5, h=512, w=640, dfull=192, seed=1):
             "mask": {k: (rng.rand(*g.shape) > 0.2).astype(np.float32) for k, g in gt.items()}}
 
 
-def stage_coords(cams, dv, stage, nd, hh, ww, views=4):
+def stage_coords(cams, dv, stage, nd, hh, ww, views=4, parts=1):
     """Warp coordinates of one stage with the first `views` source views
     (all 4, or cv rank 0's under view sharding) folded into the batch,
-    view-major, as StageNet.build_volume folds them: [views*B, D, hh, ww,
-    2], on the inverse-depth init range."""
+    view-major, as StageNet.build_volume folds them, at the first nd / parts
+    of the nd hypotheses of the inverse-depth init range (all, or cv rank
+    0's under depth sharding): [views*B, nd / parts, hh, ww, 2]."""
     from mvsformerplusplus_tpu_torch.ops.geometry import compose_projection, plane_sweep_coords
     from mvsformerplusplus_tpu_torch.ops.sampling import init_inverse_range
 
@@ -414,7 +452,7 @@ def stage_coords(cams, dv, stage, nd, hh, ww, views=4):
     b = projs.shape[0]
     src = projs[:, 1:1 + views].transpose(0, 1).reshape(views * b, 4, 4)
     ref = projs[:, 0].repeat(views, 1, 1)
-    hypo = init_inverse_range(dv, nd, hh, ww).repeat(views, 1, 1, 1)
+    hypo = init_inverse_range(dv, nd, hh, ww)[:, :nd // parts].repeat(views, 1, 1, 1)
     return plane_sweep_coords(src, ref, hypo, hh, ww)[0]
 
 
@@ -423,14 +461,18 @@ def _stage_shapes(h, w):
             for i, (nd, c) in enumerate(zip(TRAIN_NDEPTHS, TRAIN_STAGE_C))]
 
 
-def warp_tpu_rows(stage, nd, c, ww):
+def warp_tpu_rows(stage, nd, c, ww, sharded=False):
     """The TPU kernel rows (PERF.md's table) the JAX package's StageNet plan
     (models/stagenet.py resolve_warp_plan) gives this stage's warp: under
     the default 'auto' mode (banded on a TPU: rows 1 and, with
     banded_fused=False, 5 where W is a 128-multiple >= 384, else row 4, for
     C up to 32 / 16; wider C falls back to XLA's gather) and under warp_mode
     'pallas' (rows 10, and 12 where it folds the depth axis: the stages of 8
-    re-centered depths; C up to 16, W a 128-multiple)."""
+    re-centered depths; C up to 16, W a 128-multiple). Under view or depth
+    sharding the plan demotes the banded warp to 'pallas' and folds no
+    depth: row 10 where C <= 16 and W is a 128-multiple, else XLA."""
+    if sharded:
+        return (10,) if c <= 16 and ww % 128 == 0 else ()
     blocked = ww % 128 == 0 and ww >= 384
     rows = []
     if c <= (32 if blocked else 16):
@@ -446,14 +488,14 @@ def warp_cases():
     the 512 x 768 crop's stage 3 the depth-folded blend's (row 12); then
     fusion's samples (fusion_warp_cases)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for name, _, bhw, seed, runs, _, views, _ in shape_configs():
+    for name, _, bhw, seed, runs, _, views, _, _, parts in shape_configs():
         imgs, cams, dv = _config_batch(bhw, seed)
         nsrc = views * imgs.shape[0]
         for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
-            coords = stage_coords(cams, dv, stage, nd, hh, ww, views)
+            coords = stage_coords(cams, dv, stage, nd, hh, ww, views, parts)
             src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
             yield (f"{name}_stage{stage}", _times(runs, 1), (src, coords),
-                   warp_tpu_rows(stage, nd, c, ww))
+                   warp_tpu_rows(stage, nd, c, ww, views < 4 or parts > 1))
     yield from fusion_warp_cases()
 
 
@@ -525,17 +567,22 @@ def warp_bwd_cases():
     cotangent of the warped volume [8, D, H, W, C]. The TPU computes it with
     the banded transposes (rows 6 and 7) at every stage; row 11, the
     y-grouped blend's VJP, is its transpose where the pallas mode ran rows
-    10 and 12, and no model path reaches it."""
+    10 and 12, and no model path reaches it. Under view or depth sharding
+    the JAX plan turns the banded backward off: row 11 where the pallas
+    mode runs, else XLA's scatter."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for name, kind, bhw, seed, runs, _, views, _ in shape_configs():
+    for name, kind, bhw, seed, runs, _, views, _, _, parts in shape_configs():
         if kind != "train":
             continue
         imgs, cams, dv = _config_batch(bhw, seed)
         nsrc = views * imgs.shape[0]
         for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
-            coords = stage_coords(cams, dv, stage, nd, hh, ww, views)
-            g = torch.randn(nsrc, nd, hh, ww, c, generator=gen, device="cuda")
-            rows = (7,) if ww % 128 == 0 and ww >= 384 else (6,)
+            coords = stage_coords(cams, dv, stage, nd, hh, ww, views, parts)
+            g = torch.randn(nsrc, nd // parts, hh, ww, c, generator=gen, device="cuda")
+            if views < 4 or parts > 1:
+                rows = ()
+            else:
+                rows = (7,) if ww % 128 == 0 and ww >= 384 else (6,)
             if c <= 16 and ww % 128 == 0:
                 rows += (11,)  # the transpose of the pallas mode's blend there
             yield f"{name}_stage{stage}", _times(runs, 1), (g, coords, (nsrc, hh, ww, c)), rows
@@ -579,8 +626,8 @@ def flash_cases():
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for name, kind, (b, h, w), _, runs, model, views, shared in shape_configs():
-        if model != "flagship" or views != 4:
+    for name, kind, (b, h, w), _, runs, model, views, shared, _, parts in shape_configs():
+        if model != "flagship" or views != 4 or parts > 1:
             continue
         runs = _plus(runs, shared)
         v = TRAIN["v"]  # every config has 5 views
@@ -645,8 +692,8 @@ def flash_bwd_cases():
                                                                       flash_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for name, kind, (b, h, w), _, runs, model, views, shared in shape_configs():
-        if kind != "train" or model != "flagship" or views != 4:
+    for name, kind, (b, h, w), _, runs, model, views, shared, _, parts in shape_configs():
+        if kind != "train" or model != "flagship" or views != 4 or parts > 1:
             continue
         runs = _plus(runs, shared)
         n = _tokens(h, w)[1]
@@ -701,12 +748,16 @@ CONV_SHAPES = ([("encoder_7x7_3to8", 1, (5, 1, 3, 8, 7)), ("encoder_5x5_8to8", 1
                + [(f"fmt_smooth_{c}", 5, (1, c // 8, c, c, 3)) for c in (32, 16, 8)])
 
 
-def _conv_runs(conv, runs, views, shared):
+def _conv_runs(conv, runs, views, parts, shared, shared_vis):
     """A conv case's runs: a visibility net's follow the config's view
     split; the others run at a view-sharded config's shape only as its
-    unsharded twin's (`shared` there), and not at its own."""
+    unsharded twin's (`shared` there), and not at its own; a depth-sharded
+    config's convs all run at its twin's (`shared`, and `shared_vis` for its
+    visibility nets)."""
+    if parts > 1:
+        return None
     if conv.startswith("visibility"):
-        return runs
+        return _plus(runs, shared_vis)
     return _plus(runs, shared) if views == 4 else None
 
 
@@ -728,9 +779,9 @@ CONV_DX_SHAPES = [sh for sh in CONV_SHAPES
 
 def conv_cases():
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for name, _, (b, h, w), _, runs, model, views, shared in shape_configs():
+    for name, _, (b, h, w), _, runs, model, views, shared, shared_vis, parts in shape_configs():
         for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b, model, views):
-            conv_runs = _conv_runs(conv, runs, views, shared)
+            conv_runs = _conv_runs(conv, runs, views, parts, shared, shared_vis)
             if conv_runs is None:
                 continue
             x = torch.randn(bb, h // div, w // div, ci, generator=gen,
@@ -748,14 +799,25 @@ TINY_CONV = [(3, 128, 256, 3, 7, 4), (3, 128, 256, 4, 5, 4), (3, 64, 128, 32, 3,
              (2, 128, 256, 16, 3, 16), (2, 128, 256, 16, 3, 8)]
 
 
+# the stride-1 convs of variants_reference_modules' FPNEncoder(norm="IN") at
+# the flagship's widths (8, 16, 32, 64), fp32, on its 2 x 128 x 160 images
+IN_FPN = dict(b=2, h=128, w=160, feat_chs=(8, 16, 32, 64))
+IN_FPN_CONV = [(2, 128, 160, 3, 7, 8), (2, 128, 160, 8, 5, 8), (2, 64, 80, 16, 3, 16),
+               (2, 32, 40, 32, 3, 32), (2, 16, 20, 64, 3, 64)]
+
+
 def conv_f32_cases():
-    """The SIMT kernel at the tiny flagship's conv shapes; no path runs it
-    (the fp32 model of the reference phases does)."""
+    """The SIMT kernel at the tiny flagship's conv shapes and at the IN
+    FPN's; no path runs it (the fp32 models of the reference phases do)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
-    for b, h, w, ci, k, co in TINY_CONV:
+    for model, (b, h, w, ci, k, co) in _f32_convs():
         x = torch.randn(b, h, w, ci, generator=gen, device="cuda")
         kern = torch.randn(k, k, ci, co, generator=gen, device="cuda") * (k * k * ci) ** -0.5
-        yield f"tiny_{k}x{k}_{ci}to{co}_{h}x{w}", {}, (x, kern), (3,)
+        yield f"{model}_{k}x{k}_{ci}to{co}_{h}x{w}", {}, (x, kern), (3,)
+
+
+def _f32_convs():
+    return [("tiny", c) for c in TINY_CONV] + [("in_fpn", c) for c in IN_FPN_CONV]
 
 
 def conv_fault(kernel, x, kern):
@@ -769,11 +831,11 @@ def conv_dx_cases():
     """dx = the conv kernel on the cotangent [B, H, W, Co] with the weights
     flipped and ci/co swapped, at each train conv whose input needs it."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for name, kind, (b, h, w), _, runs, model, views, shared in shape_configs():
+    for name, kind, (b, h, w), _, runs, model, views, shared, shared_vis, parts in shape_configs():
         if kind != "train":
             continue
         for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b, model, views):
-            conv_runs = _conv_runs(conv, runs, views, shared)
+            conv_runs = _conv_runs(conv, runs, views, parts, shared, shared_vis)
             if conv_runs is None:
                 continue
             g = torch.randn(bb, h // div, w // div, co, generator=gen,
@@ -785,15 +847,15 @@ def conv_dx_cases():
 
 def conv_dx_f32_cases():
     """The SIMT kernel's dx at the tiny flagship's convs whose input needs a
-    gradient (not the 7x7 on the images, not a visibility net's first conv);
-    no path runs it."""
+    gradient (not the 7x7 on the images, not a visibility net's first conv),
+    and at the IN FPN's; no path runs it."""
     gen = torch.Generator(device="cuda").manual_seed(12)
-    for b, h, w, ci, k, co in TINY_CONV:
+    for model, (b, h, w, ci, k, co) in _f32_convs():
         if k == 7 or ci == 1:
             continue
         g = torch.randn(b, h, w, co, generator=gen, device="cuda")
         kern = torch.randn(k, k, ci, co, generator=gen, device="cuda") * (k * k * co) ** -0.5
-        yield f"tiny_{k}x{k}_{ci}to{co}_{h}x{w}", {}, (g, kern), (9,)
+        yield f"{model}_{k}x{k}_{ci}to{co}_{h}x{w}", {}, (g, kern), (9,)
 
 
 def conv_simt(kernel, x, kern):
@@ -1179,16 +1241,24 @@ def tpu_row_summary(rows) -> dict:
 # ------------------------------------------------------------------- model runs
 
 def tiny_model(device, train=False, family="flagship"):
-    """The small flagship (or CasMVSNet) in fp32 with seeded weights, its
-    regularizers checkpointed as on the train path."""
+    """The small flagship (or CasMVSNet, or the variant flagship) in fp32
+    with seeded weights, its regularizers checkpointed as on the train path;
+    the variant's uncertainty heads tempered (testing.temper_log_var_heads)."""
     from mvsformerplusplus_tpu_torch.config import init_weights
     from mvsformerplusplus_tpu_torch.models.casmvs import CasMVSNet
     from mvsformerplusplus_tpu_torch.models.mvsformer import DINOv2MVSNet
+    from mvsformerplusplus_tpu_torch.testing import temper_log_var_heads
 
-    cls, kwargs = (DINOv2MVSNet, TINY) if family == "flagship" else (CasMVSNet, TINY_CASMVS)
+    cls, kwargs = {"flagship": (DINOv2MVSNet, TINY), "casmvs": (CasMVSNet, TINY_CASMVS),
+                   "variants": (DINOv2MVSNet, TINY_VARIANT)}[family]
     model = cls(**kwargs, remat_granularity="cost_reg", dtype=torch.float32)
     init_weights(model, torch.Generator().manual_seed(0))
+    temper_log_var_heads(model)
     return model.to(device).train(train)
+
+
+def tiny_depth_types(family):
+    return TINY_VARIANT["depth_type"] if family == "variants" else ("ce",) * 4
 
 
 def run_reference_phase(family="flagship"):
@@ -1205,19 +1275,25 @@ def run_reference_phase(family="flagship"):
                                                             "photometric_confidence")}
         outs[device]["prob4"] = out["stage4"]["prob_volume"].float().cpu()
         outs[device]["dv4"] = out["stage4"]["depth_values"].float().cpu()
+        outs[device]["log_var"] = [out[f"stage{i}"]["log_var"].float().cpu()
+                                   for i in range(1, 5) if "log_var" in out[f"stage{i}"]]
     cpu, gpu = outs["cpu"], outs["cuda"]
     mask = torch.from_numpy(well_conditioned(cpu["dv4"], float(batch[2].max())))
     depth_rel = ((gpu["refined_depth"] - cpu["refined_depth"]).abs()
                  / cpu["refined_depth"].abs())[mask].max().item()
     conf_err = (gpu["photometric_confidence"] - cpu["photometric_confidence"]).abs().max().item()
     prob_err = (gpu["prob4"] - cpu["prob4"]).abs().max().item()
+    lv_err = max([(g - c).abs().max().item() for g, c in zip(gpu["log_var"], cpu["log_var"])],
+                 default=0.0)
+    lv_stages = len(cpu["log_var"]) == len(gpu["log_var"]) == (3 if family == "variants" else 0)
     row = {"phase": PHASE_PREFIX[family] + "reference",
            "pixels_compared": float(mask.float().mean()),
            "depth_max_rel_err": depth_rel, "depth_rtol": 1e-3, "conf_max_abs_err": conf_err,
-           "prob_max_abs_err": prob_err, "atol": 1e-3}
+           "prob_max_abs_err": prob_err, "log_var_max_abs_err": lv_err,
+           "log_var_stages": len(cpu["log_var"]), "atol": 1e-3}
     emit(row)
     if not (mask.float().mean() > 0.5 and depth_rel <= 1e-3 and conf_err <= 1e-3
-            and prob_err <= 1e-3):
+            and prob_err <= 1e-3 and lv_err <= 1e-3 and lv_stages):
         raise SystemExit("the port on the card disagrees with its plain CPU path")
 
 
@@ -1254,7 +1330,7 @@ def run_reference_train_phase(family="flagship"):
         model.load_state_dict(before)
         opt, sched = make_optimizer(model, lr=1e-3, warmup_steps=0, total_steps=10)
         lr, eps = opt.param_groups[0]["lr"], opt.defaults["eps"]
-        logs = train_step(model, opt, sched, batch)
+        logs = train_step(model, opt, sched, batch, depth_types=tiny_depth_types(family))
         runs[run] = dict(
             depths=depths, logs={k: float(v) for k, v in logs.items()
                                  if k == "loss" or k.startswith("stage")},
@@ -1288,13 +1364,16 @@ def run_reference_train_phase(family="flagship"):
         step = gpu["state"][n] - gpu["before"][n]
         update_err = max(update_err, (step + lr * gg / (gg.abs() + eps)).abs().max().item())
     same_keys = set(cpu["grads"]) == set(gpu["grads"])
+    uncertainty = {f"stage{i}_uncertainty" for i in (3, 4)} if family == "variants" else set()
+    same_keys = same_keys and uncertainty <= set(cpu["logs"]) and set(cpu["logs"]) == set(
+        gpu["logs"])
     row = {"phase": PHASE_PREFIX[family] + "reference_train", "stage_depths_equal": depths_same,
            "loss_max_rel_err": loss_rel, "loss_rtol": 1e-4, "grad_err_over_tol": grad_rows[-1][0],
            "largest_grad": gmax, "worst_grads": grad_rows[-5:],
            "tensors_at_ulp_tolerance": sensitive, "bn_stats_err_over_tol": stat_ratio,
            "params_firm_max_abs_err": firm_err, "params_update_max_abs_err": update_err,
            "params_atol": 1e-6, "params_with_grad": len(cpu["grads"]),
-           "same_params_with_grad": same_keys, "losses_cpu": cpu["logs"],
+           "same_params_and_losses": same_keys, "losses_cpu": cpu["logs"],
            "losses_cuda": gpu["logs"]}
     emit(row)
     if not (all(depths_same.values()) and same_keys and loss_rel <= 1e-4
@@ -1303,27 +1382,81 @@ def run_reference_train_phase(family="flagship"):
         raise SystemExit("the port's train step on the card disagrees with its plain CPU path")
 
 
+def run_variant_modules_phase():
+    """FPNEncoder(norm="IN") at the flagship's widths (IN_FPN: the conv
+    kernel's fp32 SIMT variant) and a CostRegNet2D (torch's 3D convs) in
+    train mode, fp32, on the card against the CPU: the outputs, and the
+    gradients of every parameter and of the volume under a seeded random
+    cotangent, each within 1e-3 of its tensor's largest entry + 1e-6 (the
+    CPU's); the CostRegNet2D's running statistics at rtol 1e-4 / atol 2e-5."""
+    from mvsformerplusplus_tpu_torch.config import init_weights
+    from mvsformerplusplus_tpu_torch.models.cost_reg import CostRegNet2D
+    from mvsformerplusplus_tpu_torch.models.layers import FPNEncoder
+
+    rng = np.random.RandomState(3)
+    cases = {"fpn_in": (lambda: FPNEncoder(IN_FPN["feat_chs"], norm="IN"),
+                        rng.rand(IN_FPN["b"], IN_FPN["h"], IN_FPN["w"], 3), False),
+             "cost_reg_2d": (lambda: CostRegNet2D(8), rng.randn(2, 8, 32, 40, 8), True)}
+    row, ok = {"phase": "variants_reference_modules"}, True
+    for name, (make, x, x_grad) in cases.items():
+        runs = {}
+        for device in ("cpu", "cuda"):
+            model = make()
+            init_weights(model, torch.Generator().manual_seed(4))
+            model.to(device).train()
+            xin = torch.from_numpy(x.astype(np.float32)).to(device).requires_grad_(x_grad)
+            outs = model(xin)
+            outs = list(outs) if isinstance(outs, tuple) else [outs]
+            gen = torch.Generator().manual_seed(5)
+            cots = [torch.randn(o.shape, generator=gen).to(device) for o in outs]
+            sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+            grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            if x_grad:
+                grads["input"] = xin.grad.cpu()
+            runs[device] = ([o.detach().cpu() for o in outs], grads,
+                            {k: v.cpu() for k, v in model.state_dict().items()
+                             if k.endswith(("running_mean", "running_var"))})
+        (co, cg, cs), (go, gg, gs) = runs["cpu"], runs["cuda"]
+        out_ratio = max(((g - c).abs().max() / (1e-4 * c.abs().max() + 1e-6)).item()
+                        for g, c in zip(go, co))
+        grad_ratio = max(((gg[n] - g).abs().max() / (1e-3 * g.abs().max() + 1e-6)).item()
+                         for n, g in cg.items())
+        stat_ratio = max([((gs[k] - v).abs() / (2e-5 + 1e-4 * v.abs())).max().item()
+                          for k, v in cs.items()], default=0.0)
+        row[name] = {"out_err_over_tol": out_ratio, "grad_err_over_tol": grad_ratio,
+                     "bn_stats_err_over_tol": stat_ratio, "grads": len(cg),
+                     "outputs": [list(o.shape) for o in co]}
+        ok = ok and out_ratio <= 1 and grad_ratio <= 1 and stat_ratio <= 1 and len(cg) > 10
+    emit(row)
+    if not ok:
+        raise SystemExit("variants_reference_modules: the card disagrees with the CPU")
+
+
 # each model family: its phases' prefix, config, layers timed by profile,
 # and the kernels its forward and its train step launch (by counter, and by
 # the name of the kernel in a trace); CasMVSNet launches no flash kernel
-PHASE_PREFIX = {"flagship": "", "casmvs": "casmvs_"}
+PHASE_PREFIX = {"flagship": "", "casmvs": "casmvs_", "variants": "variants_"}
 FLASH = ("flash_attention_fwd", "flash_attention_bwd")
 FLASH_NAMES = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel")
 
 
 def family_spec(family):
-    if family == "flagship":
+    """The variant flagship is the flagship's config with VARIANT_OVERRIDES;
+    its paths are not profiled, and its log_var maps are checked."""
+    if family in ("flagship", "variants"):
         return dict(config=CONFIG, train=TRAIN, layers=LAYERS,
                     forward=("warp_bilinear", "flash_attention_fwd", "conv2d_same"),
                     forward_names=("flash_fwd_mma_kernel", "conv2d_mma_kernel",
                                    "warp_bilinear_vec_kernel"),
                     train_names=("flash_bwd_mma_kernel", "warp_bilinear_bwd_vec_kernel"),
-                    absent=(), absent_names=())
+                    absent=(), absent_names=(),
+                    overrides=VARIANT_OVERRIDES if family == "variants" else None,
+                    profile=family == "flagship")
     return dict(config=CASMVS_CONFIG, train=CAS_TRAIN, layers=CASMVS_LAYERS,
                 forward=("warp_bilinear", "conv2d_same"),
                 forward_names=("conv2d_mma_kernel", "warp_bilinear_vec_kernel"),
                 train_names=("warp_bilinear_bwd_vec_kernel",), absent=FLASH,
-                absent_names=FLASH_NAMES)
+                absent_names=FLASH_NAMES, overrides=None, profile=True)
 
 
 def path_kernels_launched(launches, spec) -> bool:
@@ -1346,7 +1479,7 @@ def run_main_path(counters, family="flagship", iters=3):
 
     spec = family_spec(family)
     # the device defaults to cuda and the dtype to bf16, as the eval CLI builds it
-    model = build_model(load_config(spec["config"]))
+    model = build_model(load_config(spec["config"], spec["overrides"]))
     imgs, cams, dv = to_device(make_dtu_eval_batch(), "cuda")
     zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
@@ -1371,6 +1504,12 @@ def run_main_path(counters, family="flagship", iters=3):
             "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
             "absent_kernels_not_launched": none_launched(launches, spec["absent"]),
         }
+        if spec["overrides"]:  # the uncertainty head at the CostRegNet3D stages 3-4 only
+            checks["log_var_finite_at_stages_3_4"] = all(
+                list(out[f"stage{i}"]["log_var"].shape) == list(out[f"stage{i}"]["depth"].shape)
+                and bool(torch.isfinite(out[f"stage{i}"]["log_var"]).all()) for i in (3, 4))
+            checks["no_log_var_at_stages_1_2"] = all("log_var" not in out[f"stage{i}"]
+                                                     for i in (1, 2))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         del out
         t0 = time.perf_counter()
@@ -1385,7 +1524,8 @@ def run_main_path(counters, family="flagship", iters=3):
     emit(row)
     if not all(checks.values()):
         raise SystemExit(f"{row['phase']} checks failed: {checks}")
-    emit(profile_forward(model, (imgs, cams, dv), family))
+    if spec["profile"]:
+        emit(profile_forward(model, (imgs, cams, dv), family))
     return launches
 
 
@@ -1427,7 +1567,7 @@ def run_train_step(counters, family="flagship", iters=6):
 
     spec = family_spec(family)
     dims = spec["train"]
-    cfg = load_config(spec["config"])
+    cfg = load_config(spec["config"], spec["overrides"])
     model = build_model(cfg, dtype=torch.bfloat16, train=True)
     remat = (model.cascade.stage1.remat_cost_reg, model.cascade.remat_whole_stage)
     opt, sched = make_optimizer(model, lr=1e-3, vit_lr=3e-5, weight_decay=0.01, min_lr_frac=0.01,
@@ -1442,7 +1582,8 @@ def run_train_step(counters, family="flagship", iters=6):
 
     loader = SeededLoader(steps=1 + iters, mark=mark, dims=dims)
     trainer = Trainer(model, loader, opt, sched, logging_every=1 + iters,
-                      loss_kwargs=dict(clip_func=cfg["arch"]["loss"]["clip_func"]))
+                      loss_kwargs=dict(clip_func=cfg["arch"]["loss"]["clip_func"],
+                                       depth_types=tuple(cfg.get_path("arch.args.depth_type"))))
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats0 = {k: v.clone() for k, v in model.state_dict().items()
               if k.endswith(("running_mean", "running_var"))}
@@ -1476,6 +1617,17 @@ def run_train_step(counters, family="flagship", iters=6):
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         "absent_kernels_not_launched": none_launched(launches, spec["absent"]),
     }
+    if spec["overrides"]:
+        heads = {f"cascade.stage{i}.cost_reg.{reg.final_name()}.weight" for i, reg in (
+            (i, getattr(model.cascade, f"stage{i}").cost_reg) for i in (3, 4))}
+        swiglu = {n for n in trainable if ".mlp.Dense_" in n}
+        checks["uncertainty_terms_logged_finite"] = len(logs) == 1 and all(
+            np.isfinite(logs[0].get(f"stage{i}_uncertainty", np.nan)) for i in (3, 4))
+        checks["log_var_heads_two_channels_moved"] = all(
+            model.get_parameter(n).shape[0] == 2 for n in heads) and heads <= moved
+        checks["swiglu_in_vit_decoder_and_fmt_moved"] = (
+            any(n.startswith("decoder_vit.") for n in swiglu)
+            and any(n.startswith("fmt.") for n in swiglu) and swiglu <= moved)
     row = {"phase": PHASE_PREFIX[family] + "train_step",
            "config": str(spec["config"].relative_to(REPO)),
            "shape": [dims["b"], dims["v"], dims["h"], dims["w"], 3],
@@ -1491,7 +1643,8 @@ def run_train_step(counters, family="flagship", iters=6):
     emit(row)
     if not all(checks.values()):
         raise SystemExit(f"{row['phase']} checks failed: {checks}")
-    emit(profile_train(model, opt, sched, loader.batch, family))
+    if spec["profile"]:
+        emit(profile_train(model, opt, sched, loader.batch, family))
     return launches
 
 
@@ -2296,10 +2449,13 @@ def run_dist_step(counters):
     train_step phase's global batch: B=2, 5 views, 512 x 640, 192 depths) on
     one rank in this process, and its sensitivity probes (DIST_PROBES); then,
     from the same seeded weights and optimizer, through
-    parallel.dist.launch (testing.train_step_rank) three ways, each compared
+    parallel.dist.launch (testing.train_step_rank) four ways, each compared
     with the one-rank step (compare_steps): two gloo ranks on the card at
     --mesh 2,1 (one sample each), two gloo ranks at --mesh 1,2 (shard_views:
-    two source views each), and the NCCL path at world 1. Each way runs
+    two source views each), two gloo ranks at --mesh 1,2 with shard_depth
+    (half the hypotheses of every stage each: the entropy's softmax over D
+    across the ranks and the volume's slices gathered through gloo's host
+    path before the regularizers), and the NCCL path at world 1. Each way runs
     DIST["timed"] more steps for its ms per step and peak memory per rank;
     the children report their kernel launches."""
     import functools
@@ -2331,21 +2487,22 @@ def run_dist_step(counters):
     release()
     rows, children = {}, []
 
-    def make(mesh):
+    def make(mesh, split):
         return functools.partial(build_model, cfg, torch.bfloat16, "cpu", 0, True,
-                                 shard_views=mesh[1] > 1)
+                                 **({f"shard_{split}": True} if split else {}))
 
-    for ways, ranks in (((("gloo_2x1", (2, 1)), ("gloo_1x2", (1, 2))), 2),
-                        ((("nccl_1x1", (1, 1)),), 1)):
+    for ways, ranks in (((("gloo_2x1", (2, 1), None), ("gloo_1x2", (1, 2), "views"),
+                          ("gloo_1x2_depth", (1, 2), "depth")), 2),
+                        ((("nccl_1x1", (1, 1), None),), 1)):
         backend = backend_for("cuda", ranks)  # two ranks on the one card: gloo
         t0 = time.perf_counter()
         got = launch(dist_ways_rank, ranks,
-                     ([(make(mesh), mesh) for _, mesh in ways], batch, DIST_OPT, loss_kwargs,
-                      DIST["timed"]), device="cuda")
+                     ([(make(mesh, split), mesh) for _, mesh, split in ways], batch, DIST_OPT,
+                      loss_kwargs, DIST["timed"]), device="cuda")
         children += [r[-1] for r in got]
-        for i, (way, mesh) in enumerate(ways):
+        for i, (way, mesh, split) in enumerate(ways):
             way_ranks = [r[i] for r in got]
-            rows[way] = {"ranks": ranks, "mesh": list(mesh), "backend": backend,
+            rows[way] = {"ranks": ranks, "mesh": list(mesh), "split": split, "backend": backend,
                          "ms_per_step": [r["ms_per_step"] for r in way_ranks],
                          "peak_mem_gb": [r["peak_mem_gb"] for r in way_ranks],
                          "logs": way_ranks[0]["logs"], "launch_s": time.perf_counter() - t0,
@@ -2626,9 +2783,10 @@ def main() -> int:
     counters = launch_counters()
     results = run_kernel_phase(counters)
     assert set(counters) == set(results)
-    for family in ("flagship", "casmvs"):
+    for family in ("flagship", "casmvs", "variants"):
         run_reference_phase(family)
         run_reference_train_phase(family)
+    run_variant_modules_phase()
     by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
@@ -2638,6 +2796,8 @@ def main() -> int:
                           ("eval_cli", lambda: run_eval_cli(counters, work)),
                           ("casmvs_main_path", lambda: run_main_path(counters, "casmvs")),
                           ("casmvs_train_step", lambda: run_train_step(counters, "casmvs")),
+                          ("variants_main_path", lambda: run_main_path(counters, "variants")),
+                          ("variants_train_step", lambda: run_train_step(counters, "variants")),
                           ("casmvs_cli", lambda: run_casmvs_cli(counters, work)),
                           ("blended_cli", lambda: run_blended_cli(counters, work)),
                           ("dist_step", lambda: run_dist_step(counters)),

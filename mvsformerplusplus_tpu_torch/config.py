@@ -139,8 +139,11 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
     passes, anything else raises ValueError. The port serves every mode with
     its exact warp (`ops/cuda/warp.py`), which equals each windowed JAX mode
     wherever no sample escapes its window (README, "Warp-window safety").
-    `log_var` (the CostRegNet3D uncertainty head) is not ported: a true
-    value, bare or in a per-stage list, raises NotImplementedError.
+    `arch.args.log_var` (bare, or a per-stage list) gives stages the
+    CostRegNet3D uncertainty head (models/cascade.py). As the JAX
+    build_model(**extra) takes them, `shard_views=True` or
+    `shard_depth=True` (not both: that raises) splits each StageNet's source
+    views or hypotheses over the cv ranks of parallel.dist.Layout.attach.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -150,10 +153,6 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
     model_type = args.get("model_type", "DINOv2-base")
     if "DINOv2" not in model_type and model_type != "casmvs":
         raise ValueError(f"unknown model_type {model_type}")
-    log_var = args.get("log_var", False)
-    if any(log_var if isinstance(log_var, (list, tuple)) else [log_var]):
-        raise NotImplementedError("arch.args.log_var: the CostRegNet3D uncertainty head is "
-                                  "not ported yet")
     ndepths = _to_tuple(args.get("ndepths", (32, 16, 8, 4)))
     _check_warp_keys(args, len(ndepths))
     common = dict(
@@ -165,6 +164,7 @@ def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda", seed: int = 0,
         groups=_to_tuple(args["base_ch"] if isinstance(args.get("base_ch"), list)
                          else [args.get("base_ch", 8)] * 4),
         cost_reg_type=_to_tuple(args.get("cost_reg_type", ("Normal",) * 4)),
+        log_var=_to_tuple(args.get("log_var", False)),
         transformer_config=tuple(args.get("transformer_config", [])) or None,
         use_pe3d=args.get("use_pe3d", False),
         remat_granularity=args.get("remat_granularity", "cost_reg"),

@@ -79,6 +79,22 @@ class Mlp(nn.Module):
         return self.Dense_1(F.gelu(self.Dense_0(x)))
 
 
+class SwiGLU(nn.Module):
+    """SwiGLU FFN: Dense to 2h, split, silu(x1) * x2, Dense back, with the
+    hidden width h = 2/3 of `hidden` rounded up to a multiple of 8."""
+
+    def __init__(self, dim: int, hidden: int, out: Optional[int] = None, bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        h = (int(hidden * 2 / 3) + 7) // 8 * 8
+        self.Dense_0 = Dense(dim, 2 * h, bias, dtype)
+        self.Dense_1 = Dense(h, out or dim, bias, dtype)
+
+    def forward(self, x: Tensor) -> Tensor:
+        x1, x2 = self.Dense_0(x).chunk(2, dim=-1)
+        return self.Dense_1(F.silu(x1) * x2)
+
+
 class LayerScale(nn.Module):
     """Per-channel residual scale, applied in fp32."""
 
@@ -93,7 +109,8 @@ class LayerScale(nn.Module):
 
 class CrossBlock(nn.Module):
     """Pre/post-norm transformer block with optional cross-attention;
-    pre_norm_query=False also norms key/value with norm1."""
+    pre_norm_query=False also norms key/value with norm1. `ffn_type` "ffn"
+    is the GELU Mlp, any other value SwiGLU, as in the JAX CrossBlock."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  variant: str = "softmax", qkv_bias: bool = False, ffn_type: str = "ffn",
@@ -101,14 +118,13 @@ class CrossBlock(nn.Module):
                  train_avg_length: Optional[int] = None, post_norm: bool = False,
                  pre_norm_query: bool = True, dtype=torch.float32):
         super().__init__()
-        if ffn_type != "ffn":
-            raise NotImplementedError(f"ffn_type {ffn_type!r} is not ported")
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = MultiHeadAttention(dim, num_heads, variant, qkv_bias,
                                        softmax_scale=softmax_scale,
                                        train_avg_length=train_avg_length, dtype=dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        ffn = Mlp if ffn_type == "ffn" else SwiGLU
+        self.mlp = ffn(dim, int(dim * mlp_ratio), dtype=dtype)
         self.has_ls = init_values is not None
         if self.has_ls:
             self.ls1 = LayerScale(dim, init_values, dtype)

@@ -5,10 +5,13 @@ averaging across stages. The previous stage's depth reaches the next stage's
 hypotheses without a gradient. With `remat_stages`, granularity "stage"
 checkpoints whole StageNets (the warp is replayed in the backward) and
 "cost_reg" only their regularizers (the warp's volume is kept). With
-`shard_views` every StageNet splits its source views over the cv ranks."""
+`shard_views` every StageNet splits its source views over the cv ranks, with
+`shard_depth` its hypotheses. `log_var` gives stages the uncertainty head:
+a bare true every stage whose regularizer is a CostRegNet3D (a 'Normal'
+stage of at most 8 depths), a per-stage list exactly the stages it names."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -31,7 +34,8 @@ class CascadeDepth(nn.Module):
                  groups: Sequence[int] = (8, 8, 8, 8), use_pe3d: bool = True,
                  transformer_config: Optional[Sequence[dict]] = None,
                  remat_stages: bool = True, remat_granularity: str = "cost_reg",
-                 shard_views: bool = False, dtype=torch.float32):
+                 shard_views: bool = False, shard_depth: bool = False,
+                 log_var: Union[bool, Sequence[bool]] = False, dtype=torch.float32):
         super().__init__()
         self.remat_stages = remat_stages
         self.ndepths = tuple(ndepths)
@@ -43,9 +47,13 @@ class CascadeDepth(nn.Module):
             tc = None
             if cost_reg_type[i] == "PureTransformerCostReg" and transformer_config:
                 tc = transformer_config[min(i, len(transformer_config) - 1)]
+            if isinstance(log_var, (list, tuple)):
+                lv = bool(log_var[i])
+            else:
+                lv = bool(log_var) and cost_reg_type[i] != "PureTransformerCostReg" and nd <= 8
             self.add_module(f"stage{i + 1}", StageNet(
                 nd, groups[i], cost_reg_type[i], depth_type[i], tc, shard_views=shard_views,
-                dtype=dtype))
+                shard_depth=shard_depth, log_var=lv, dtype=dtype))
         self.set_remat_granularity(remat_granularity)
 
     def set_remat_granularity(self, granularity: str) -> None:

@@ -7,7 +7,7 @@ stage. The class keeps the JAX class's defaults (whole-stage remat, fp32);
 dtype, as the JAX build_model does."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -27,13 +27,15 @@ class CasMVSNet(nn.Module):
                  cost_reg_type: Sequence[str] = ("Normal",) * 4,
                  transformer_config: Optional[Sequence[dict]] = None, use_pe3d: bool = False,
                  remat_stages: bool = True, remat_granularity: str = "stage",
-                 shard_views: bool = False, dtype=torch.float32):
+                 shard_views: bool = False, shard_depth: bool = False,
+                 log_var: Union[bool, Sequence[bool]] = False, dtype=torch.float32):
         super().__init__()
         self.encoder = FPNEncoder(feat_chs, dtype)
         self.decoder = FPNDecoder(feat_chs, dtype)
         self.cascade = CascadeDepth(ndepths, depth_intervals_ratio, inverse_depth, cost_reg_type,
                                     depth_type, groups, use_pe3d, transformer_config,
-                                    remat_stages, remat_granularity, shard_views, dtype)
+                                    remat_stages, remat_granularity, shard_views,
+                                    shard_depth, log_var, dtype)
         self.dtype = dtype
 
     def forward(self, imgs: Tensor, cams: Dict[str, Tensor], depth_values: Tensor,

@@ -1,6 +1,7 @@
 """Cost-volume regularizers over NDHWC volumes (counterpart of
 mvsformerplusplus_tpu/models/cost_reg.py, its unfolded `ndhwc` branch):
-3D U-Nets and the pure-transformer (CTA) regularizer.
+3D U-Nets (CostRegNet, CostRegNet3D with its optional uncertainty channel,
+CostRegNet2D) and the pure-transformer (CTA) regularizer.
 
 flax names the blocks in construction order, and in `A(B(x))` the outer A
 is constructed first: Conv3dBlock_0 is the stride-1 conv applied AFTER the
@@ -22,17 +23,19 @@ Tensor = torch.Tensor
 
 class _UNet3D(nn.Module):
     """Shared 3-level 3D U-Net body; `stride` is (2, 2, 2) for CostRegNet and
-    (1, 2, 2) for CostRegNet3D."""
+    (1, 2, 2) for CostRegNet3D and CostRegNet2D, `kernel` that of the
+    strided convs and the deconvs (3x3x3, or (1, 3, 3) for CostRegNet2D)."""
 
-    def __init__(self, in_ch: int, bc: int, stride, dtype):
+    def __init__(self, in_ch: int, bc: int, stride, dtype, kernel=3):
         super().__init__()
         chans = [(in_ch, bc * 2), (bc * 2, bc * 4), (bc * 4, bc * 8)]
         for lvl, (ci, co) in enumerate(chans):
             setattr(self, f"Conv3dBlock_{2 * lvl}", Conv3dBlock(co, co, dtype=dtype))
             setattr(self, f"Conv3dBlock_{2 * lvl + 1}",
-                    Conv3dBlock(ci, co, stride=stride, dtype=dtype))
+                    Conv3dBlock(ci, co, kernel_size=kernel, stride=stride, dtype=dtype))
         for i, (ci, co) in enumerate([(bc * 8, bc * 4), (bc * 4, bc * 2), (bc * 2, bc)]):
-            setattr(self, f"Deconv3dBlock_{i}", Deconv3dBlock(ci, co, stride=stride, dtype=dtype))
+            setattr(self, f"Deconv3dBlock_{i}", Deconv3dBlock(ci, co, kernel_size=kernel,
+                                                              stride=stride, dtype=dtype))
         self.has_inner = in_ch != bc
         if self.has_inner:
             self.Conv_0 = Conv(in_ch, bc, (1, 1, 1), dtype=dtype)
@@ -69,14 +72,32 @@ class CostRegNet(_UNet3D):
 
 
 class CostRegNet3D(_UNet3D):
-    """3D U-Net with (H, W)-only strides and a 1x1x1 probability conv."""
+    """3D U-Net with (H, W)-only strides and a 1x1x1 probability conv; with
+    `log_var` the conv has a second output channel, the per-hypothesis
+    log-variance."""
 
-    def __init__(self, in_ch: int, base_channels: int, dtype=torch.float32):
+    def __init__(self, in_ch: int, base_channels: int, log_var: bool = False,
+                 dtype=torch.float32):
         super().__init__(in_ch, base_channels, (1, 2, 2), dtype)
-        self.add_module(self.final_name(), Conv(base_channels, 1, (1, 1, 1), dtype=dtype))
+        self.add_module(self.final_name(),
+                        Conv(base_channels, 2 if log_var else 1, (1, 1, 1), dtype=dtype))
 
     def forward(self, x: Tensor) -> Tensor:
         return getattr(self, self.final_name()).pointwise(self.body(x))
+
+
+class CostRegNet2D(_UNet3D):
+    """U-Net whose strided convs and deconvs take (1, 3, 3) kernels at
+    (1, 2, 2) strides (the stride-1 convs stay 3x3x3), the input (of
+    `base_channels` channels) added to the last deconv's output, then a
+    1x1x1 conv to one channel."""
+
+    def __init__(self, base_channels: int, dtype=torch.float32):
+        super().__init__(base_channels, base_channels, (1, 2, 2), dtype, kernel=(1, 3, 3))
+        self.Conv_0 = Conv(base_channels, 1, (1, 1, 1), dtype=dtype)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.Conv_0.pointwise(self.body(x))
 
 
 class PureTransformerCostReg(nn.Module):

@@ -195,23 +195,56 @@ class MMConv(nn.Module):
         return conv2d_mm(x.to(self.dtype), k, self.bias)
 
 
+class InstanceNorm(nn.Module):
+    """flax GroupNorm(group_size=1, epsilon=1e-5) over channel-last tensors,
+    in fp32: per sample and channel, the mean and the variance (E[x²] -
+    E[x]², clipped at 0) over the spatial axes, then (x - mean) *
+    (rsqrt(var + eps) * scale) + bias. No batch statistics."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.eps = eps
+
+    def forward(self, x: Tensor) -> Tensor:
+        xf = x.float()
+        axes = tuple(range(1, x.ndim - 1))
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = ((xf * xf).mean(dim=axes, keepdim=True) - mean * mean).clamp(min=0)
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class ConvBlock(nn.Module):
-    """Conv2d + BatchNorm + LeakyReLU(0.1); stride-1 convs go through MMConv."""
+    """Conv2d + norm + LeakyReLU(0.1); stride-1 convs go through MMConv.
+    `norm` is "IN" (InstanceNorm, under flax's name GroupNorm_0; the JAX
+    ConvBlock's default), "BN" (BatchNorm_0) or "none" (no norm, the conv
+    with a bias)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3, stride: int = 1,
-                 act: bool = True, dtype=torch.float32):
+                 norm: str = "IN", act: bool = True, dtype=torch.float32):
         super().__init__()
+        if norm not in ("IN", "BN", "none"):
+            raise ValueError(f"ConvBlock norm is 'IN', 'BN' or 'none', got {norm!r}")
         ks = (kernel_size, kernel_size)
+        bias = norm == "none"
         if stride == 1:
-            self.Conv_0 = MMConv(in_ch, features, ks, use_bias=False, dtype=dtype)
+            self.Conv_0 = MMConv(in_ch, features, ks, use_bias=bias, dtype=dtype)
         else:
-            self.Conv_0 = Conv(in_ch, features, ks, stride, sym_pad(ks), bias=False, dtype=dtype)
-        self.BatchNorm_0 = bn_layer(features)
-        self.act = act
+            self.Conv_0 = Conv(in_ch, features, ks, stride, sym_pad(ks), bias=bias, dtype=dtype)
+        if norm == "BN":
+            self.BatchNorm_0 = bn_layer(features)
+        elif norm == "IN":
+            self.GroupNorm_0 = InstanceNorm(features)
+        self.norm, self.act = norm, act
         self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
-        x = batch_norm(self.BatchNorm_0, self.Conv_0(x))
+        x = self.Conv_0(x)
+        if self.norm == "BN":
+            x = batch_norm(self.BatchNorm_0, x)
+        elif self.norm == "IN":
+            x = self.GroupNorm_0(x)
         if self.act:
             x = F.leaky_relu(x, 0.1)
         return x.to(self.dtype)
@@ -273,16 +306,18 @@ class Deconv3dBlock(nn.Module):
 
 
 class FPNEncoder(nn.Module):
-    """4-level conv pyramid 1/1 -> 1/8."""
+    """4-level conv pyramid 1/1 -> 1/8; `norm` is its ConvBlocks' ("BN", as
+    in the JAX FPNEncoder, or "IN")."""
 
-    def __init__(self, feat_chs: Sequence[int] = (8, 16, 32, 64), dtype=torch.float32):
+    def __init__(self, feat_chs: Sequence[int] = (8, 16, 32, 64), dtype=torch.float32,
+                 norm: str = "BN"):
         super().__init__()
         c0, c1, c2, c3 = feat_chs
         spec = [(3, c0, 7, 1), (c0, c0, 5, 1), (c0, c1, 5, 2), (c1, c1, 3, 1), (c1, c1, 3, 1),
                 (c1, c2, 5, 2), (c2, c2, 3, 1), (c2, c2, 3, 1), (c2, c3, 3, 2), (c3, c3, 3, 1),
                 (c3, c3, 3, 1)]
         for i, (ci, co, k, s) in enumerate(spec):
-            setattr(self, f"ConvBlock_{i}", ConvBlock(ci, co, k, s, dtype=dtype))
+            setattr(self, f"ConvBlock_{i}", ConvBlock(ci, co, k, s, norm, dtype=dtype))
 
     def forward(self, x: Tensor):
         outs = []

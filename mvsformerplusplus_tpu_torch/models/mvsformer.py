@@ -7,7 +7,7 @@ torch.no_grad(), so none of its activations are kept for a backward."""
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -36,6 +36,7 @@ class DINOv2MVSNet(nn.Module):
                  transformer_config: Optional[Sequence[dict]] = None, use_pe3d: bool = True,
                  freeze_vit: bool = True, remat_stages: bool = True,
                  remat_granularity: str = "cost_reg", shard_views: bool = False,
+                 shard_depth: bool = False, log_var: Union[bool, Sequence[bool]] = False,
                  dtype=torch.float32):
         super().__init__()
         self.encoder = FPNEncoder(feat_chs, dtype)
@@ -61,7 +62,8 @@ class DINOv2MVSNet(nn.Module):
         self.fmt = FMTWithPathway(groups[0], fmt_config, dtype)
         self.cascade = CascadeDepth(ndepths, depth_intervals_ratio, inverse_depth, cost_reg_type,
                                     depth_type, groups, use_pe3d, transformer_config,
-                                    remat_stages, remat_granularity, shard_views, dtype)
+                                    remat_stages, remat_granularity, shard_views,
+                                    shard_depth, log_var, dtype)
         self.rescale, self.vit_patch, self.vit_ch = rescale, vit_patch, vit_ch
         self.dtype = dtype
 

@@ -12,7 +12,8 @@ r % n_cv, and joins two groups:
   which batch reductions run (BatchNorm moments of layers whose input is
   the same on every cv rank, the loss's valid-pixel count, metrics);
 - its *cv group*: the ranks with its data index, over which the
-  view-sharded cost volume is summed.
+  view-sharded cost volume is summed (or, depth-sharded, the entropy's
+  softmax over D is taken and the volume's slices are gathered).
 
 The whole world reduces what is split over both: the visibility net's
 rows under view sharding, and the gradients (a sum over data and a mean
@@ -65,6 +66,14 @@ class Group:
             return _AllReduceSum.apply(x, self.pg)
         y = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(y, group=self.pg)
+        return y
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of `x` over the group (no gradient)."""
+        if not self.active:
+            return x
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.pg)
         return y
 
     def sum_(self, tensors: Sequence[torch.Tensor], scale: float = 1.0) -> None:
@@ -157,15 +166,16 @@ class Layout:
         the cv axis: one all-reduce over the world divided by n_cv. The
         loss of each rank is its share of the global loss (the masked means
         divide by the global count), so the data sum is the global gradient;
-        under view sharding every cv rank computes the whole loss, and the
-        cv mean is its gradient (see StageNet.build_volume)."""
+        under view or depth sharding every cv rank computes the whole loss,
+        and the cv mean is its gradient (see the StageNet module)."""
         grads = [p.grad for p in params if p.grad is not None]
         self.world.sum_(grads, 1.0 / self.n_cv)
 
     def attach(self, model: torch.nn.Module) -> torch.nn.Module:
         """Give the model's train-mode BatchNorms their moment groups (the
         data group, the world for a VisibilityNet whose StageNet shards its
-        views) and each StageNet its cv group."""
+        views; under shard_depth every cv rank's visibility net sees the same
+        entropy, and keeps the data group) and each StageNet its cv group."""
         from ..models.stagenet import StageNet
 
         for m in model.modules():

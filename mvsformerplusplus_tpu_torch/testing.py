@@ -64,6 +64,24 @@ def inverse_depth_bounds(dmin: float, dmax: float, ndepths=(32, 16, 8, 4),
     return 1.0 / (hi_inv + ext), (1.0 / (lo_inv - ext) if lo_inv > ext else float("inf"))
 
 
+def temper_log_var_heads(model, scale: float = 0.1) -> None:
+    """Scale the log-variance channel (the second output) of every StageNet's
+    uncertainty head of `model` by `scale`, in place. Random weights put
+    log_var far from 0, where exp(-log_var) in the loss magnifies any two
+    runs' rounding differences many thousandfold; at 1/10 it stays within a
+    few units, as a trained head's does."""
+    import torch
+
+    from .models.stagenet import StageNet
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, StageNet) and m.log_var:
+                head = getattr(m.cost_reg, m.cost_reg.final_name())
+                head.weight[1] *= scale
+                head.bias[1] *= scale
+
+
 def batch_part(batch, part: int, parts: int):
     """Rows part * B / parts ... (part + 1) * B / parts of every array of a
     (nested) batch dict: the rows one data rank holds of a global batch."""

@@ -226,7 +226,8 @@ def test_build_model_arguments_match_jax(casmvs_kwargs, args, dtype):
         assert v == getattr(jm, k), k
     assert set(casmvs_kwargs) == {"feat_chs", "ndepths", "depth_intervals_ratio",
                                   "inverse_depth", "depth_type", "groups", "cost_reg_type",
-                                  "transformer_config", "use_pe3d", "remat_granularity"}
+                                  "log_var", "transformer_config", "use_pe3d",
+                                  "remat_granularity"}
     assert jm.remat_stages and model.cascade.remat_stages
     assert model.cascade.remat_granularity == jm.remat_granularity
     assert not hasattr(model, "vit") and not model.training

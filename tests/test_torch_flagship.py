@@ -13,6 +13,8 @@ import torch
 from mvsformerplusplus_tpu.config import Config as JaxConfig
 from mvsformerplusplus_tpu.config import build_model as jax_build_model
 from mvsformerplusplus_tpu.config import parse_override as jax_parse_override
+from mvsformerplusplus_tpu.models.cascade import CascadeDepth as JaxCascadeDepth
+from mvsformerplusplus_tpu.models.cascade import cascade_kwargs as jax_cascade_kwargs
 from mvsformerplusplus_tpu.models.casmvs import CasMVSNet as JaxCasMVSNet
 from mvsformerplusplus_tpu.models.mvsformer import DINOv2MVSNet as JaxFlagship
 from mvsformerplusplus_tpu_torch.config import Config, build_model, load_config, parse_override
@@ -145,11 +147,20 @@ def test_build_model_reads_remat_from_the_config(remat):
 
 @pytest.mark.parametrize("log_var", [True, [False, False, True, False]], ids=["bare", "per_stage"])
 def test_build_model_rejects_unported_log_var(log_var):
-    """arch.args.log_var builds the JAX package's uncertainty head; the port
-    has none yet and must say so instead of training another model."""
+    """arch.args.log_var builds the JAX package's uncertainty head (the test
+    keeps the name it had while the port refused the key): the port gives
+    the same stages the 2-channel CostRegNet3D head as the JAX build_model,
+    bare true every CostRegNet3D stage (not the CTA's), a list its own."""
     cfg = Config({"arch": {"args": {**TINY_ARCH_ARGS, "log_var": log_var}}})
-    with pytest.raises(NotImplementedError, match="log_var"):
-        build_model(cfg, dtype=torch.float32, device="cpu")
+    jm = jax_build_model(JaxConfig(cfg))
+    jc = JaxCascadeDepth(**jax_cascade_kwargs(jm))
+    want = [jc.stage_kwargs(i)["log_var"] for i in range(4)]
+    model = build_model(cfg, dtype=torch.float32, device="cpu")
+    stages = [getattr(model.cascade, f"stage{i + 1}") for i in range(4)]
+    assert [s.log_var for s in stages] == want
+    assert want == ([False, True, True, True] if log_var is True else log_var)
+    for s, lv in zip(stages[1:], want[1:]):  # stage 1 is the CTA's
+        assert getattr(s.cost_reg, s.cost_reg.final_name()).weight.shape[0] == 1 + lv
 
 
 @pytest.mark.parametrize("keys", [

@@ -16,6 +16,15 @@ thread each.
   visibility nets' world-wide BatchNorm sums replayed in the backward);
   the gradients before the view reduction (FPN, visibility nets) and after
   it (cost regularizers) are among those compared.
+- The depth-sharded step: the tiny CasMVSNet with shard_depth at --mesh 1,2
+  (half the hypotheses of every stage per rank) and --mesh 2,2, and the
+  tiny flagship at --mesh 1,2, against JAX shard_depth=True on the same
+  meshes; the entropy's distributed softmax over D, the gather of the
+  volume's slices before the regularizer and its backward (n_cv times each
+  slice's gradient into the layers before it, reduced by the step's mean
+  over cv) are exercised, and the gradients before the gather (FPN,
+  visibility nets) and after it (cost regularizers) are among those
+  compared. A D that does not split over the cv ranks raises.
 - The validation merge: ranks with 2 and 1 batches merge to the global
   means (Trainer._merge), not the mean of their means.
 - TrainLoader at world 2 against the JAX TrainLoader (per-process indices,
@@ -114,8 +123,9 @@ def jax_mesh_step(jm, variables, batch, mesh_shape):
 
 def port_ranks(model_cls, kwargs, variables, batch, mesh_shape, probe=False):
     make = functools.partial(model_cls, **kwargs)
+    state = None if variables is None else from_jax_variables(variables)
     return launch(train_step_rank, mesh_shape[0] * mesh_shape[1],
-                  (make, batch, mesh_shape, from_jax_variables(variables),
+                  (make, batch, mesh_shape, state,
                    dict(freeze_vit=True, **OPT), None, 0, probe),
                   device="cpu", threads=1)
 
@@ -184,14 +194,20 @@ def assert_step_matches(want, one, ranks, n_grads):
 # ------------------------------------------------------------ data-parallel step
 
 @pytest.fixture(scope="module")
-def data_parallel():
+def flagship_one_rank():
     batch = unequal_masks(conditioned_train_batch(seed=SEEDS["flagship"], b=2))
     assert all(m[0].sum() > 1.5 * m[1].sum() for m in batch["mask"].values())
     jm = JaxFlagship(**TINY, remat_stages=False)
     variables = init_flax(jm, batch["imgs"], batch["cams"], batch["depth_values"], train=False)
-    want = jax_mesh_step(jm, variables, batch, (2, 1))
+    one = port_one_rank(DINOv2MVSNet, dict(TINY, remat_granularity="cost_reg"), variables, batch)
+    return batch, variables, one
+
+
+@pytest.fixture(scope="module")
+def data_parallel(flagship_one_rank):
+    batch, variables, one = flagship_one_rank
+    want = jax_mesh_step(JaxFlagship(**TINY, remat_stages=False), variables, batch, (2, 1))
     kwargs = dict(TINY, remat_granularity="cost_reg")
-    one = port_one_rank(DINOv2MVSNet, kwargs, variables, batch)
     ranks = port_ranks(DINOv2MVSNet, kwargs, variables, batch, (2, 1), probe=True)
     return want, one, ranks
 
@@ -237,6 +253,45 @@ def test_view_sharded_step_matches_the_jax_mesh(casmvs_one_rank, mesh_shape):
     moved = {n for n, g in ranks[0]["grads"].items() if g.abs().max() > 0}
     for part in ("encoder.", "decoder.", ".vis.", ".cost_reg."):
         assert any(part in n for n in moved), part
+
+
+# ------------------------------------------------------------ depth-sharded step
+
+def _sharded_parts_moved(ranks):
+    moved = {n for n, g in ranks[0]["grads"].items() if g.abs().max() > 0}
+    for part in ("encoder.", "decoder.", ".vis.", ".cost_reg."):
+        assert any(part in n for n in moved), part
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
+def test_depth_sharded_step_matches_the_jax_mesh(casmvs_one_rank, mesh_shape):
+    batch, variables, one = casmvs_one_rank
+    jm = JaxCasMVSNet(**TINY_CASMVS, remat_stages=False, shard_depth=True)
+    want = jax_mesh_step(jm, variables, batch, mesh_shape)
+    ranks = port_ranks(CasMVSNet, dict(TINY_CASMVS, remat_granularity="stage", shard_depth=True),
+                       variables, batch, mesh_shape)
+    assert len(ranks) == mesh_shape[0] * mesh_shape[1]
+    assert_step_matches(want, one, ranks, 100)
+    _sharded_parts_moved(ranks)
+
+
+def test_depth_sharded_flagship_step_matches_the_jax_mesh(flagship_one_rank):
+    """The flagship at --mesh 1,2 with its regularizers checkpointed: the
+    CTA regularizer of stage 1 runs on the gathered volume."""
+    batch, variables, one = flagship_one_rank
+    want = jax_mesh_step(JaxFlagship(**TINY, remat_stages=False, shard_depth=True), variables,
+                         batch, (1, 2))
+    ranks = port_ranks(DINOv2MVSNet, dict(TINY, remat_granularity="cost_reg", shard_depth=True),
+                       variables, batch, (1, 2))
+    assert_step_matches(want, one, ranks, 300)
+    _sharded_parts_moved(ranks)
+
+
+def test_depth_sharded_step_rejects_an_uneven_depth(casmvs_one_rank):
+    batch, variables, _ = casmvs_one_rank
+    uneven = dict(TINY_CASMVS, ndepths=(7, 4, 4, 4), shard_depth=True)
+    with pytest.raises(Exception, match="shard_depth: 7 hypotheses do not split over 2 cv"):
+        port_ranks(CasMVSNet, uneven, None, batch, (1, 2))
 
 
 # ------------------------------------------------------------- validation merge

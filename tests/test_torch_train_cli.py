@@ -192,6 +192,25 @@ def test_debug_logs_per_module_gradient_norms(tmp_path, scan, caplog):
                                               "cascade")] == [0] * 6
 
 
+def test_log_var_config_logs_the_uncertainty_terms(tmp_path, scan):
+    """A config with the log_var head and reg depth at its log_var stages
+    (3-4) trains through the command line unchanged: the
+    stage3_uncertainty and stage4_uncertainty terms, finite, in every
+    logged step and in scalars.jsonl's train records, under the JAX
+    Trainer's names."""
+    cfg, _ = _config(tmp_path, scan)
+    cfg["arch"]["args"].update(log_var=True, depth_type=["ce", "ce", "reg", "reg"])
+    path = tmp_path / "log_var.json"
+    path.write_text(json.dumps(cfg))
+    save = tmp_path / "saved"
+    t = cli.main(["-c", str(path), "--device", "cpu", "--save_dir", str(save), "--epochs", "1"])
+    assert [s.log_var for s in (t.model.cascade.stage3, t.model.cascade.stage4)] == [True, True]
+    want = {"stage3_uncertainty", "stage4_uncertainty"}
+    assert t.logged and all(want <= set(e) for e in t.logged) and _finite(t.logged)
+    train = [r for r in _scalars(save) if r["mode"] == "train"]
+    assert len(train) == len(t.logged) and all(want <= set(r) for r in train)
+
+
 def _one_epoch(tmp_path, scan, name, *flags):
     """One epoch of the tiny config at batch 2 without micro-batches (a
     micro-batch of 1 clamps up to one sample per data rank, so --mesh 2,1
