@@ -125,13 +125,38 @@ Phases, one JSON line each:
               the card) on train_cli's scan: one epoch with validation, then
               -r to a second; one set of checkpoints, one scalars.jsonl, both
               ranks' losses, metrics and final weights equal, ms per step;
-  eval_queue  eval_cli's scan copied into 3 scans: depth maps by two eval
+  eval_queue  eval_cli's scan copied into 2 scans: depth maps by two eval
               command line processes with --schedule queue sharing the card,
               then by one process; every scan claimed once and done, every
-              depth map the one process's, maps/s at 2 and at 1 worker.
+              depth map the one process's, maps/s at 2 and at 1 worker;
+  e2e_protocol
+              the port's end-to-end accuracy protocol
+              (mvsformerplusplus_tpu_torch/tools/e2e_protocol.py) at the
+              DTU eval protocol on data a process of its own renders from the
+              start of the run (the analytic scene, a 5-view x 7-light train
+              set and a 5-view eval scan at 1152 x 1536): CasMVSNet trained
+              for E2E["casmvs_epochs"] epochs over 512 x 640, 768 x 960 and
+              1024 x 1280 crops, then 5 maps at 192 depths fused by pcd, dpcd
+              and gipuma, every filter's depth and cloud metrics printed
+              beside the JAX artifact's, the pcd run held to
+              tests/test_e2e_protocol.py's gates; then the flagship's
+              FLAGSHIP_ARCH (a ViT of heads of 24, trained) for one epoch,
+              its files and finite metrics; the TensorBoard mirror's events
+              counted and their CRCs checked (paths e2e_casmvs, e2e_flagship);
+  vit_pth     a DINOv2 .pth at full ViT-B width from seeded weights under
+              the reference key names, loaded through the eval and the
+              training command lines' loaders, bit-equal to the same weights
+              from the converted .npz;
+  dino_match  the DINOv2 matcher with a seeded fp32 ViT-B on the card (the
+              f32 flash kernel at head dim 64) at the tool's working size
+              (long side 644: 35 x 46 patches) under utils/profiler.trace: a
+              blocky image's shift recovered, the matches the CPU's; first,
+              outside the counted run, the JAX tool's test at its size and
+              gates.
 Each path (main_path, train_step, train_cli, eval_cli, casmvs_main_path,
 casmvs_train_step, variants_main_path, variants_train_step, casmvs_cli,
-blended_cli, dist_step, train_cli_mesh, eval_queue) is run with every kernel's launch count set to 0 just before it
+blended_cli, dist_step, train_cli_mesh, eval_queue, e2e_casmvs, e2e_flagship,
+dino_match) is run with every kernel's launch count set to 0 just before it
 and read just after, the counts of the processes it starts reported back by
 each (ops.cuda.launch_counts) and added; the kernel phase's cases must add
 up to those counts (so the f32 flash and conv kernels and the warps' scalar
@@ -142,11 +167,13 @@ Then the eval CLI's metric line, the {"kernels": [...]} line and, last,
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -314,9 +341,9 @@ DIST = dict(timed=2)
 # train_step shapes; 3 steps an epoch), one epoch, then -r to a second
 CLI_MESH = dict(epochs=2, batch=4)
 
-# the eval_queue phase: eval_cli's scan copied into 3 scans, depth maps by
+# the eval_queue phase: eval_cli's scan copied into 2 scans, depth maps by
 # two --schedule queue workers sharing the card, then by one process
-EVAL_QUEUE = dict(scans=3, workers=2)
+EVAL_QUEUE = dict(scans=2, workers=2)
 
 # the casmvs_cli phase: configs/casmvs.json through the training CLI on
 # train_cli's scan and crops at batch 4 (its scale_batch_map's micro-batch
@@ -329,6 +356,51 @@ CAS_CLI = dict(batch=4, epochs=1)
 # one epoch of 512 x 640 crops at batch 4 (2 steps), validating the 8 views
 # whole; the train and validation datasets decode each view once (16 decodes)
 BLENDED = dict(views=8, hw=(1536, 2048), batch=4, scales=((512, 640),), epochs=1)
+
+
+# the e2e_protocol phase: the port's tools/e2e_protocol.py at the DTU eval
+# protocol (a 5-view x 7-light train set and a 5-view eval scan rendered at
+# 1152 x 1536 from the analytic scene, 192 depths at eval): batch 2 over
+# crops of 512 x 640, 768 x 960 and 1024 x 1280 (micro-batches of 2, 1 and
+# 1; whole-stage remat at 1024 rows), the 35 samples validated at 512 x 640
+# each epoch, then 5 maps fused by pcd, dpcd and gipuma; CasMVSNet for
+# `casmvs_epochs` epochs (the protocol's 8 cut to fit the script's time),
+# then the flagship's FLAGSHIP_ARCH (its ViT: heads of 24) for one
+E2E = dict(samples=35, batch=2, crops=((512, 640), (768, 960), (1024, 1280)),
+           micro={512: 2, 768: 1, 1024: 1}, hw=(1152, 1536), views=5, casmvs_epochs=2,
+           flagship_epochs=1)
+
+# the ViT a flagship shape config runs, (blocks, heads, head dim, trained):
+# configs/mvsformerplusplus.json's frozen ViT-B, and FLAGSHIP_ARCH's ViT
+# trained from scratch (48 channels in 2 heads of 24)
+VIT_B = (12, 12, 64, False)
+VIT_TINY = (3, 2, 24, True)
+
+# the dino_match phase: the port's DINOv2 matcher with a seeded fp32 ViT-B
+# on the card, a blocky image against itself shifted 28 px right: at the
+# working size of the tool's one caller (tools/nerf2mvsnet.py, long side
+# 644), 2 ViT forwards of 12 blocks on 35 x 46 patches; and the JAX tool's
+# test at its own size (11 x 15 patches) and gates
+DINO_MATCH = dict(hw=(490, 644), test_hw=(154, 210), shift=28, blocks=12)
+
+
+class ShapeConfig(NamedTuple):
+    """One shape a path runs the model at (shape_configs)."""
+    name: str
+    kind: str  # "eval" or "train"
+    bhw: tuple  # (B, H, W)
+    seed: int  # the batch's
+    runs: dict  # {path: runs of this shape per run of the path}
+    model: str  # "flagship" or "casmvs"
+    views: int = 4  # the source views a rank warps
+    # {path: runs} of a split rank's other kernels at this unsharded twin's
+    # shapes, and of its visibility nets
+    shared: dict = {}
+    shared_vis: dict = {}
+    parts: int = 1  # of the hypotheses a rank warps
+    remat: str = "cost_reg"  # a train config's granularity ("stage" replays
+    # each stage's warps and visibility convs in the backward)
+    vit: tuple = VIT_B
 
 
 def schedule_steps(samples, scales, batch, epochs):
@@ -352,10 +424,7 @@ def cli_counts():
 
 
 def shape_configs():
-    """(name, 'eval' or 'train', (B, H, W), batch seed, {path: runs of that
-    shape per run of the path}, model family, source views a rank warps,
-    {path: runs}, {path: runs}, parts of the hypotheses a rank warps): the
-    flagship's DTU eval forward (also the variant flagship's,
+    """The ShapeConfigs of every path: the flagship's DTU eval forward (also the variant flagship's,
     variants_main_path), its train step at
     512 x 640 (the train_step path and the CLI's 512 x 640 bucket), the
     CLI's 512 x 768 bucket and the CLI's validation forwards (B=1, 512 x
@@ -370,9 +439,9 @@ def shape_configs():
     depth-sharded rank's (dist_step's --mesh 1,2 with shard_depth: B=2, half
     the hypotheses of every stage). Only the warps and the visibility nets
     see a view split, only the warps a depth split: the other kernels of a
-    split rank run at its unsharded twin's shapes, whose eighth field counts
-    them (the ninth, those of its visibility nets). A config no path runs is
-    left out."""
+    split rank run at its unsharded twin's shapes, whose `shared` and
+    `shared_vis` count them. The e2e_protocol paths' configs (e2e_configs)
+    follow. A config no path runs is left out."""
     steps, val_maps = cli_counts()
     cas = schedule_steps(CLI["samples"], CLI["scales"], CAS_CLI["batch"], CAS_CLI["epochs"])
     blended = schedule_steps(BLENDED["views"], BLENDED["scales"], BLENDED["batch"],
@@ -380,38 +449,74 @@ def shape_configs():
     mesh = schedule_steps(CLI["samples"], CLI["scales"], CLI_MESH["batch"], CLI_MESH["epochs"])
     rank_steps = 2 * (1 + DIST["timed"])  # two ranks, a compared step and the timed ones
     queue_maps = 2 * EVAL_QUEUE["scans"] * EVAL_CLI["views"]  # the queue's run and one process's
+    C = ShapeConfig
     configs = [
-        ("eval1152", "eval", (1, 1152, 1536), 0,
-         {"main_path": 1, "eval_cli": EVAL_CLI["views"], "eval_queue": queue_maps,
-          "variants_main_path": 1}, "flagship"),
-        ("train640", "train", (2, 512, 640), 1,
-         {"train_step": 1, "train_cli": steps[(512, 640)],
-          "dist_step": len(DIST_PROBES) + 1 + DIST["timed"],
-          "train_cli_mesh": 2 * mesh[(512, 640)], "variants_train_step": 1}, "flagship", 4,
-         {"dist_step": 2 * rank_steps}, {"dist_step": rank_steps}),
-        ("train768", "train", (2, 512, 768), 1,
-         {"train_cli": steps[(512, 768)], "train_cli_mesh": 2 * mesh[(512, 768)]}, "flagship"),
-        ("eval640", "eval", (1, 512, 640), 1,
-         {"train_cli": val_maps, "train_cli_mesh": CLI["samples"] * CLI_MESH["epochs"]},
-         "flagship"),
-        ("casmvs_eval", "eval", (1, 1152, 1536), 0,
-         {"casmvs_main_path": 1, "casmvs_cli": EVAL_CLI["views"]}, "casmvs"),
-        ("casmvs_train", "train", (4, 512, 640), 1,
-         {"casmvs_train_step": 1, "casmvs_cli": cas[(512, 640)]}, "casmvs"),
-        ("casmvs_train768", "train", (4, 512, 768), 1, {"casmvs_cli": cas[(512, 768)]}, "casmvs"),
-        ("casmvs_val", "eval", (1, 512, 640), 1,
-         {"casmvs_cli": CLI["samples"] * CAS_CLI["epochs"]}, "casmvs"),
-        ("blended_val", "eval", (1,) + BLENDED["hw"], 2,
-         {"blended_cli": BLENDED["views"] * BLENDED["epochs"]}, "flagship"),
-        ("blended_train", "train", (BLENDED["batch"],) + BLENDED["scales"][0], 1,
-         {"blended_cli": blended[BLENDED["scales"][0]]}, "flagship"),
-        ("rank640", "train", (1, 512, 640), 1, {"dist_step": rank_steps}, "flagship"),
-        ("shard640", "train", (2, 512, 640), 1, {"dist_step": rank_steps}, "flagship", 2),
-        ("depth640", "train", (2, 512, 640), 1, {"dist_step": rank_steps}, "flagship", 4, {}, {},
-         2),
+        C("eval1152", "eval", (1, 1152, 1536), 0,
+          {"main_path": 1, "eval_cli": EVAL_CLI["views"], "eval_queue": queue_maps,
+           "variants_main_path": 1}, "flagship"),
+        C("train640", "train", (2, 512, 640), 1,
+          {"train_step": 1, "train_cli": steps[(512, 640)],
+           "dist_step": len(DIST_PROBES) + 1 + DIST["timed"],
+           "train_cli_mesh": 2 * mesh[(512, 640)], "variants_train_step": 1}, "flagship",
+          shared={"dist_step": 2 * rank_steps}, shared_vis={"dist_step": rank_steps}),
+        C("train768", "train", (2, 512, 768), 1,
+          {"train_cli": steps[(512, 768)], "train_cli_mesh": 2 * mesh[(512, 768)]}, "flagship"),
+        C("eval640", "eval", (1, 512, 640), 1,
+          {"train_cli": val_maps, "train_cli_mesh": CLI["samples"] * CLI_MESH["epochs"]},
+          "flagship"),
+        C("casmvs_eval", "eval", (1, 1152, 1536), 0,
+          {"casmvs_main_path": 1, "casmvs_cli": EVAL_CLI["views"]}, "casmvs"),
+        C("casmvs_train", "train", (4, 512, 640), 1,
+          {"casmvs_train_step": 1, "casmvs_cli": cas[(512, 640)]}, "casmvs"),
+        C("casmvs_train768", "train", (4, 512, 768), 1, {"casmvs_cli": cas[(512, 768)]},
+          "casmvs"),
+        C("casmvs_val", "eval", (1, 512, 640), 1,
+          {"casmvs_cli": CLI["samples"] * CAS_CLI["epochs"]}, "casmvs"),
+        C("blended_val", "eval", (1,) + BLENDED["hw"], 2,
+          {"blended_cli": BLENDED["views"] * BLENDED["epochs"]}, "flagship"),
+        C("blended_train", "train", (BLENDED["batch"],) + BLENDED["scales"][0], 1,
+          {"blended_cli": blended[BLENDED["scales"][0]]}, "flagship"),
+        C("rank640", "train", (1, 512, 640), 1, {"dist_step": rank_steps}, "flagship"),
+        C("shard640", "train", (2, 512, 640), 1, {"dist_step": rank_steps}, "flagship",
+          views=2),
+        C("depth640", "train", (2, 512, 640), 1, {"dist_step": rank_steps}, "flagship",
+          parts=2),
     ]
-    configs = [c + (4, {}, {}, 1)[len(c) - 6:] for c in configs]
-    return [c for c in configs if any(c[4].values())]
+
+    def shape(c):  # what the kernels see: all but the name, seed and runs
+        return c._replace(name=None, seed=None, runs=None)
+
+    for c in e2e_configs():
+        same = [i for i, o in enumerate(configs) if shape(o) == shape(c)]
+        if same:
+            configs[same[0]] = configs[same[0]]._replace(runs=_plus(configs[same[0]].runs,
+                                                                    c.runs))
+        else:
+            configs.append(c)
+    return [c for c in configs if any(c.runs.values())]
+
+
+def e2e_configs():
+    """The e2e_protocol paths' shape configs: per model, its train steps'
+    micro-batches per crop bucket (two micro-batches of one sample a step
+    at 768 and 1024 rows; whole-stage remat at 1024), its validation
+    forwards at 512 x 640 and its 5 eval maps. A CasMVSNet config equal to
+    one of the other paths' takes its runs there."""
+    out = []
+    for family, path, epochs, vit in (("casmvs", "e2e_casmvs", E2E["casmvs_epochs"], VIT_B),
+                                      ("flagship", "e2e_flagship", E2E["flagship_epochs"],
+                                       VIT_TINY)):
+        steps = schedule_steps(E2E["samples"], E2E["crops"], E2E["batch"], epochs)
+        for (h, w), n in steps.items():
+            mb = E2E["micro"][h]
+            out.append(ShapeConfig(f"{path}_train{h}", "train", (mb, h, w), 1,
+                                   {path: n * (E2E["batch"] // mb)}, family,
+                                   remat="stage" if h == 1024 else "cost_reg", vit=vit))
+        out.append(ShapeConfig(f"{path}_val", "eval", (1,) + E2E["crops"][0], 1,
+                               {path: E2E["samples"] * epochs}, family, vit=vit))
+        out.append(ShapeConfig(f"{path}_eval", "eval", (1,) + E2E["hw"], 0,
+                               {path: E2E["views"]}, family, vit=vit))
+    return out
 
 
 def _config_batch(bhw, seed):
@@ -483,19 +588,21 @@ def warp_tpu_rows(stage, nd, c, ww, sharded=False):
 
 
 def warp_cases():
-    """The four stage warps (source views batched) at each shape config;
+    """The four stage warps (source views batched) at each shape config
+    (twice per train step where whole stages are rematerialised);
     the train crop's stage 3 is the TPU's narrow-row banded_warp_rows shape,
     the 512 x 768 crop's stage 3 the depth-folded blend's (row 12); then
     fusion's samples (fusion_warp_cases)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for name, _, bhw, seed, runs, _, views, _, _, parts in shape_configs():
-        imgs, cams, dv = _config_batch(bhw, seed)
-        nsrc = views * imgs.shape[0]
+    for cfg in shape_configs():
+        imgs, cams, dv = _config_batch(cfg.bhw, cfg.seed)
+        nsrc = cfg.views * imgs.shape[0]
+        replays = 2 if cfg.kind == "train" and cfg.remat == "stage" else 1
         for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
-            coords = stage_coords(cams, dv, stage, nd, hh, ww, views, parts)
+            coords = stage_coords(cams, dv, stage, nd, hh, ww, cfg.views, cfg.parts)
             src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
-            yield (f"{name}_stage{stage}", _times(runs, 1), (src, coords),
-                   warp_tpu_rows(stage, nd, c, ww, views < 4 or parts > 1))
+            yield (f"{cfg.name}_stage{stage}", _times(cfg.runs, replays), (src, coords),
+                   warp_tpu_rows(stage, nd, c, ww, cfg.views < 4 or cfg.parts > 1))
     yield from fusion_warp_cases()
 
 
@@ -524,8 +631,10 @@ def fusion_warp_cases():
                               ("pcd", 3, static[:, None])):
         src = torch.zeros(v - 1, h, w, 4, device="cuda")
         src[..., :c] = torch.randn(v - 1, h, w, c, generator=gen, device="cuda")
-        # casmvs_cli fuses its 5 maps with dpcd alone
-        runs = {"eval_cli": v, **({"casmvs_cli": v} if method == "dpcd" else {})}
+        # casmvs_cli fuses its 5 maps with dpcd alone; the e2e_protocol
+        # paths fuse theirs with pcd, dpcd and gipuma, as eval_cli
+        runs = {"eval_cli": v, "e2e_casmvs": v, "e2e_flagship": v,
+                **({"casmvs_cli": v} if method == "dpcd" else {})}
         yield f"eval_cli_fusion_{method}", runs, (src, coords), ()
 
 
@@ -571,21 +680,22 @@ def warp_bwd_cases():
     the JAX plan turns the banded backward off: row 11 where the pallas
     mode runs, else XLA's scatter."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for name, kind, bhw, seed, runs, _, views, _, _, parts in shape_configs():
-        if kind != "train":
+    for cfg in shape_configs():
+        if cfg.kind != "train":
             continue
-        imgs, cams, dv = _config_batch(bhw, seed)
-        nsrc = views * imgs.shape[0]
+        imgs, cams, dv = _config_batch(cfg.bhw, cfg.seed)
+        nsrc = cfg.views * imgs.shape[0]
         for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
-            coords = stage_coords(cams, dv, stage, nd, hh, ww, views, parts)
-            g = torch.randn(nsrc, nd // parts, hh, ww, c, generator=gen, device="cuda")
-            if views < 4 or parts > 1:
+            coords = stage_coords(cams, dv, stage, nd, hh, ww, cfg.views, cfg.parts)
+            g = torch.randn(nsrc, nd // cfg.parts, hh, ww, c, generator=gen, device="cuda")
+            if cfg.views < 4 or cfg.parts > 1:
                 rows = ()
             else:
                 rows = (7,) if ww % 128 == 0 and ww >= 384 else (6,)
             if c <= 16 and ww % 128 == 0:
                 rows += (11,)  # the transpose of the pallas mode's blend there
-            yield f"{name}_stage{stage}", _times(runs, 1), (g, coords, (nsrc, hh, ww, c)), rows
+            yield (f"{cfg.name}_stage{stage}", _times(cfg.runs, 1), (g, coords, (nsrc, hh, ww, c)),
+                   rows)
 
 
 def warp_bwd_scalar_cases():
@@ -620,26 +730,34 @@ def _tokens(h, w):
 
 
 def flash_cases():
-    """Per forward: the 12 ViT blocks on every view (frozen, no lse) and the
-    6 CTA blocks on every sample; a train step with lse and 6 more CTA
-    forwards, the replays of the checkpointed regularizer."""
+    """Per forward: the ViT's blocks on every view (12 of ViT-B's, frozen, no
+    lse; the e2e flagship's 3 of heads of 24, which train: lse in a train
+    step) and the 6 CTA blocks on every sample; a train step with lse and 6
+    more CTA forwards, the replays of the checkpointed regularizer (or of
+    the whole stage). Then a case no path runs: bf16 at head dim 32, the
+    padded width of the heads of 24."""
     from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for name, kind, (b, h, w), _, runs, model, views, shared, _, parts in shape_configs():
-        if model != "flagship" or views != 4 or parts > 1:
+    for cfg in shape_configs():
+        if cfg.model != "flagship" or cfg.views != 4 or cfg.parts > 1:
             continue
-        runs = _plus(runs, shared)
+        runs = _plus(cfg.runs, cfg.shared)
+        b, h, w = cfg.bhw
         v = TRAIN["v"]  # every config has 5 views
         n_vit, n_cta = _tokens(h, w)
-        train = kind == "train"
-        for part, (bb, n, heads, dh, sc), lse, count in (
-                ("vit", (b * v, n_vit, 12, 64, 64 ** -0.5), False, 12),
+        train = cfg.kind == "train"
+        blocks, heads, dh, vit_trains = cfg.vit
+        for part, (bb, n, nh, d, sc), lse, count in (
+                ("vit", (b * v, n_vit, heads, dh, dh ** -0.5), train and vit_trains, blocks),
                 ("cta", (b, n_cta, 4, 16, entropy_inv_scale(16, n_cta, 12185)), train,
                  12 if train else 6)):
-            q, k, vv = (torch.randn(bb, n, heads, dh, generator=gen, device="cuda")
+            q, k, vv = (torch.randn(bb, n, nh, d, generator=gen, device="cuda")
                         .to(torch.bfloat16) for _ in range(3))
-            yield f"{name}_{part}", _times(runs, count), (q, k, vv, sc, lse), (2,)
+            yield f"{cfg.name}_{part}", _times(runs, count), (q, k, vv, sc, lse), (2,)
+    q, k, vv = (torch.randn(2, 1000, 3, 32, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(3))
+    yield "dh32", {}, (q, k, vv, 32 ** -0.5, True), (2,)
 
 
 def flash_fault(kernel, q, k, v, scale, lse):
@@ -659,15 +777,28 @@ def _tiny_scales():
     return 16 ** -0.5, entropy_inv_scale(16, TINY_CTA[1], 12185)
 
 
+# the e2e flagship's ViT attention in fp32 at its 512 x 640 crop, and at
+# the padded width 32 (neither runs on a path): (B*V, N, heads, head dim)
+F32_PADDED = (("dh24", (10, 321, 2, 24)), ("dh32", (2, 333, 3, 32)))
+
+
 def flash_f32_cases():
-    """The f32 SIMT forward at the tiny flagship's shapes; no path runs it
-    (the fp32 model of the reference phases does)."""
+    """The f32 SIMT forward at the dino_match path's shape (the fp32 ViT-B
+    on 35 x 46 patches and the class token, 12 blocks per image, 2 images),
+    and at shapes no path runs: the tiny flagship's (the fp32 model of the
+    reference phases) and head dims 24 and 32."""
     gen = torch.Generator(device="cuda").manual_seed(7)
+    n = (DINO_MATCH["hw"][0] // 14) * (DINO_MATCH["hw"][1] // 14) + 1
+    q, k, v = (torch.randn(1, n, 12, 64, generator=gen, device="cuda") for _ in range(3))
+    yield "dino_match_vit", {"dino_match": 2 * DINO_MATCH["blocks"]}, (q, k, v, 64 ** -0.5,
+                                                                       False), (2,)
     vit_scale, cta_scale = _tiny_scales()
-    for part, (b, n, h, dh), sc, lse in (("vit", TINY_VIT, vit_scale, False),
-                                         ("cta", TINY_CTA, cta_scale, True)):
+    for part, (b, n, h, dh), sc, lse in (("tiny_vit", TINY_VIT, vit_scale, False),
+                                         ("tiny_cta", TINY_CTA, cta_scale, True),
+                                         *((name, shape, shape[3] ** -0.5, True)
+                                           for name, shape in F32_PADDED)):
         q, k, v = (torch.randn(b, n, h, dh, generator=gen, device="cuda") for _ in range(3))
-        yield f"tiny_{part}", {}, (q, k, v, sc, lse), (2,)
+        yield part, {}, (q, k, v, sc, lse), (2,)
 
 
 def flash_tolerance(q, k, v, scale, lse, want):
@@ -682,28 +813,41 @@ def flash_tolerance(q, k, v, scale, lse, want):
     return tol
 
 
-def flash_bwd_cases():
-    """The CTA's backward at each train crop: 6 per step (one per block), one
-    fused launch each. q and k are drawn at std 1.5: at std 1 the CTA's
-    scale leaves the attention nearly uniform over its 5-6k keys, O and
-    delta near 0, and no check could see an error in delta."""
-    from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
+def _bwd_args(gen, shape, scale, dtype=torch.bfloat16):
+    """q, k, v, dout of `shape` (q and k at std 1.5), lse and delta."""
     from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (attention_delta,
                                                                       flash_attention_plain)
 
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda") * std
+                     for std in (1.5, 1.5, 1, 1))
+    q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout))
+    out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
+    return q, k, v, dout, lse, attention_delta(out, dout), scale
+
+
+def flash_bwd_cases():
+    """The CTA's backward at each train crop: 6 per step (one per block), one
+    fused launch each; and the ViT's where it trains (the e2e flagship's 3
+    blocks of heads of 24). q and k are drawn at std 1.5: at std 1 the CTA's
+    scale leaves the attention nearly uniform over its 5-6k keys, O and
+    delta near 0, and no check could see an error in delta. Then a case no
+    path runs: head dim 32."""
+    from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
+
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for name, kind, (b, h, w), _, runs, model, views, shared, _, parts in shape_configs():
-        if kind != "train" or model != "flagship" or views != 4 or parts > 1:
+    for cfg in shape_configs():
+        if cfg.kind != "train" or cfg.model != "flagship" or cfg.views != 4 or cfg.parts > 1:
             continue
-        runs = _plus(runs, shared)
-        n = _tokens(h, w)[1]
-        scale = entropy_inv_scale(16, n, 12185)
-        q, k, v, dout = (torch.randn(b, n, 4, 16, generator=gen, device="cuda") * std
-                         for std in (1.5, 1.5, 1, 1))
-        q, k, v, dout = (x.to(torch.bfloat16) for x in (q, k, v, dout))
-        out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
-        yield (f"{name}_cta", _times(runs, 6),
-               (q, k, v, dout, lse, attention_delta(out, dout), scale), (8,))
+        runs = _plus(cfg.runs, cfg.shared)
+        b, h, w = cfg.bhw
+        n_vit, n = _tokens(h, w)
+        yield (f"{cfg.name}_cta", _times(runs, 6),
+               _bwd_args(gen, (b, n, 4, 16), entropy_inv_scale(16, n, 12185)), (8,))
+        blocks, heads, dh, vit_trains = cfg.vit
+        if vit_trains:
+            yield (f"{cfg.name}_vit", _times(runs, blocks),
+                   _bwd_args(gen, (b * TRAIN["v"], n_vit, heads, dh), dh ** -0.5), (8,))
+    yield "dh32", {}, _bwd_args(gen, (2, 1000, 3, 32), 32 ** -0.5), (8,)
 
 
 def flash_bwd_fault(kernel, q, k, v, dout, lse, delta, scale):
@@ -713,8 +857,8 @@ def flash_bwd_fault(kernel, q, k, v, dout, lse, delta, scale):
 
 def flash_bwd_f32_cases():
     """The f32 SIMT backward at the tiny flagship's two flash shapes (the
-    CTA's, which the fp32 model of reference_train runs, and the ViT's); no
-    path runs it."""
+    CTA's, which the fp32 model of reference_train runs, and the ViT's) and
+    at head dims 24 and 32 (F32_PADDED); no path runs it."""
     from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (attention_delta,
                                                                       flash_attention_plain)
 
@@ -723,6 +867,8 @@ def flash_bwd_f32_cases():
         q, k, v, dout = (torch.randn(b, n, h, dh, generator=gen, device="cuda") for _ in range(4))
         out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
         yield f"tiny_{part}", {}, (q, k, v, dout, lse, attention_delta(out, dout), scale), (8,)
+    for name, shape in F32_PADDED:
+        yield name, {}, _bwd_args(gen, shape, shape[3] ** -0.5, torch.float32), (8,)
 
 
 def flash_bwd_tolerance(q, k, v, dout, lse, delta, scale, want):
@@ -748,17 +894,17 @@ CONV_SHAPES = ([("encoder_7x7_3to8", 1, (5, 1, 3, 8, 7)), ("encoder_5x5_8to8", 1
                + [(f"fmt_smooth_{c}", 5, (1, c // 8, c, c, 3)) for c in (32, 16, 8)])
 
 
-def _conv_runs(conv, runs, views, parts, shared, shared_vis):
-    """A conv case's runs: a visibility net's follow the config's view
-    split; the others run at a view-sharded config's shape only as its
-    unsharded twin's (`shared` there), and not at its own; a depth-sharded
-    config's convs all run at its twin's (`shared`, and `shared_vis` for its
-    visibility nets)."""
-    if parts > 1:
+def _conv_runs(conv, cfg):
+    """A conv case's runs at ShapeConfig cfg: a visibility net's follow the
+    config's view split; the others run at a view-sharded config's shape
+    only as its unsharded twin's (`shared` there), and not at its own; a
+    depth-sharded config's convs all run at its twin's (`shared`, and
+    `shared_vis` for its visibility nets)."""
+    if cfg.parts > 1:
         return None
     if conv.startswith("visibility"):
-        return _plus(runs, shared_vis)
-    return _plus(runs, shared) if views == 4 else None
+        return _plus(cfg.runs, cfg.shared_vis)
+    return _plus(cfg.runs, cfg.shared) if cfg.views == 4 else None
 
 
 def _batched_conv(shapes, b, model, views=4):
@@ -779,16 +925,20 @@ CONV_DX_SHAPES = [sh for sh in CONV_SHAPES
 
 def conv_cases():
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for name, _, (b, h, w), _, runs, model, views, shared, shared_vis, parts in shape_configs():
-        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b, model, views):
-            conv_runs = _conv_runs(conv, runs, views, parts, shared, shared_vis)
+    for cfg in shape_configs():
+        b, h, w = cfg.bhw
+        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b, cfg.model,
+                                                               cfg.views):
+            conv_runs = _conv_runs(conv, cfg)
             if conv_runs is None:
                 continue
+            if cfg.kind == "train" and cfg.remat == "stage" and conv.startswith("visibility"):
+                count *= 2  # the stage's replay in the backward
             x = torch.randn(bb, h // div, w // div, ci, generator=gen,
                             device="cuda").to(torch.bfloat16)
             kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
                     * (k * k * ci) ** -0.5).to(torch.bfloat16)
-            yield f"{name}_{conv}", _times(conv_runs, count), (x, kern), (3,)
+            yield f"{cfg.name}_{conv}", _times(conv_runs, count), (x, kern), (3,)
 
 
 # the tiny flagship's convs (TINY on the reference phase's 3 x 128 x 256
@@ -831,18 +981,20 @@ def conv_dx_cases():
     """dx = the conv kernel on the cotangent [B, H, W, Co] with the weights
     flipped and ci/co swapped, at each train conv whose input needs it."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for name, kind, (b, h, w), _, runs, model, views, shared, shared_vis, parts in shape_configs():
-        if kind != "train":
+    for cfg in shape_configs():
+        if cfg.kind != "train":
             continue
-        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b, model, views):
-            conv_runs = _conv_runs(conv, runs, views, parts, shared, shared_vis)
+        b, h, w = cfg.bhw
+        for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b, cfg.model,
+                                                               cfg.views):
+            conv_runs = _conv_runs(conv, cfg)
             if conv_runs is None:
                 continue
             g = torch.randn(bb, h // div, w // div, co, generator=gen,
                             device="cuda").to(torch.bfloat16)
             kern = (torch.randn(k, k, ci, co, generator=gen, device="cuda")
                     * (k * k * co) ** -0.5).to(torch.bfloat16)
-            yield f"{name}_{conv}", _times(conv_runs, count), (g, kern), (9,)
+            yield f"{cfg.name}_{conv}", _times(conv_runs, count), (g, kern), (9,)
 
 
 def conv_dx_f32_cases():
@@ -1106,7 +1258,8 @@ def read_counts(counters) -> dict:
 
 
 # the kernels only the fp32 model launches (the flash and conv SIMT kernels),
-# and the warps' scalar kernels: no path may launch them
+# and the warps' scalar kernels: no model path may launch them (the
+# dino_match path's fp32 ViT runs the f32 flash forward, checked there)
 F32_ONLY = ("flash_attention_fwd_f32", "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
 CONV_SIMT = ("conv2d_same_f32", "conv2d_same_dx_f32")
 WARP_SCALAR = ("warp_bilinear_scalar", "warp_bilinear_bwd_scalar")
@@ -2712,6 +2865,337 @@ def run_eval_queue(counters, work: Path):
     return launches
 
 
+def render_e2e_data(root: str) -> None:
+    """The e2e_protocol phase's data, rendered in a process of its own while
+    the card runs the earlier phases (it needs no card): the analytic scene
+    with its 4096-texel textures, the train set and the eval scan at
+    1152 x 1536 (tools/e2e_protocol.py build_data, which records the
+    resolution in render.json); the seconds it took in render_s.txt."""
+    sys.path.insert(0, str(REPO))
+    from mvsformerplusplus_tpu_torch.tools.e2e_protocol import build_data
+
+    t0 = time.perf_counter()
+    build_data(Path(root))
+    (Path(root) / "render_s.txt").write_text(str(time.perf_counter() - t0))
+
+
+def start_e2e_render(root: Path):
+    """render_e2e_data in a spawned process with two BLAS threads (the
+    environment variables only for the child)."""
+    import multiprocessing
+    import os
+
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
+    os.environ.update({k: "2" for k in saved})
+    try:
+        proc = multiprocessing.get_context("spawn").Process(
+            target=render_e2e_data, args=(str(root),), daemon=True)
+        proc.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return proc
+
+
+def tb_events(save: Path) -> dict:
+    """The TensorBoard mirror under save/tb against what the run logged:
+    every TFRecord's length and data CRC (utils/tfevents.masked_crc32c) and
+    the event count, one file_version event, one per scalar of every
+    scalars.jsonl record and one per panel of every PNG under images/ (its
+    panels side by side, each of the crop's 5:4 aspect)."""
+    import struct
+
+    from mvsformerplusplus_tpu_torch.utils.tfevents import masked_crc32c
+
+    files = sorted((save / "tb").glob("events.out.tfevents.*"))
+    events, crc_ok = 0, True
+    for f in files:
+        data, i = f.read_bytes(), 0
+        while i < len(data):
+            (n,) = struct.unpack("<Q", data[i:i + 8])
+            crc_ok &= struct.unpack("<I", data[i + 8:i + 12])[0] == masked_crc32c(data[i:i + 8])
+            crc_ok &= (struct.unpack("<I", data[i + 12 + n:i + 16 + n])[0]
+                       == masked_crc32c(data[i + 12:i + 12 + n]))
+            i += 16 + n
+            events += 1
+    scalars = sum(len(r) - 3 for r in read_scalars(save))
+    panels = 0
+    for png in (save / "images").glob("*.png"):
+        w, h = struct.unpack(">II", png.read_bytes()[16:24])
+        panels += w * 4 // (h * 5)
+    return {"files": len(files), "events": events, "crc_ok": bool(crc_ok),
+            "expected": 1 + scalars + panels, "scalars": scalars, "panels": panels}
+
+
+def run_e2e_protocol(counters, root: Path, renderer) -> dict:
+    """The port's end-to-end accuracy protocol (tools/e2e_protocol.py) on the
+    card at the DTU eval protocol, through its run_model, which runs the
+    training and eval command lines in process: CasMVSNet (CASMVS_ARCH) for
+    E2E["casmvs_epochs"] epochs, then the flagship (FLAGSHIP_ARCH, its ViT
+    of heads of 24 trained from scratch) for one, each a path of its own
+    ("e2e_casmvs", "e2e_flagship"), with trainer.tensorboard on. The data
+    is the renderer process's (render_e2e_data); the metrics read the
+    scene's quads, which its texture size does not change. Prints every
+    filter's depth and cloud metrics beside the JAX package's artifact
+    (docs/e2e_protocol_metrics.json, a TPU run of 8 epochs). Checks:
+    CasMVSNet's pcd run within tests/test_e2e_protocol.py's gates (abs
+    depth error < 40 mm, thres20mm < 0.40, thres8mm < 0.55, more than 10 000
+    points, accuracy mean < 6 and median < 4 mm, completeness median < 6
+    mm); for both, the depth maps and a cloud per filter, every metric
+    finite, the TB mirror's records and count, every kernel of the model's
+    paths launched, through the mma and vector kernels (and no flash kernel
+    for CasMVSNet)."""
+    from mvsformerplusplus_tpu_torch.data.synthetic import GeometricScene
+    from mvsformerplusplus_tpu_torch.tools import e2e_protocol as e2e
+
+    t0 = time.perf_counter()
+    renderer.join(timeout=1200)
+    if renderer.is_alive() or renderer.exitcode != 0:
+        raise SystemExit(f"e2e_protocol: the renderer process failed ({renderer.exitcode})")
+    wait_s = time.perf_counter() - t0
+    stamp = (root / "render.json").stat().st_mtime_ns
+    scene = GeometricScene(0, tex_res=16)
+    _, tr, ev = e2e.build_data(root, scene)
+    reused = (root / "render.json").stat().st_mtime_ns == stamp
+    jax_art = json.loads((REPO / "docs" / "e2e_protocol_metrics.json").read_text())
+    gates = dict(abs_depth_error=40.0, thres20mm_error=0.40, thres8mm_error=0.55,
+                 accuracy_mean_mm=6.0, accuracy_median_mm=4.0, completeness_median_mm=6.0)
+    by_path, failed = {}, {}
+    for name, path, epochs in (("casmvs", "e2e_casmvs", E2E["casmvs_epochs"]),
+                               ("flagship", "e2e_flagship", E2E["flagship_epochs"])):
+        spec = family_spec(name)
+        zero_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = e2e.run_model(name, e2e.ARCHS[name], root, scene, tr, ev, epochs, device="cuda",
+                            tensorboard=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts(counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        release()
+        mroot = root / name
+        tb = tb_events(mroot / "saved")
+        filters = [f for f, _ in e2e.FILTERS]
+        depth_keys = ("abs_depth_error", "thres20mm_error", "thres8mm_error", "mean_error")
+        checks = {
+            "render_reused": reused,
+            "depth_maps": len(list((mroot / "out" / "scan1" / "depth_est").glob("*.pfm")))
+            == E2E["views"],
+            "cloud_per_filter": all("n_points" in res[f] for f in filters),
+            "metrics_finite": all(np.isfinite(res[f][k]) for f in filters for k in depth_keys)
+            and all(np.isfinite(v) for f in filters for k, v in res[f].items()
+                    if k.endswith("_mm")),
+            "tb_records": tb["crc_ok"] and tb["files"] == 1 and tb["events"] == tb["expected"],
+            "every_kernel_launched": path_kernels_launched(launches, spec),
+            "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+            "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+            "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+        }
+        if name == "casmvs":
+            pcd = res["pcd"]
+            checks["no_flash_kernel"] = none_launched(launches, FLASH)
+            checks["pcd_points"] = pcd["n_points"] > 10_000
+            checks.update({f"pcd_{k}_under_{v}": pcd.get(k, float("inf")) < v
+                           for k, v in gates.items()})
+        row = {"phase": "e2e_protocol", "model": name, "path": path, "epochs": epochs,
+               "protocol": {"hw": list(E2E["hw"]), "depths": 192, "views": E2E["views"],
+                            "crops": [list(c) for c in E2E["crops"]],
+                            "samples": E2E["samples"]},
+               "results": res, "jax_artifact": jax_art.get(name),
+               "render_s_in_its_process": float((root / "render_s.txt").read_text()),
+               "render_wait_s": wait_s, "run_s": run_s, "peak_mem_gb": peak_gb,
+               "tb": tb, "launches": launches, "checks": checks}
+        emit(row)
+        for f in filters:
+            print(f"e2e_protocol {name} {f} {json.dumps(res[f])}", flush=True)
+        by_path[path] = launches
+        if not all(checks.values()):
+            failed[name] = {k: v for k, v in checks.items() if not v}
+    if failed:
+        raise SystemExit(f"e2e_protocol checks failed: {failed}")
+    return by_path
+
+
+def reference_vit_state_dict(gen, dim=768, depth=12, grid=37, mlp=3072):
+    """Seeded DINOv2 weights under the original checkpoint's key names and
+    layouts (ViT-B/14 by default): the state dict a .pth holds."""
+    def randn(*shape, std=0.02):
+        return torch.randn(shape, generator=gen) * std
+
+    sd = {"patch_embed.proj.weight": randn(dim, 3, 14, 14), "patch_embed.proj.bias": randn(dim),
+          "cls_token": randn(1, 1, dim), "pos_embed": randn(1, grid * grid + 1, dim),
+          "norm.weight": 1 + randn(dim), "norm.bias": randn(dim)}
+    for i in range(depth):
+        p = f"blocks.{i}."
+        for norm in ("norm1", "norm2"):
+            sd[f"{p}{norm}.weight"], sd[f"{p}{norm}.bias"] = 1 + randn(dim), randn(dim)
+        for name, (o, n) in (("attn.qkv", (3 * dim, dim)), ("attn.proj", (dim, dim)),
+                             ("mlp.fc1", (mlp, dim)), ("mlp.fc2", (dim, mlp))):
+            sd[f"{p}{name}.weight"], sd[f"{p}{name}.bias"] = randn(o, n), randn(o)
+        sd[f"{p}ls1.gamma"], sd[f"{p}ls2.gamma"] = 1 + randn(dim), 1 + randn(dim)
+    return sd
+
+
+def run_vit_pth_phase(work: Path) -> None:
+    """arch.args.vit_path as the original DINOv2 .pth at full ViT-B width
+    (768 channels, 12 blocks, heads of 64): a .pth this phase writes from
+    seeded weights under the reference key names, and the converted .npz of
+    the same weights (convert.vit_state_dict_to_flax), loaded into the
+    flagship of configs/mvsformerplusplus.json on the card through the eval
+    CLI's weight loader and the training CLI's; every ViT tensor bit-equal
+    across the three loads, each load's count the converter's, and the
+    .pth's weights the model's (one tensor checked in its layout)."""
+    import argparse
+
+    from mvsformerplusplus_tpu_torch.config import build_model, load_config
+    from mvsformerplusplus_tpu_torch.convert import vit_state_dict_to_flax
+    from mvsformerplusplus_tpu_torch.eval import cli as eval_cli
+    from mvsformerplusplus_tpu_torch.train import cli as train_cli
+
+    t0 = time.perf_counter()
+    sd = reference_vit_state_dict(torch.Generator().manual_seed(21))
+    torch.save(sd, work / "dinov2_vitb14.pth")
+    flat = vit_state_dict_to_flax(sd, 12)
+    np.savez(work / "dinov2_vitb14.npz", **flat)
+    cfg = load_config(CONFIG)
+
+    def vit_state(model):
+        return {k: v.detach().cpu() for k, v in model.state_dict().items()
+                if k.startswith("vit.")}
+
+    loads, moved, train_count = {}, {}, None
+    for name, path in (("eval_cli_pth", "dinov2_vitb14.pth"),
+                       ("eval_cli_npz", "dinov2_vitb14.npz"),
+                       ("train_cli_pth", "dinov2_vitb14.pth")):
+        model = build_model(cfg, dtype=torch.bfloat16, device="cuda", seed=1)
+        before = {k: v.clone() for k, v in vit_state(model).items()}
+        if name.startswith("eval"):
+            c = load_config(CONFIG)
+            c.set_path("arch.args.vit_path", str(work / path))
+            eval_cli._load_weights(model, c, argparse.Namespace(ckpt_npz=None, ckpt=None))
+        else:
+            train_count = train_cli.load_pretrained_vit(model, work / path)
+        loads[name] = vit_state(model)
+        moved[name] = sum(not torch.equal(before[k], v) for k, v in loads[name].items())
+        del model
+        release()
+    ref = loads["eval_cli_pth"]
+    qkv = ref["vit.blocks_0.attn.qkv.weight"]
+    checks = {
+        "bit_equal_pth_npz_train": all(
+            ref.keys() == other.keys() and all(torch.equal(ref[k], other[k]) for k in ref)
+            for other in (loads["eval_cli_npz"], loads["train_cli_pth"])),
+        "every_vit_tensor_loaded": train_count == len(flat) and len(set(moved.values())) == 1
+        and moved["eval_cli_pth"] > 0,
+        "qkv_is_the_checkpoints": torch.equal(qkv, sd["blocks.0.attn.qkv.weight"].to(qkv.dtype)),
+    }
+    row = {"phase": "vit_pth", "tensors": len(flat), "vit_tensors_moved": moved,
+           "pth_mb": (work / "dinov2_vitb14.pth").stat().st_size / 1e6,
+           "phase_s": time.perf_counter() - t0, "checks": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"vit_pth checks failed: {checks}")
+
+
+def blocky_image(seed, h, w):
+    """Piecewise-constant 14-px cells of random colour (uint8 [h, w, 3])."""
+    cells = np.random.RandomState(seed).randint(0, 255, (h // 14, w // 14, 3), np.uint8)
+    return np.kron(cells, np.ones((14, 14, 1), np.uint8))
+
+
+def dino_shift(match_fn, h, w, shift):
+    """(pts_a, pts_b, the least of the shares of the matches at the shift in
+    x and at 0 in y, within half a patch) of match_fn on a blocky h x w
+    image against itself shifted `shift` px right."""
+    img = blocky_image(1, h, w)
+    pa, pb = match_fn(img, np.roll(img, shift, axis=1))
+    if not len(pa):
+        return pa, pb, 0.0
+    dx, dy = pb[:, 0] - pa[:, 0] - shift, pb[:, 1] - pa[:, 1]
+    return pa, pb, float(min(np.mean(np.abs(dx) < 7.5), np.mean(np.abs(dy) < 7.5)))
+
+
+def same_matches(got, want):
+    return len(got[0]) == len(want[0]) and all(
+        np.abs(g - c).max() <= 0.05 for g, c in zip(got[:2], want[:2]))
+
+
+def run_dino_match(counters, work: Path) -> dict:
+    """The DINOv2 matcher (tools/dino_match.py) at full ViT-B width on the
+    card: a seeded fp32 ViT-B (config.init_weights), a blocky image against
+    itself shifted DINO_MATCH["shift"] px right. First, outside the counted
+    run, the JAX tool's test at its size (long_side its image's longest
+    side) and gates: 20 matches or more, 70% of them at the shift in x and
+    at 0 in y. Then the counted run at the tool's default working size
+    (long_side 644), under utils/profiler.trace: 70% of its matches at the
+    shift (a random ViT's tokens are alike, so the ratio gate keeps few of
+    them there; the count is printed). Checks both runs' points against
+    the same matcher on the CPU (the same matches within 0.05 px), every
+    launch of the counted run the f32 flash kernel's (the fp32 ViT; by
+    counter and by name in the trace) and the profiler's device memory
+    stats."""
+    from mvsformerplusplus_tpu_torch.config import init_weights
+    from mvsformerplusplus_tpu_torch.models.dino import DinoVisionTransformer
+    from mvsformerplusplus_tpu_torch.tools.dino_match import make_dino_matcher
+    from mvsformerplusplus_tpu_torch.utils import profiler
+
+    vit = DinoVisionTransformer()
+    with torch.no_grad():
+        init_weights(vit, torch.Generator().manual_seed(3))
+    shift = DINO_MATCH["shift"]
+    th, tw = DINO_MATCH["test_hw"]
+    test_cpu = dino_shift(make_dino_matcher(model=vit.eval(), device="cpu", long_side=tw),
+                          th, tw, shift)
+    h, w = DINO_MATCH["hw"]
+    cpu = dino_shift(make_dino_matcher(model=vit.eval(), device="cpu"), h, w, shift)
+    vit.cuda()
+    test_card = dino_shift(make_dino_matcher(model=vit, device="cuda", long_side=tw),
+                           th, tw, shift)
+    card = make_dino_matcher(model=vit, device="cuda")
+    dino_shift(card, h, w, shift)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    trace_dir = work / "dino_match_trace"
+    t0 = time.perf_counter()
+    with profiler.trace(trace_dir):
+        with profiler.annotate("dino_match"):
+            got = dino_shift(card, h, w, shift)
+    match_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(counters)
+    mem = profiler.device_memory_stats()
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    names = {e.get("name", "") for t in traces
+             for e in json.loads(t.read_text()).get("traceEvents", [])}
+    checks = {
+        "test_size_matches": len(test_card[0]) >= 20,
+        "test_size_shift_recovered": test_card[2] > 0.7,
+        "test_size_card_matches_cpu": same_matches(test_card, test_cpu),
+        "shift_recovered": got[2] > 0.7,
+        "card_matches_cpu": same_matches(got, cpu),
+        "only_the_f32_flash_kernel": launches["flash_attention_fwd_f32"]
+        == 2 * DINO_MATCH["blocks"] and not any(
+            n for k, n in launches.items() if k != "flash_attention_fwd_f32"),
+        "trace_names_the_kernel": len(traces) == 1 and any(
+            "flash_fwd_f32_kernel" in n for n in names) and "dino_match" in names,
+        "memory_stats": 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"]
+        <= mem["bytes_limit"],
+    }
+    row = {"phase": "dino_match", "hw": [h, w], "patches": [h // 14, w // 14],
+           "matches": len(got[0]), "shift_share": got[2], "test_hw": [th, tw],
+           "test_matches": len(test_card[0]), "test_shift_share": test_card[2],
+           "match_ms_traced": match_ms, "memory": mem, "launches": launches, "checks": checks}
+    emit(row)
+    del vit, card
+    release()
+    if not all(checks.values()):
+        raise SystemExit(f"dino_match checks failed: {checks}")
+    return launches
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """nvcc -Xptxas -v output -> {kernel (mangled): its registers, shared
     memory and spills}."""
@@ -2780,6 +3264,20 @@ def main() -> int:
           "sass": {**{name: sass_counts(kernels, name) for name in ("warp", "warp_bwd")},
                    "conv2d": sass_counts(kernels, "conv2d", CONV_SASS_OPS)}})
 
+    e2e_root = Path(tempfile.mkdtemp(prefix="chip_smoke_e2e_"))
+    renderer = start_e2e_render(e2e_root)
+    try:
+        return run_phases(card, kind, e2e_root, renderer)
+    finally:
+        if renderer.is_alive():
+            renderer.terminate()
+        renderer.join()
+        shutil.rmtree(e2e_root, ignore_errors=True)
+
+
+def run_phases(card, kind, e2e_root, renderer) -> int:
+    """Every phase after the build, the e2e_protocol data rendered meanwhile
+    by `renderer` under e2e_root; the last lines as main's docstring says."""
     counters = launch_counters()
     results = run_kernel_phase(counters)
     assert set(counters) == set(results)
@@ -2805,6 +3303,10 @@ def main() -> int:
                           ("eval_queue", lambda: run_eval_queue(counters, work))):
             by_path[path] = run()
             release()
+        by_path.update(run_e2e_protocol(counters, e2e_root, renderer))
+        release()
+        run_vit_pth_phase(work)
+        by_path["dino_match"] = run_dino_match(counters, work)
     by_path["eval_cli"], eval_row = by_path["eval_cli"]
     for name, res in results.items():
         res["launches_by_path"] = {path: by_path[path][name] for path in by_path}

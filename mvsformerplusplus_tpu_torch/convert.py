@@ -87,6 +87,58 @@ def load_vit_npz(path, model: torch.nn.Module, prefix: str = "vit") -> int:
     return _load_checked(from_jax_variables({"params": {prefix: tree}}), model, path)
 
 
+def vit_state_dict_to_flax(sd: dict, depth: int) -> Dict[str, np.ndarray]:
+    """The original DINOv2 torch state dict (possibly {'model': ...}-wrapped;
+    keys 'patch_embed.proj.weight', 'blocks.N.attn.qkv.weight', 'ls1.gamma',
+    'mlp.fc1.weight', ...) -> the flat flax tree {'blocks_0/attn/qkv/kernel':
+    array, ...} of its first `depth` blocks: this package's copy of the JAX
+    package's tools/convert_dinov2.py convert_state_dict."""
+    if "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+          for k, v in sd.items()}
+    out = {"patch_embed/kernel": sd["patch_embed.proj.weight"].transpose(2, 3, 1, 0),
+           "patch_embed/bias": sd["patch_embed.proj.bias"],
+           "cls_token": sd["cls_token"], "pos_embed": sd["pos_embed"],
+           "norm/scale": sd["norm.weight"], "norm/bias": sd["norm.bias"]}
+    for i in range(depth):
+        p, q = f"blocks.{i}.", f"blocks_{i}/"
+        for norm in ("norm1", "norm2"):
+            out[f"{q}{norm}/scale"] = sd[f"{p}{norm}.weight"]
+            out[f"{q}{norm}/bias"] = sd[f"{p}{norm}.bias"]
+        for src, dst in (("attn.qkv", "attn/qkv"), ("attn.proj", "attn/proj"),
+                         ("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
+            out[f"{q}{dst}/kernel"] = sd[f"{p}{src}.weight"].T
+            out[f"{q}{dst}/bias"] = sd[f"{p}{src}.bias"]
+        out[f"{q}ls1_gamma"] = sd[f"{p}ls1.gamma"]
+        out[f"{q}ls2_gamma"] = sd[f"{p}ls2.gamma"]
+    return out
+
+
+def load_vit_pth(path, model: torch.nn.Module, prefix: str = "vit") -> int:
+    """Load the original DINOv2 torch checkpoint (.pth, the file the
+    reference downloads) into `model`'s `prefix` submodule: the state dict
+    is mapped onto the flax names (vit_state_dict_to_flax, with as many
+    blocks as the model's ViT has) and loaded as load_vit_npz loads the
+    converted .npz, so both give the same tensors bit for bit. Returns the
+    number of tensors loaded."""
+    depth = sum(1 for name, _ in getattr(model, prefix).named_children()
+                if name.startswith("blocks_"))
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    tree = _unflatten(vit_state_dict_to_flax(sd, depth).items())
+    return _load_checked(from_jax_variables({"params": {prefix: tree}}), model, path)
+
+
+def load_vit(path, model: torch.nn.Module, prefix: str = "vit") -> int:
+    """Pretrained DINOv2 weights in either format, chosen by suffix as the
+    JAX package's load_vit_tree chooses: '.npz' (the converted flax file)
+    through load_vit_npz, anything else (the torch .pth) through
+    load_vit_pth."""
+    if str(path).endswith(".npz"):
+        return load_vit_npz(path, model, prefix)
+    return load_vit_pth(path, model, prefix)
+
+
 def load_npz(path, model: torch.nn.Module) -> int:
     """Load a converted checkpoint, the npz tools/convert_reference.py
     writes (keys 'params:a/b/...' and 'batch_stats:a/b/...', the flattened

@@ -1,16 +1,20 @@
 // Non-causal flash attention forward with fp32 logits and online softmax.
 // q [B, N, H, DH], k/v [B, M, H, DH] -> out [B, N, H, DH] in the input type,
-// and optionally lse [B, H, N] f32 (natural log). DH is 16 or 64.
+// and optionally lse [B, H, N] f32 (natural log). DH is 16, 32, 64 or 128:
+// the wrapper zero-pads any other head dim up to the next of these (zero
+// channels leave q.k unchanged and give zero output columns, which it slices
+// off), as the TPU kernel pads the head dim to its 128 lanes.
 //
 // Replaces mvsformerplusplus_tpu/ops/pallas/flash_attention.py _flash_fwd
 // (_fwd_kernel / _fwd_kernel_nolse). Two kernels, chosen by type:
 //
 // flash_fwd_mma_kernel (bf16), FA2 on mma.sync. A block of 4 warps owns 64
 // query rows of one (b, h), 16 per warp; the warp keeps its Q fragments in
-// registers (ldmatrix once) and streams K/V tiles (64 keys at DH=64, 128 at
-// DH=16) through a two-stage cp.async ring whose rows are padded by 16 bytes
-// so that ldmatrix's eight row addresses fall in eight different bank
-// groups. S = Q.K^T on the tensor cores (m16n8k16, f32 accumulate); the
+// registers (ldmatrix once) and streams K/V tiles (128 keys at DH=16, 64 at
+// DH=32, 64 and 128) through a two-stage cp.async ring in dynamic shared
+// memory (87 KB at DH=128, so 2 blocks per SM there) whose rows are padded
+// by 16 bytes so that ldmatrix's eight row addresses fall in eight different
+// bank groups. S = Q.K^T on the tensor cores (m16n8k16, f32 accumulate); the
 // online softmax runs on the accumulators in registers (row max and, at the
 // end, row sum across each quad with shuffles) in base 2, with scale * log2e
 // folded into the one FFMA per logit that feeds ex2.approx; P is packed to
@@ -35,9 +39,13 @@
 //
 // flash_fwd_f32_kernel (f32): fp32 FMAs, one thread per query row (q and the
 // accumulator in registers); a block of 128 rows stages 64-key K/V tiles in
-// shared memory (read as broadcasts); keys are folded into the running
-// max/normalizer 16 at a time. It serves the fp32 model (tests, the
-// card-vs-CPU reference), where tensor cores would mean TF32.
+// shared memory (read as broadcasts; 32-key tiles at DH=128, to stay in the
+// 48 KB of static shared memory); keys are folded into the running
+// max/normalizer 16 at a time. Its per-thread q and accumulator rows are DH
+// registers each, so at DH=128 they spill to local memory (ptxas's spill
+// line in chip_smoke.py's build phase). It serves the fp32 model (tests,
+// the card-vs-CPU reference, the DINOv2 matcher), where tensor cores would
+// mean TF32.
 #include "flash_mma.cuh"
 
 using flash::bf16;
@@ -51,6 +59,8 @@ template <int DH>
 struct FwdTile {
   static constexpr int BM = DH == 16 ? 128 : 64;  // keys per K/V tile
   static constexpr int LD = DH + 8;               // padded shared row, elements
+  // dynamic shared memory: the Q tile, then the two-stage K and V rings
+  static constexpr int SMEM = (MMA_BN + 4 * BM) * LD * (int)sizeof(bf16);
 };
 
 template <int DH>
@@ -62,9 +72,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KT = DH / 16;  // k16 steps of Q.K^T
   constexpr int NT = BM / 8;   // n-tiles of S
   constexpr int DT = DH / 8;   // n-tiles of O
-  __shared__ __align__(16) bf16 qs[MMA_BN * LD];
-  __shared__ __align__(16) bf16 ks[2][BM * LD];
-  __shared__ __align__(16) bf16 vs[2][BM * LD];
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(fwd_smem);  // [MMA_BN * LD]
+  bf16* const ks = qs + MMA_BN * LD;  // [2][BM * LD], stage st at ks + st * BM * LD
+  bf16* const vs = ks + 2 * BM * LD;   // [2][BM * LD]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / h, hh = bh % h;
@@ -76,8 +87,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tiles = (m + BM - 1) / BM;
 
   flash::load_rows_async<MMA_BN, DH>(qs, LD, qb, rs, q0, n, tid, MMA_THREADS);
-  flash::load_rows_async<BM, DH>(ks[0], LD, kb, rs, 0, m, tid, MMA_THREADS);
-  flash::load_rows_async<BM, DH>(vs[0], LD, vb, rs, 0, m, tid, MMA_THREADS);
+  flash::load_rows_async<BM, DH>(ks, LD, kb, rs, 0, m, tid, MMA_THREADS);
+  flash::load_rows_async<BM, DH>(vs, LD, vb, rs, 0, m, tid, MMA_THREADS);
   flash::cp_async_commit();
 
   uint32_t qf[KT][4];
@@ -91,8 +102,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < tiles; ++t) {
     const int st = t & 1;
     if (t + 1 < tiles) {
-      flash::load_rows_async<BM, DH>(ks[st ^ 1], LD, kb, rs, (t + 1) * BM, m, tid, MMA_THREADS);
-      flash::load_rows_async<BM, DH>(vs[st ^ 1], LD, vb, rs, (t + 1) * BM, m, tid, MMA_THREADS);
+      bf16* const kn = ks + (st ^ 1) * BM * LD;
+      bf16* const vn = vs + (st ^ 1) * BM * LD;
+      flash::load_rows_async<BM, DH>(kn, LD, kb, rs, (t + 1) * BM, m, tid, MMA_THREADS);
+      flash::load_rows_async<BM, DH>(vn, LD, vb, rs, (t + 1) * BM, m, tid, MMA_THREADS);
     }
     flash::cp_async_commit();
     flash::cp_async_wait<1>();
@@ -111,7 +124,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
         uint32_t kf[4];
-        flash::ldmatrix_x4(kf, ks[st] + flash::b_off(lane, j2 * 16, kt * 16, LD));
+        flash::ldmatrix_x4(kf, ks + st * BM * LD + flash::b_off(lane, j2 * 16, kt * 16, LD));
         flash::mma_bf16(s[2 * j2], qf[kt], kf[0], kf[1]);
         flash::mma_bf16(s[2 * j2 + 1], qf[kt], kf[2], kf[3]);
       }
@@ -166,7 +179,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t vf[4];
-        flash::ldmatrix_x4_trans(vf, vs[st] + flash::bt_off(lane, kk * 16, dp * 16, LD));
+        flash::ldmatrix_x4_trans(vf, vs + st * BM * LD + flash::bt_off(lane, kk * 16, dp * 16, LD));
         flash::mma_bf16(o[2 * dp], pa[kk], vf[0], vf[1]);
         flash::mma_bf16(o[2 * dp + 1], pa[kk], vf[2], vf[3]);
       }
@@ -198,7 +211,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ------------------------------------------------------------------ f32 SIMT
 
 constexpr int F32_BN = 128;  // query rows per block, one per thread
-constexpr int F32_BM = 64;   // keys per shared-memory tile
 constexpr int F32_CH = 16;   // keys per online-softmax update
 constexpr float NEG = -1e30f;
 
@@ -207,6 +219,7 @@ __global__ void __launch_bounds__(F32_BN)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int n, int m, int h, float scale) {
+  constexpr int F32_BM = DH >= 128 ? 32 : 64;  // keys per shared-memory tile
   __shared__ __align__(16) float ks[F32_BM][DH];
   __shared__ __align__(16) float vs[F32_BM][DH];
   const int bh = blockIdx.y;
@@ -282,41 +295,58 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (lse != nullptr) lse[(int64_t)bh * n + row] = mx + logf(l);
 }
 
+template <int DH>
+static int launch_fwd_mma(const void* q, const void* k, const void* v, void* out, void* lse,
+                          int b, int n, int m, int h, float scale, cudaStream_t st) {
+  constexpr int bytes = FwdTile<DH>::SMEM;
+  if (bytes > 48 * 1024) {
+    static const cudaError_t once = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (once != cudaSuccess) return (int)once;
+  }
+  const dim3 grid((n + MMA_BN - 1) / MMA_BN, b * h);
+  flash_fwd_mma_kernel<DH><<<grid, MMA_THREADS, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)lse, n, m, h,
+      scale * flash::LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+static int launch_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse,
+                          int b, int n, int m, int h, float scale, cudaStream_t st) {
+  const dim3 grid((n + F32_BN - 1) / F32_BN, b * h);
+  flash_fwd_f32_kernel<DH><<<grid, F32_BN, 0, st>>>((const float*)q, (const float*)k,
+                                                    (const float*)v, (float*)out, (float*)lse,
+                                                    n, m, h, scale);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int b, int n, int m, int h, int dh, float scale,
                                        void* stream) {
-  if ((dh != 16 && dh != 64) || m < 1 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  if (m < 1 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
   if (b * n == 0) return 0;
-  const dim3 grid((n + MMA_BN - 1) / MMA_BN, b * h);
-  const float scale_log2 = scale * flash::LOG2E;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dh == 16) {
-    flash_fwd_mma_kernel<16><<<grid, MMA_THREADS, 0, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)lse, n, m, h,
-        scale_log2);
-  } else {
-    flash_fwd_mma_kernel<64><<<grid, MMA_THREADS, 0, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)lse, n, m, h,
-        scale_log2);
+  switch (dh) {
+    case 16: return launch_fwd_mma<16>(q, k, v, out, lse, b, n, m, h, scale, st);
+    case 32: return launch_fwd_mma<32>(q, k, v, out, lse, b, n, m, h, scale, st);
+    case 64: return launch_fwd_mma<64>(q, k, v, out, lse, b, n, m, h, scale, st);
+    case 128: return launch_fwd_mma<128>(q, k, v, out, lse, b, n, m, h, scale, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int b, int n, int m, int h, int dh, float scale,
                                        void* stream) {
-  if ((dh != 16 && dh != 64) || m < 1) return (int)cudaErrorInvalidValue;
+  if (m < 1) return (int)cudaErrorInvalidValue;
   if (b * n == 0) return 0;
-  const dim3 grid((n + F32_BN - 1) / F32_BN, b * h);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dh == 16) {
-    flash_fwd_f32_kernel<16><<<grid, F32_BN, 0, st>>>((const float*)q, (const float*)k,
-                                                      (const float*)v, (float*)out, (float*)lse,
-                                                      n, m, h, scale);
-  } else {
-    flash_fwd_f32_kernel<64><<<grid, F32_BN, 0, st>>>((const float*)q, (const float*)k,
-                                                      (const float*)v, (float*)out, (float*)lse,
-                                                      n, m, h, scale);
+  switch (dh) {
+    case 16: return launch_fwd_f32<16>(q, k, v, out, lse, b, n, m, h, scale, st);
+    case 32: return launch_fwd_f32<32>(q, k, v, out, lse, b, n, m, h, scale, st);
+    case 64: return launch_fwd_f32<64>(q, k, v, out, lse, b, n, m, h, scale, st);
+    case 128: return launch_fwd_f32<128>(q, k, v, out, lse, b, n, m, h, scale, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -3,7 +3,10 @@
 // delta = rowsum(dout * out) [B, H, N] f32. Probabilities are rebuilt as
 // p = exp(scale q.k - lse); ds = p (dout.v - delta); dv = sum_i p dout_i,
 // dk = scale sum_i ds q_i, dq = scale sum_j ds k_j (with respect to the
-// unscaled q). Nothing [N, M]-shaped touches device memory.
+// unscaled q). Nothing [N, M]-shaped touches device memory. DH is 16, 32,
+// 64 or 128; the wrapper zero-pads any other head dim to the next of these
+// and slices the gradients back (the padded columns of dq, dk and dv come out
+// zero: q, k, v and dout are zero there).
 //
 // Replaces mvsformerplusplus_tpu/ops/pallas/flash_attention.py _flash_bwd
 // (_bwd_dkv_kernel, _bwd_dq_kernel). Two routes, chosen by type:
@@ -13,8 +16,11 @@
 // are computed once instead of once per kernel of a split. A block of 4
 // warps owns 64 key rows of one (b, h), 16 per warp, with K and V fragments
 // in registers (ldmatrix once), and streams query tiles (64 rows at DH=16,
-// 32 at DH=64) of q and dout (two-stage cp.async ring, zero-filled past N)
-// with lse * log2e and delta. Per tile each warp computes, in the
+// 32 at DH=32, 64 and 128) of q and dout (two-stage cp.async ring, zero-
+// filled past N) with lse * log2e and delta, in dynamic shared memory (75 KB
+// at DH=128, 2 blocks per SM). At DH=128 the K and V fragments and the dK and
+// dV accumulators alone take 192 registers a thread: ptxas's spill line
+// (chip_smoke.py's build phase) says what spills there. Per tile each warp computes, in the
 // accumulator layout of its 16 keys x the tile's queries:
 //   S^T = K.Q^T and dP^T = V.dO^T (tensor cores, f32 accumulate);
 //   P^T = ex2(S^T scale log2e - lse log2e) (one FFMA + ex2 per logit; lse =
@@ -34,8 +40,10 @@
 // v and the dk/dv accumulators in registers) and streams 32-query tiles of
 // scaled q, dout, lse and delta through shared memory (read as broadcasts);
 // the dQ kernel gives each thread one query row and streams 64-key K/V
-// tiles. They serve the fp32 model (tests, the card-vs-CPU reference), where
-// tensor cores would mean TF32.
+// tiles (32 at DH=128, to stay in the 48 KB of static shared memory). At
+// DH=128 their per-thread rows spill to local memory. They serve the fp32
+// model (tests, the card-vs-CPU reference), where tensor cores would mean
+// TF32.
 #include "flash_mma.cuh"
 
 using flash::bf16;
@@ -50,6 +58,10 @@ struct BwdTile {
   static constexpr int BQ = DH == 16 ? 64 : 32;  // query rows per tile
   static constexpr int LD = DH + 8;              // padded q/dout/k/v row, elements
   static constexpr int LDS = BQ + 8;             // padded dS^T row, elements
+  // dynamic shared memory: K, V, the two-stage q and dout rings and dS^T
+  // (bf16), then the two-stage lse and delta rows (f32)
+  static constexpr int HALVES = (2 * MMA_BKV + 4 * BQ) * LD + MMA_BKV * LDS;
+  static constexpr int SMEM = HALVES * (int)sizeof(bf16) + 4 * BQ * (int)sizeof(float);
 };
 
 template <int DH>
@@ -66,13 +78,14 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // dQ = dS.K: BQ/16 m-tiles of queries, each split over WPM warps by head dim
   constexpr int MQ = BQ / 16, WPM = 4 / MQ, DW = DT / WPM;
   static_assert(MQ * WPM == 4 && DW % 2 == 0, "dQ work split");
-  __shared__ __align__(16) bf16 ks[MMA_BKV * LD];
-  __shared__ __align__(16) bf16 vs[MMA_BKV * LD];
-  __shared__ __align__(16) bf16 qs[2][BQ * LD];
-  __shared__ __align__(16) bf16 dos[2][BQ * LD];
-  __shared__ __align__(16) bf16 dss[MMA_BKV * LDS];
-  __shared__ __align__(16) float lse_s[2][BQ];
-  __shared__ __align__(16) float delta_s[2][BQ];
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* const ks = reinterpret_cast<bf16*>(bwd_smem);  // [MMA_BKV * LD]
+  bf16* const vs = ks + MMA_BKV * LD;                   // [MMA_BKV * LD]
+  bf16* const qs = vs + MMA_BKV * LD;                   // [2][BQ * LD]
+  bf16* const dos = qs + 2 * BQ * LD;                   // [2][BQ * LD]
+  bf16* const dss = dos + 2 * BQ * LD;                  // [MMA_BKV * LDS]
+  float* const lse_s = reinterpret_cast<float*>(ks + BwdTile<DH>::HALVES);  // [2][BQ]
+  float* const delta_s = lse_s + 2 * BQ;                                    // [2][BQ]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / h, hh = bh % h;
@@ -85,12 +98,14 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tiles = (n + BQ - 1) / BQ;
 
   auto load_tile = [&](int t, int st) {
-    flash::load_rows_async<BQ, DH>(qs[st], LD, q + qoff, rs, t * BQ, n, tid, MMA_THREADS);
-    flash::load_rows_async<BQ, DH>(dos[st], LD, dout + qoff, rs, t * BQ, n, tid, MMA_THREADS);
+    bf16* const qt = qs + st * BQ * LD;
+    bf16* const dot = dos + st * BQ * LD;
+    flash::load_rows_async<BQ, DH>(qt, LD, q + qoff, rs, t * BQ, n, tid, MMA_THREADS);
+    flash::load_rows_async<BQ, DH>(dot, LD, dout + qoff, rs, t * BQ, n, tid, MMA_THREADS);
     for (int i = tid; i < BQ; i += MMA_THREADS) {
       const int row = t * BQ + i;
-      lse_s[st][i] = row < n ? lseb[row] * flash::LOG2E : INFINITY;
-      delta_s[st][i] = row < n ? deltab[row] : 0.f;
+      lse_s[st * BQ + i] = row < n ? lseb[row] * flash::LOG2E : INFINITY;
+      delta_s[st * BQ + i] = row < n ? deltab[row] : 0.f;
     }
   };
 
@@ -132,10 +147,10 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
         uint32_t f[4];
-        flash::ldmatrix_x4(f, qs[st] + flash::b_off(lane, j2 * 16, kt * 16, LD));
+        flash::ldmatrix_x4(f, qs + st * BQ * LD + flash::b_off(lane, j2 * 16, kt * 16, LD));
         flash::mma_bf16(s[2 * j2], kf[kt], f[0], f[1]);
         flash::mma_bf16(s[2 * j2 + 1], kf[kt], f[2], f[3]);
-        flash::ldmatrix_x4(f, dos[st] + flash::b_off(lane, j2 * 16, kt * 16, LD));
+        flash::ldmatrix_x4(f, dos + st * BQ * LD + flash::b_off(lane, j2 * 16, kt * 16, LD));
         flash::mma_bf16(dp[2 * j2], vf[kt], f[0], f[1]);
         flash::mma_bf16(dp[2 * j2 + 1], vf[kt], f[2], f[3]);
       }
@@ -147,8 +162,8 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
       const int c = j * 8 + (lane & 3) * 2;
-      const float2 l2 = *reinterpret_cast<const float2*>(&lse_s[st][c]);
-      const float2 dl = *reinterpret_cast<const float2*>(&delta_s[st][c]);
+      const float2 l2 = *reinterpret_cast<const float2*>(&lse_s[st * BQ + c]);
+      const float2 dl = *reinterpret_cast<const float2*>(&delta_s[st * BQ + c]);
       float p[4], ds[4];
       p[0] = flash::exp2_approx(fmaf(s[j][0], scale_log2, -l2.x));
       p[1] = flash::exp2_approx(fmaf(s[j][1], scale_log2, -l2.y));
@@ -176,10 +191,10 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int d2 = 0; d2 < DT / 2; ++d2) {
         uint32_t f[4];
-        flash::ldmatrix_x4_trans(f, dos[st] + flash::bt_off(lane, kk * 16, d2 * 16, LD));
+        flash::ldmatrix_x4_trans(f, dos + st * BQ * LD + flash::bt_off(lane, kk * 16, d2 * 16, LD));
         flash::mma_bf16(dva[2 * d2], pa[kk], f[0], f[1]);
         flash::mma_bf16(dva[2 * d2 + 1], pa[kk], f[2], f[3]);
-        flash::ldmatrix_x4_trans(f, qs[st] + flash::bt_off(lane, kk * 16, d2 * 16, LD));
+        flash::ldmatrix_x4_trans(f, qs + st * BQ * LD + flash::bt_off(lane, kk * 16, d2 * 16, LD));
         flash::mma_bf16(dka[2 * d2], dsa[kk], f[0], f[1]);
         flash::mma_bf16(dka[2 * d2 + 1], dsa[kk], f[2], f[3]);
       }
@@ -240,7 +255,6 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 constexpr int F32_BK = 128;  // dK/dV: key rows per block, one per thread
 constexpr int F32_BQ = 32;   // dK/dV: query rows per shared-memory tile
 constexpr int F32_BN = 128;  // dQ: query rows per block, one per thread
-constexpr int F32_BM = 64;   // dQ: key rows per shared-memory tile
 
 template <int DH>
 __global__ void __launch_bounds__(F32_BK)
@@ -330,6 +344,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dq, int n, int m, int h, float scale) {
+  constexpr int F32_BM = DH >= 128 ? 32 : 64;  // key rows per shared-memory tile
   __shared__ __align__(16) float ks[F32_BM][DH];
   __shared__ __align__(16) float vs[F32_BM][DH];
   const int bh = blockIdx.y;
@@ -389,63 +404,103 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int d = 0; d < DH; ++d) dq[qoff + d] = dqr[d] * scale;
 }
 
+static bool head_dim_ok(int dh) { return dh == 16 || dh == 32 || dh == 64 || dh == 128; }
+
+template <int DH>
+static int launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
+                          int b, int n, int m, int h, float scale, cudaStream_t st) {
+  constexpr int bytes = BwdTile<DH>::SMEM;
+  if (bytes > 48 * 1024) {
+    static const cudaError_t once = cudaFuncSetAttribute(
+        flash_bwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (once != cudaSuccess) return (int)once;
+  }
+  const dim3 grid((m + MMA_BKV - 1) / MMA_BKV, b * h);
+  flash_bwd_mma_kernel<DH><<<grid, MMA_THREADS, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+      (const float*)delta, (float*)dq_acc, (bf16*)dk, (bf16*)dv, n, m, h, scale,
+      scale * flash::LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+static int launch_bwd_dkv_f32(const float* q, const float* k, const float* v, const float* dout,
+                              const float* lse, const float* delta, float* dk, float* dv, int b,
+                              int n, int m, int h, float scale, cudaStream_t st) {
+  const dim3 grid((m + F32_BK - 1) / F32_BK, b * h);
+  flash_bwd_dkv_f32_kernel<DH><<<grid, F32_BK, 0, st>>>(q, k, v, dout, lse, delta, dk, dv, n, m,
+                                                        h, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+static int launch_bwd_dq_f32(const float* q, const float* k, const float* v, const float* dout,
+                             const float* lse, const float* delta, float* dq, int b, int n,
+                             int m, int h, float scale, cudaStream_t st) {
+  const dim3 grid((n + F32_BN - 1) / F32_BN, b * h);
+  flash_bwd_dq_f32_kernel<DH><<<grid, F32_BN, 0, st>>>(q, k, v, dout, lse, delta, dq, n, m, h,
+                                                       scale);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int flash_attention_bwd_mma(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dq_acc, void* dk, void* dv, int b, int n, int m,
                                        int h, int dh, float scale, void* stream) {
-  if ((dh != 16 && dh != 64) || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(dh) || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
   if (b * m == 0) return 0;
-  const dim3 grid((m + MMA_BKV - 1) / MMA_BKV, b * h);
-  const float scale_log2 = scale * flash::LOG2E;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dh == 16) {
-    flash_bwd_mma_kernel<16><<<grid, MMA_THREADS, 0, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-        (const float*)delta, (float*)dq_acc, (bf16*)dk, (bf16*)dv, n, m, h, scale, scale_log2);
-  } else {
-    flash_bwd_mma_kernel<64><<<grid, MMA_THREADS, 0, st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-        (const float*)delta, (float*)dq_acc, (bf16*)dk, (bf16*)dv, n, m, h, scale, scale_log2);
+#define BWD_MMA(D) \
+  launch_bwd_mma<D>(q, k, v, dout, lse, delta, dq_acc, dk, dv, b, n, m, h, scale, st)
+  switch (dh) {
+    case 16: return BWD_MMA(16);
+    case 32: return BWD_MMA(32);
+    case 64: return BWD_MMA(64);
+    case 128: return BWD_MMA(128);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef BWD_MMA
 }
 
 extern "C" int flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse, const void* delta,
                                            void* dk, void* dv, int b, int n, int m, int h, int dh,
                                            float scale, void* stream) {
-  if (dh != 16 && dh != 64) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(dh)) return (int)cudaErrorInvalidValue;
   if (b * m == 0) return 0;
-  const dim3 grid((m + F32_BK - 1) / F32_BK, b * h);
   cudaStream_t st = (cudaStream_t)stream;
-  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v,
-              *df = (const float*)dout, *lf = (const float*)lse, *dlf = (const float*)delta;
-  if (dh == 16) {
-    flash_bwd_dkv_f32_kernel<16><<<grid, F32_BK, 0, st>>>(qf, kf, vf, df, lf, dlf, (float*)dk,
-                                                          (float*)dv, n, m, h, scale);
-  } else {
-    flash_bwd_dkv_f32_kernel<64><<<grid, F32_BK, 0, st>>>(qf, kf, vf, df, lf, dlf, (float*)dk,
-                                                          (float*)dv, n, m, h, scale);
+#define BWD_DKV(D)                                                                            \
+  launch_bwd_dkv_f32<D>((const float*)q, (const float*)k, (const float*)v, (const float*)dout, \
+                        (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, b, n, \
+                        m, h, scale, st)
+  switch (dh) {
+    case 16: return BWD_DKV(16);
+    case 32: return BWD_DKV(32);
+    case 64: return BWD_DKV(64);
+    case 128: return BWD_DKV(128);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef BWD_DKV
 }
 
 extern "C" int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* delta,
                                           void* dq, int b, int n, int m, int h, int dh,
                                           float scale, void* stream) {
-  if (dh != 16 && dh != 64) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(dh)) return (int)cudaErrorInvalidValue;
   if (b * n == 0) return 0;
-  const dim3 grid((n + F32_BN - 1) / F32_BN, b * h);
   cudaStream_t st = (cudaStream_t)stream;
-  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v,
-              *df = (const float*)dout, *lf = (const float*)lse, *dlf = (const float*)delta;
-  if (dh == 16) {
-    flash_bwd_dq_f32_kernel<16><<<grid, F32_BN, 0, st>>>(qf, kf, vf, df, lf, dlf, (float*)dq, n,
-                                                         m, h, scale);
-  } else {
-    flash_bwd_dq_f32_kernel<64><<<grid, F32_BN, 0, st>>>(qf, kf, vf, df, lf, dlf, (float*)dq, n,
-                                                         m, h, scale);
+#define BWD_DQ(D)                                                                            \
+  launch_bwd_dq_f32<D>((const float*)q, (const float*)k, (const float*)v, (const float*)dout, \
+                       (const float*)lse, (const float*)delta, (float*)dq, b, n, m, h, scale, \
+                       st)
+  switch (dh) {
+    case 16: return BWD_DQ(16);
+    case 32: return BWD_DQ(32);
+    case 64: return BWD_DQ(64);
+    case 128: return BWD_DQ(128);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef BWD_DQ
 }

@@ -68,11 +68,15 @@ def _area_fast(img: np.ndarray, fy: int, fx: int) -> np.ndarray:
 
 def resize_area(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA) for a
-    float32 [H, W] or [H, W, C] image shrunk in both axes: every output pixel
-    is the fractional-coverage mean of its source cell, accumulated as
-    OpenCV does (each source row across its x-cell, then those rows down the
-    y-cell, in float32)."""
-    img = np.asarray(img, np.float32)
+    float32 or uint8 [H, W] or [H, W, C] image shrunk in both axes: every
+    output pixel is the fractional-coverage mean of its source cell,
+    accumulated as OpenCV does (each source row across its x-cell, then
+    those rows down the y-cell, in float32). A uint8 image gives uint8, as
+    OpenCV's: an integer shrink sums each cell exactly and rounds half up
+    ((sum + n/2) / n), any other shrink rounds the float32 mean to nearest,
+    ties to even."""
+    u8 = np.asarray(img).dtype == np.uint8
+    img = np.asarray(img) if u8 else np.asarray(img, np.float32)
     sh, sw = img.shape[:2]
     if (height, width) == (sh, sw):
         return img.copy()
@@ -80,7 +84,16 @@ def resize_area(img: np.ndarray, height: int, width: int) -> np.ndarray:
         raise ValueError(f"resize_area shrinks only: {(sh, sw)} -> {(height, width)}")
     scale_y, scale_x = 1.0 / (height / sh), 1.0 / (width / sw)
     iy, ix = round(scale_y), round(scale_x)
-    if abs(scale_y - iy) < 2.220446049250313e-16 and abs(scale_x - ix) < 2.220446049250313e-16:
+    fast = (abs(scale_y - iy) < 2.220446049250313e-16
+            and abs(scale_x - ix) < 2.220446049250313e-16)
+    if u8:
+        if fast:
+            cells = img[:height * iy, :width * ix].reshape(
+                (height, iy, width, ix) + img.shape[2:]).astype(np.int32).sum(axis=(1, 3))
+            return ((cells + iy * ix // 2) // (iy * ix)).astype(np.uint8)
+        out = resize_area(img.astype(np.float32), height, width)
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    if fast:
         return _area_fast(img, iy, ix)
     xi, xw = _area_table(sw, width)
     yi, yw = _area_table(sh, height)

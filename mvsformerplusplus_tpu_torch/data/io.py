@@ -307,7 +307,15 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def write_png(filename, img: np.ndarray) -> None:
     """uint8 [H, W] or [H, W, C] (C 1-4: gray, gray+alpha, RGB, RGBA) ->
-    8-bit PNG, every row unfiltered."""
+    8-bit PNG file, every row unfiltered (encode_png)."""
+    data = encode_png(img)
+    with open(filename, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H, W] or [H, W, C] (C 1-4: gray, gray+alpha, RGB, RGBA) ->
+    the bytes of an 8-bit PNG, every row unfiltered."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8, got {img.dtype}")
@@ -318,8 +326,6 @@ def write_png(filename, img: np.ndarray) -> None:
     h, w, c = img.shape
     ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
-    with open(filename, "wb") as f:
-        f.write(_PNG_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+    return b"".join((_PNG_SIGNATURE,
+                     _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)),
+                     _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)), _chunk(b"IEND", b"")))

@@ -150,6 +150,23 @@ class GeometricScene:
         depth = np.where(np.isfinite(best_tau), best_tau, 0.0)
         return img.reshape(h, w, 3).astype(np.float32), depth.reshape(h, w).astype(np.float32)
 
+    def point_to_surface_distance(self, pts: np.ndarray) -> np.ndarray:
+        """Distance from each point [N, 3] to the union of quads (a fused
+        cloud's accuracy): the distance to each quad's closest point, its
+        plane coordinates clamped to the quad, and the least over quads."""
+        best = np.full(len(pts), np.inf)
+        for p0, e1, e2, _ in self.quads:
+            rel = pts - p0[None]
+            g11, g12, g22 = e1 @ e1, e1 @ e2, e2 @ e2
+            b1 = rel @ e1
+            b2 = rel @ e2
+            det = g11 * g22 - g12 * g12
+            s = np.clip((g22 * b1 - g12 * b2) / det, 0, 1)
+            t = np.clip((g11 * b2 - g12 * b1) / det, 0, 1)
+            closest = p0[None] + s[:, None] * e1[None] + t[:, None] * e2[None]
+            best = np.minimum(best, np.linalg.norm(pts - closest, axis=1))
+        return best
+
 
 def lookat_extrinsic(cam_pos, target, up=(0.0, -1.0, 0.0)) -> np.ndarray:
     """World-to-camera 4x4 with +z toward `target` (x right, y down)."""
@@ -177,6 +194,28 @@ def geometric_cameras(n_views: int, h: int, w: int, baseline: float = 55.0):
         dx = baseline * ((i + 1) // 2) * (1 if i % 2 else -1)
         dy = 0.35 * baseline * ((i % 3) - 1)
         cams.append((K.copy(), lookat_extrinsic([dx, dy, 0.0], target)))
+    return cams
+
+
+def tnt_cameras(n_views: int, h: int, w: int, arc_deg: float = 80.0, height_deg: float = 45.0,
+                roll_deg: float = 10.0, radius: float = 650.0):
+    """A Tanks-and-Temples-like rig: wide-baseline views on an orbit segment
+    around the scene centre at varied heights, each with a slight roll, a
+    short focal length (wide field of view); the reference view in the
+    middle, sources staggered outward: [(K 3x3, E 4x4), ...] at (h, w)."""
+    f = 1160.0 * (w / 1920.0)
+    K = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]], np.float32)
+    target = np.array([0.0, 0.0, 650.0])
+    cams = []
+    for i in range(n_views):
+        t = ((i + 1) // 2) * (1 if i % 2 else -1) / max(1, (n_views - 1) // 2)
+        yaw = np.deg2rad(arc_deg / 2.0 * t)
+        pitch = np.deg2rad(height_deg / 2.0 * np.sin(3.1 * t))
+        pos = target + radius * np.array([np.sin(yaw) * np.cos(pitch), np.sin(pitch),
+                                          -np.cos(yaw) * np.cos(pitch)])
+        roll = np.deg2rad(roll_deg) * np.sin(7.3 * t)
+        up = np.array([np.sin(roll), -np.cos(roll), 0.0])
+        cams.append((K.copy(), lookat_extrinsic(pos, target, up=up)))
     return cams
 
 
@@ -224,19 +263,20 @@ def make_geometric_dtu(root: Path, n_views: int = 5, n_lights: int = 7, h: int =
 
 def make_geometric_eval_scan(root: Path, scan: str = "scan1", n_views: int = 5, h: int = 1152,
                              w: int = 1536, ndepth: int = 192, seed: int = 0,
-                             scene: "GeometricScene" = None):
+                             scene: "GeometricScene" = None, cameras=None):
     """The MVSNet eval layout (scan/images/*.jpg at quality 97, scan/cams,
     scan/pair.txt, every other view a source of each) rendered from the
     analytic scene, and its ground-truth depth PFMs under
-    root/gt_depths/<scan>/ (the eval CLI's --gt_depth_path). Returns the
-    scene."""
+    root/gt_depths/<scan>/ (the eval CLI's --gt_depth_path). `cameras`, a
+    [(K, E), ...] list (e.g. tnt_cameras), replaces the DTU-like rig.
+    Returns the scene."""
     scene = scene or GeometricScene(seed)
     sd = Path(root) / scan
     (sd / "images").mkdir(parents=True, exist_ok=True)
     (sd / "cams").mkdir(parents=True, exist_ok=True)
     gt_dir = Path(root) / "gt_depths" / scan
     gt_dir.mkdir(parents=True, exist_ok=True)
-    cams = geometric_cameras(n_views, h, w)
+    cams = cameras if cameras is not None else geometric_cameras(n_views, h, w)
     depths = []
     for vid, (K, E) in enumerate(cams):
         img, depth = scene.render(K, E, h, w)

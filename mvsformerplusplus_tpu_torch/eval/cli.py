@@ -17,8 +17,10 @@ one --outdir/<scan>.ply per scan, coloured from the written images.
 Weights: --ckpt, a checkpoints directory of the training command line (its
 best epoch, else its last); --ckpt_npz, a converted reference checkpoint
 (convert.load_npz); with neither, weights drawn from a seed (a warning says
-so) and the frozen ViT from arch.args.vit_path when that file exists
-(CasMVSNet, model_type "casmvs", has none and loads nothing).
+so) and the frozen ViT from arch.args.vit_path when that file exists, the
+converted flax .npz or else the original DINOv2 torch .pth, chosen by
+suffix as test.py's load_vit_tree does (convert.load_vit; CasMVSNet,
+model_type "casmvs", has no ViT and loads nothing).
 
 It runs on the card; without CUDA it raises unless --device cpu is given.
 
@@ -49,7 +51,7 @@ import numpy as np
 import torch
 
 from ..config import build_model, load_config
-from ..convert import load_npz, load_vit_npz
+from ..convert import load_npz, load_vit
 from ..data.eval_dataset import EvalDataset
 from ..data.image import resize_linear, resize_nearest
 from ..data.io import build_camera_stack, read_cam_file, read_image, read_pair_file, read_pfm
@@ -162,7 +164,7 @@ def _load_weights(model, cfg, args) -> None:
         if vit_path and not hasattr(model, "vit"):
             log.info("%s has no ViT: nothing loaded from %s", type(model).__name__, vit_path)
         elif vit_path and Path(vit_path).exists():
-            n = load_vit_npz(vit_path, model)
+            n = load_vit(vit_path, model)
             log.info("loaded %d pretrained ViT tensors from %s", n, vit_path)
 
 

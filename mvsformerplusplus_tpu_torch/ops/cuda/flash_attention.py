@@ -24,18 +24,28 @@ The bf16 kernels round P (and in the backward dS) to bf16 before a product,
 as the TPU kernel does (`p.astype(v.dtype)`), so they are held to their fp32
 plain versions within a rounding budget (`budget_tolerance`), not within one
 ulp of the output.
+
+The kernels are instantiated at head dims 16, 32, 64 and 128 (`HEAD_DIMS`).
+The wrappers take any head dim up to 128: they zero-pad q, k, v (and dout)
+to the next instantiated width (`padded_head_dim`, `pad_head_dim`) and slice
+the outputs and gradients back. Zero channels leave every q.k, so P and lse,
+unchanged and give zero output and gradient columns; the scale stays the
+caller's, computed from the true head dim. So padding adds no rounding. The
+TPU kernel pads the head dim to its 128 lanes the same way.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import check, load, ptr, stream
 
 Tensor = torch.Tensor
 
-HEAD_DIMS = (16, 64)
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are instantiated at
 U_BF16 = 2.0 ** -8  # bf16's unit roundoff
 
 
@@ -147,11 +157,23 @@ def attention_delta(out: Tensor, dout: Tensor) -> Tensor:
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def padded_head_dim(dh: int) -> int:
+    """The kernel width a head dim runs at: the least of HEAD_DIMS >= dh."""
+    for width in HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"flash kernels take head dims up to {HEAD_DIMS[-1]}, got {dh}")
+
+
+def pad_head_dim(x: Tensor, width: int) -> Tensor:
+    """x [..., Dh] zero-padded to [..., width] (x itself when Dh == width)."""
+    return x if x.shape[-1] == width else F.pad(x, (0, width - x.shape[-1]))
+
+
 def _check_qkv(q: Tensor, k: Tensor, v: Tensor) -> None:
     b, n, h, dh = q.shape
     m = k.shape[1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {dh}")
+    padded_head_dim(dh)  # raises above the widest kernel
     if k.shape != (b, m, h, dh) or v.shape != k.shape or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q/k/v mismatch: {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     if m < 1:
@@ -160,11 +182,15 @@ def _check_qkv(q: Tensor, k: Tensor, v: Tensor) -> None:
         raise TypeError(f"flash kernels take bfloat16 or float32, got {q.dtype}")
 
 
-def _aligned(x: Tensor) -> Tensor:
-    """Contiguous, starting on a 16-byte boundary (the kernels' cp.async and
-    vector loads need it)."""
-    x = x.contiguous()
+def _aligned(x: Tensor, width: Optional[int] = None) -> Tensor:
+    """x (padded to `width` channels where given) contiguous, starting on a
+    16-byte boundary (the kernels' cp.async and vector loads need it)."""
+    x = (x if width is None else pad_head_dim(x, width)).contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _unpad(x: Tensor, dh: int) -> Tensor:
+    return x if x.shape[-1] == dh else x[..., :dh].contiguous()
 
 
 def _c_fn(lib: str, name: str, n_ptrs: int):
@@ -179,26 +205,28 @@ def _c_fn(lib: str, name: str, n_ptrs: int):
 def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float,
                         return_lse: bool = False):
     """Flash attention forward. q [B, N, H, Dh], k/v [B, M, H, Dh] (bf16|f32,
-    Dh in {16, 64}) -> out [B, N, H, Dh] in q's dtype (and lse [B, H, N]
-    f32). CPU tensors take the plain version; CUDA tensors launch the bf16
-    tensor-core kernel or the f32 SIMT kernel."""
+    Dh <= 128) -> out [B, N, H, Dh] in q's dtype (and lse [B, H, N] f32).
+    CPU tensors take the plain version; CUDA tensors launch the bf16
+    tensor-core kernel or the f32 SIMT kernel at the padded head dim."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale, return_lse)
     _check_qkv(q, k, v)
     b, n, h, dh = q.shape
     m = k.shape[1]
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    width = padded_head_dim(dh)
+    q, k, v = (_aligned(x, width) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device) if return_lse else None
     mma = q.dtype == torch.bfloat16
     fn = _c_fn("flash_attention", "flash_attention_fwd_mma" if mma else "flash_attention_fwd_f32",
                5)
     check(fn(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse) if lse is not None else None,
-             b, n, m, h, dh, float(scale), stream()), fn.__name__)
+             b, n, m, h, width, float(scale), stream()), fn.__name__)
     if mma:
         flash_attention_fwd.launches_mma += 1
     else:
         flash_attention_fwd.launches_f32 += 1
+    out = _unpad(out, dh)
     return (out, lse) if return_lse else out
 
 
@@ -211,7 +239,8 @@ def _bwd_args(q, k, v, dout, lse, delta):
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (b, h, n) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be f32 [{b}, {h}, {n}], got {tuple(t.shape)} {t.dtype}")
-    return [_aligned(x) for x in (q, k, v, dout, lse, delta)]
+    width = padded_head_dim(dh)
+    return [_aligned(x, width) for x in (q, k, v, dout)] + [_aligned(lse), _aligned(delta)]
 
 
 def _f32_only(q: Tensor, what: str) -> None:
@@ -225,15 +254,16 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale):
     CUDA tensors launch the kernel."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, scale)
+    dh = q.shape[-1]
     q, k, v, dout, lse, delta = _bwd_args(q, k, v, dout, lse, delta)
     _f32_only(q, "flash_attention_bwd_dkv")
-    b, n, h, dh = q.shape
+    b, n, h, width = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _c_fn("flash_attention_bwd", "flash_attention_bwd_dkv_f32", 8)
     check(fn(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dk), ptr(dv),
-             b, n, k.shape[1], h, dh, float(scale), stream()), "flash_attention_bwd_dkv_f32")
+             b, n, k.shape[1], h, width, float(scale), stream()), "flash_attention_bwd_dkv_f32")
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, dh), _unpad(dv, dh)
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale):
@@ -242,21 +272,22 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale):
     plain version; CUDA tensors launch the kernel."""
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, scale)
+    dh = q.shape[-1]
     q, k, v, dout, lse, delta = _bwd_args(q, k, v, dout, lse, delta)
     _f32_only(q, "flash_attention_bwd_dq")
-    b, n, h, dh = q.shape
+    b, n, h, width = q.shape
     dq = torch.empty_like(q)
     fn = _c_fn("flash_attention_bwd", "flash_attention_bwd_dq_f32", 7)
     check(fn(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq),
-             b, n, k.shape[1], h, dh, float(scale), stream()), "flash_attention_bwd_dq_f32")
+             b, n, k.shape[1], h, width, float(scale), stream()), "flash_attention_bwd_dq_f32")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, dh)
 
 
 def flash_attention_bwd(q, k, v, dout, lse, delta, scale):
-    """The flash backward: q/dout [B, N, H, Dh], k/v [B, M, H, Dh] (bf16|f32),
-    lse and delta [B, H, N] f32 -> (dq, dk, dv) in the input dtype, dq with
-    respect to the unscaled q. CPU tensors take the plain version; on CUDA
+    """The flash backward: q/dout [B, N, H, Dh], k/v [B, M, H, Dh] (bf16|f32,
+    Dh <= 128), lse and delta [B, H, N] f32 -> (dq, dk, dv) in the input
+    dtype, dq with respect to the unscaled q. CPU tensors take the plain version; on CUDA
     bf16 launches the fused tensor-core kernel (dQ summed in an f32 scratch,
     scaled and cast here) and f32 the dK/dV and dQ SIMT kernels."""
     if not q.is_cuda:
@@ -264,15 +295,18 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale):
     if q.dtype == torch.float32:
         dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale)
         return flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale), dk, dv
+    dh = q.shape[-1]
     q, k, v, dout, lse, delta = _bwd_args(q, k, v, dout, lse, delta)
-    b, n, h, dh = q.shape
+    b, n, h, width = q.shape
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _c_fn("flash_attention_bwd", "flash_attention_bwd_mma", 9)
     check(fn(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq_acc), ptr(dk),
-             ptr(dv), b, n, k.shape[1], h, dh, float(scale), stream()), "flash_attention_bwd_mma")
+             ptr(dv), b, n, k.shape[1], h, width, float(scale), stream()),
+          "flash_attention_bwd_mma")
     flash_attention_bwd.launches_mma += 1
-    return (dq_acc * scale).to(q.dtype), dk, dv
+    # dq_acc's padded columns are the atomics' too: sliced off before the cast
+    return (dq_acc[..., :dh] * scale).to(q.dtype), _unpad(dk, dh), _unpad(dv, dh)
 
 
 flash_attention_fwd.launches_mma = 0

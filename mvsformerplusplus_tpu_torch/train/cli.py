@@ -18,10 +18,13 @@ trainer.log_images is false, the depth panels in images/ beside them.
 checkpoint of --dtu_model_path (or arch.dtu_model_path: a checkpoints
 directory or one .pth), with a fresh optimizer and schedule when
 arch.reset_sche is true (the default) and the checkpoint's otherwise. The
-frozen ViT loads arch.args.vit_path (the converted flax .npz) when it
-exists; otherwise a warning says the ViT is random (a model without a ViT
-loads nothing). --debug adds each top-level module's gradient norm and
-non-finite count to every logged step.
+frozen ViT loads arch.args.vit_path when it exists, by suffix as the JAX
+CLI's load_vit_tree: the converted flax .npz, or else the original DINOv2
+torch .pth (convert.load_vit); otherwise a warning says the ViT is random
+(a model without a ViT loads nothing). --debug adds each top-level
+module's gradient norm and non-finite count to every logged step.
+trainer.tensorboard mirrors the scalars and panels into a TensorBoard
+event file under <save_dir>/tb (utils/tfevents.py).
 
 It runs on the card; --device cpu runs the plain PyTorch path on the CPU.
 
@@ -55,7 +58,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..config import build_model, load_config, parse_override
-from ..convert import load_vit_npz
+from ..convert import load_vit
 from ..data.loader import BalancedSchedule, ConcatDataset, TrainLoader
 from ..data.mvs_dataset import BlendedTrainDataset, DTUTrainDataset, MultiScaleArgs
 from ..parallel.dist import Layout, launch, make_layout
@@ -206,6 +209,23 @@ def _finetune_source(cfg, args, trainer: Trainer) -> None:
         log.info("finetuning from %s (epoch %s), schedule continued at step %s", src, epoch, step)
 
 
+def load_pretrained_vit(model, vit_path) -> int:
+    """arch.args.vit_path into the model's ViT, the converted .npz or the
+    torch .pth by suffix (convert.load_vit): a model without a ViT loads
+    nothing, a missing file leaves the ViT random (with a warning). Returns
+    the number of tensors loaded."""
+    if not hasattr(model, "vit"):
+        log.info("%s has no ViT: nothing loaded from %s", type(model).__name__, vit_path)
+        return 0
+    if not Path(vit_path).exists():
+        log.warning("!!!No weight in %s: the frozen ViT is RANDOM; only smoke runs should "
+                    "proceed", vit_path)
+        return 0
+    n = load_vit(vit_path, model)
+    log.info("loaded %d pretrained ViT tensors from %s", n, vit_path)
+    return n
+
+
 def main(argv: Optional[Sequence[str]] = None):
     """Run the command line `argv` (default: sys.argv[1:]). With one rank it
     trains in this process and returns the Trainer, whose epoch_stats and
@@ -314,27 +334,18 @@ def _train(args, cfg, plan: Plan, layout: Layout, device: torch.device) -> Train
         # BlendedMVS scenes have no metric scale: thresholds follow the
         # per-sample depth interval there; DTU's are in mm
         interval_norm="blended" if first["type"] == "BlendedLoader" else "dtu",
-        log_images=tcfg.get("log_images", True), debug=args.debug, layout=layout)
+        log_images=tcfg.get("log_images", True), debug=args.debug, layout=layout,
+        tensorboard=tcfg.get("tensorboard", False))
     if args.debug:
         log.info("--debug: per-module gradient norms at every logged step; no warp-window "
                  "check, the port's warp is exact (no sampling windows)")
     if tcfg.get("tensorboard", False):
-        log.info("trainer.tensorboard: nothing is mirrored (no tensorboard package); the "
-                 "scalars are in scalars.jsonl")
+        log.info("trainer.tensorboard: the scalars and panels are mirrored to %s",
+                 Path(trainer.writer.path).parent / "tb")
 
     vit_path = cfg.get_path("arch.args.vit_path")
     if vit_path and not (args.resume or args.finetune):
-        if not hasattr(model, "vit"):
-            log.info("%s has no ViT: nothing loaded from %s", type(model).__name__, vit_path)
-        elif not Path(vit_path).exists():
-            log.warning("!!!No weight in %s: the frozen ViT is RANDOM; only smoke runs should "
-                        "proceed", vit_path)
-        elif not str(vit_path).endswith(".npz"):
-            raise SystemExit(f"{vit_path}: the ViT loads from the converted flax .npz only "
-                             "(tools/convert_dinov2.py writes it from the torch .pth)")
-        else:
-            n = load_vit_npz(vit_path, model)
-            log.info("loaded %d pretrained ViT tensors from %s", n, vit_path)
+        load_pretrained_vit(model, vit_path)
     start_epoch = 0
     if args.finetune:
         _finetune_source(cfg, args, trainer)

@@ -135,7 +135,8 @@ class Trainer:
                  logging_every: int = 100, grad_clip: Optional[float] = None,
                  save_dir=None, config: Optional[dict] = None, monitor: str = "min mean_error",
                  early_stop: int = 10, interval_norm: str = "dtu", log_images: bool = True,
-                 debug: bool = False, layout: Optional[Layout] = None):
+                 debug: bool = False, layout: Optional[Layout] = None,
+                 tensorboard: bool = False):
         self.model = model
         self.layout = layout or Layout()
         self.train_loader = train_loader
@@ -157,8 +158,9 @@ class Trainer:
         # without a save_dir the manager writes nothing and only tracks the best
         self.ckpt = CheckpointManager(None if save_dir is None else Path(save_dir) / "checkpoints",
                                       mode=self.monitor_mode)
-        self.writer = None if save_dir is None else ScalarWriter(save_dir)
-        self.images = ImageWriter(save_dir) if save_dir is not None and log_images else None
+        self.writer = None if save_dir is None else ScalarWriter(save_dir, tensorboard)
+        self.images = (ImageWriter(save_dir, tb=self.writer.tb)
+                       if save_dir is not None and log_images else None)
         self.debug = debug
         self.global_step = 0
         self.logged: List[dict] = []  # the entries the last `train` call logged

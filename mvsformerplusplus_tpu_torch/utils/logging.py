@@ -4,9 +4,11 @@ mvsformerplusplus_tpu/utils/logging.py): `scalars.jsonl`, one JSON record
 truth, error and confidence under `images/`, written with the port's own
 PNG encoder (data/io.py).
 
-The JAX writer mirrors both to tensorboardX when that package is installed
-and `use_tensorboard` is set; the port imports no tensorboard package, so
-it mirrors nothing, as the JAX writer does where tensorboardX is absent.
+With `tensorboard` (the config's trainer.tensorboard) both are mirrored, as
+the JAX writers mirror them to tensorboardX, into a TensorBoard event file
+under save_dir/tb (utils/tfevents.py, no tensorboard package): each scalar
+as "{mode}/{name}", each panel as the image "{mode}/{panel}" (depth_gt,
+depth_est, abs_error, confidence). Across ranks only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -19,15 +21,19 @@ import numpy as np
 
 from ..data.io import write_png
 from ..parallel.dist import is_writer
+from .tfevents import EventWriter
 
 
 class ScalarWriter:
     """Appends one record per `write` to save_dir/scalars.jsonl (the file
-    opened for each record: a run writes one every logged step)."""
+    opened for each record: a run writes one every logged step) and, with
+    `tensorboard`, one event per scalar to the event file under
+    save_dir/tb (`self.tb`, which the ImageWriter shares)."""
 
-    def __init__(self, save_dir):
+    def __init__(self, save_dir, tensorboard: bool = False):
         self.path = Path(save_dir) / "scalars.jsonl"
         self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.tb = EventWriter(Path(save_dir) / "tb") if tensorboard else None
 
     def write(self, mode: str, scalars: Dict[str, float], step: int):
         if not is_writer():  # across ranks only rank 0 writes
@@ -36,6 +42,9 @@ class ScalarWriter:
         rec.update({k: float(v) for k, v in scalars.items()})
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self.tb is not None:
+            for k, v in scalars.items():
+                self.tb.add_scalar(f"{mode}/{k}", float(v), int(step))
 
 
 def _colorize(x: np.ndarray, lo: float = None, hi: float = None,
@@ -65,11 +74,13 @@ class ImageWriter:
     """One PNG per `write`, save_dir/images/{mode}_step{step:08d}.png: the
     panels depth_gt, depth_est (on the ground truth's range) and abs_error
     where a ground truth is given, else depth_est alone; then confidence
-    on [0, 1] where given; side by side."""
+    on [0, 1] where given; side by side. Each panel also goes to `tb` (an
+    EventWriter) where one is given."""
 
-    def __init__(self, save_dir):
+    def __init__(self, save_dir, tb: Optional[EventWriter] = None):
         self.dir = Path(save_dir) / "images"
         self.dir.mkdir(parents=True, exist_ok=True)
+        self.tb = tb
 
     def write(self, mode: str, step: int, depth_est: np.ndarray,
               depth_gt: Optional[np.ndarray] = None, confidence: Optional[np.ndarray] = None,
@@ -84,10 +95,15 @@ class ImageWriter:
             sel = gt > 0 if m is None else (m > 0.5)
             lo = float(np.percentile(gt[sel], 2)) if sel.any() else None
             hi = float(np.percentile(gt[sel], 98)) if sel.any() else None
-            panels = [_colorize(gt, lo, hi, m), _colorize(depth_est, lo, hi),
-                      _colorize(np.abs(depth_est - gt), 0.0, None, m)]
+            panels = [("depth_gt", _colorize(gt, lo, hi, m)),
+                      ("depth_est", _colorize(depth_est, lo, hi)),
+                      ("abs_error", _colorize(np.abs(depth_est - gt), 0.0, None, m))]
         else:
-            panels = [_colorize(depth_est)]
+            panels = [("depth_est", _colorize(depth_est))]
         if confidence is not None:
-            panels.append(_colorize(np.asarray(confidence, np.float32), 0.0, 1.0))
-        write_png(self.dir / f"{mode}_step{step:08d}.png", np.concatenate(panels, axis=1))
+            panels.append(("confidence", _colorize(np.asarray(confidence, np.float32), 0.0, 1.0)))
+        write_png(self.dir / f"{mode}_step{step:08d}.png",
+                  np.concatenate([p for _, p in panels], axis=1))
+        if self.tb is not None:
+            for name, img in panels:
+                self.tb.add_image(f"{mode}/{name}", img, int(step))

@@ -354,6 +354,45 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, dh, n, m):
     assert _flash_fails(bad[1], want[1], budgets[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,n,m", [(24, 200, 333), (32, 77, 129), (24, 1000, 700),
+                                    (32, 65, 64), (8, 70, 90), (48, 130, 67), (128, 150, 140)])
+def test_flash_padded_head_dims_match_plain(dev, dtype, dh, n, m):
+    """Head dims between the kernels' widths (16, 32, 64, 128): the wrappers
+    zero-pad to the next width and slice back. Forward and backward against
+    the plain versions at the true head dim, through the kernel the dtype
+    selects (the forward's counters), with their planted faults."""
+    g = torch.Generator(device=dev).manual_seed(dh + n)
+    q, dout = (torch.randn(2, n, 3, dh, generator=g, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(2, m, 3, dh, generator=g, device=dev).to(dtype) for _ in range(2))
+    out = _flash_fwd_check(q, k, v, dh ** -0.5)
+    assert out.shape == q.shape and out.is_contiguous()
+    _, lse = flash_attention.flash_attention_plain(q, k, v, dh ** -0.5, return_lse=True)
+    delta = flash_attention.attention_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, dh ** -0.5)
+    grads = flash_attention.flash_attention_bwd(*args)
+    want = flash_attention.flash_attention_bwd_plain(*args)
+    budgets = flash_attention.flash_bwd_budget(*args)
+    for got, w, b in zip(grads, want, budgets):
+        assert got.dtype == dtype and got.shape == w.shape and got.is_contiguous()
+        _flash_close(got, w, b)
+    bad = flash_attention.flash_attention_bwd(q, k, v, dout, lse, 0.92 * delta, dh ** -0.5)
+    assert _flash_fails(bad[0], want[0], budgets[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_above_128_raises(dev, dtype):
+    q = torch.zeros(1, 8, 1, 129, device=dev, dtype=dtype)
+    fa = flash_attention.flash_attention_fwd
+    before = (fa.launches_mma, fa.launches_f32)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa(q, q, q, 0.1)
+    lse = torch.zeros(1, 1, 8, device=dev)
+    with pytest.raises(ValueError, match="up to 128"):
+        flash_attention.flash_attention_bwd(q, q, q, q, lse, lse, 0.1)
+    assert (fa.launches_mma, fa.launches_f32) == before
+
+
 def test_flash_autograd_in_bf16_runs_the_mma_kernels(dev):
     """FlashAttention on bf16 CUDA tensors: one mma forward and one fused
     mma backward, no SIMT launch; gradients only where asked."""
