@@ -7,7 +7,9 @@ Phases, one JSON line each:
   device      the card (and its name and power limit from nvidia-smi, as a
               plain line of its own);
   build       nvcc builds of csrc/*.cu into build/kernels/ (all in parallel),
-              each kernel's ptxas line (registers, spills) and the warp and
+              and beside them g++'s build of the host library
+              (csrc/host/*.cpp into build/host/, data/native.py), each
+              kernel's ptxas line (registers, spills) and the warp and
               conv kernels' SASS instruction counts (cuobjdump; the conv's
               with its tensor-core HMMA, ldmatrix LDSM and cp.async LDGSTS);
   kernel      each hand-written kernel against its plain PyTorch version at
@@ -152,7 +154,14 @@ Phases, one JSON line each:
               (long side 644: 35 x 46 patches) under utils/profiler.trace: a
               blocky image's shift recovered, the matches the CPU's; first,
               outside the counted run, the JAX tool's test at its size and
-              gates.
+              gates;
+  host_codec  the host library against the numpy codec on images it makes at
+              1152 x 1536, 1536 x 2048 and 1200 x 1600: JPEG encode (bytes
+              equal), decode (pixels equal) and a Paeth PNG's row unfilter
+              (equal), ms per image each; the host stages of one DTU
+              training view; then the input-pipeline bench
+              (tools/bench_input_pipeline.py) at its defaults for 20 steps
+              at train_step's measured ms per step, and its JSON.
 Each path (main_path, train_step, train_cli, eval_cli, casmvs_main_path,
 casmvs_train_step, variants_main_path, variants_train_step, casmvs_cli,
 blended_cli, dist_step, train_cli_mesh, eval_queue, e2e_casmvs, e2e_flagship,
@@ -161,11 +170,16 @@ and read just after, the counts of the processes it starts reported back by
 each (ops.cuda.launch_counts) and added; the kernel phase's cases must add
 up to those counts (so the f32 flash and conv kernels and the warps' scalar
 kernels, whose cases belong to no path, must not launch there, nor any flash
-kernel on a CasMVSNet path).
+kernel on a CasMVSNet path). The host library's and the numpy codec's call
+counts are set to 0 with them: on eval_cli, casmvs_cli, blended_cli,
+eval_queue and e2e_protocol every JPEG decode must be a native one (as many
+as DecodedImages' misses and fusion's reads) and the numpy codec must not
+run.
 Then the eval CLI's metric line, the {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
+import concurrent.futures
 import json
 import shutil
 import subprocess
@@ -1249,8 +1263,42 @@ def launch_counters():
 
 
 def zero_counts(counters) -> None:
+    """Every kernel's launch count and the host library's and numpy codec's
+    call counts set to 0."""
+    from mvsformerplusplus_tpu_torch.data import native
+
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
+    for table in (native.calls, native.plain_calls):
+        table.update(dict.fromkeys(table, 0))
+
+
+def read_host_counts(children=()) -> dict:
+    """This process's calls of each host library entry point ("native") and
+    of the numpy codec ("plain"), plus those spawned processes reported
+    (`children`, each a read_host_counts())."""
+    from mvsformerplusplus_tpu_torch.data import native
+
+    counts = {"native": dict(native.calls), "plain": dict(native.plain_calls)}
+    for child in children:
+        for kind, table in counts.items():
+            for k in table:
+                table[k] += child[kind][k]
+    return counts
+
+
+def host_checks(host, decodes: int, png: bool = False) -> dict:
+    """Every JPEG the path read went through the host library: as many
+    native decodes (one scan each) as the path counted (`decodes`: its
+    DecodedImages misses and fusion's reads), the numpy codec never called,
+    and where the path trains on DTU PNGs (`png`) their rows unfiltered
+    natively."""
+    n = host["native"]
+    checks = {"jpeg_decodes_native": n["jpeg_reconstruct"] == n["jpeg_decode_scan"] == decodes,
+              "numpy_codec_unused": not any(host["plain"].values())}
+    if png:
+        checks["png_rows_native"] = n["png_unfilter"] > 0
+    return checks
 
 
 def read_counts(counters) -> dict:
@@ -1794,6 +1842,7 @@ def run_train_step(counters, family="flagship", iters=6):
            "bn_stats": {"tensors": len(stats0), "moved": stats_moved},
            "logs": logs}
     emit(row)
+    STEP_MS[family] = ms
     if not all(checks.values()):
         raise SystemExit(f"{row['phase']} checks failed: {checks}")
     if spec["profile"]:
@@ -2220,6 +2269,7 @@ def run_eval_cli(counters, work: Path):
         clouds[method] = (out / "scan1.ply").exists()
     torch.cuda.synchronize()
     launches = read_counts(counters)
+    host = read_host_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     depth_run = runs["dpcd"]
     written = eval_outputs(out, cfg, EVAL_CLI["views"], EVAL_CLI["hw"], EVAL_CLI["depths"])
@@ -2250,6 +2300,7 @@ def run_eval_cli(counters, work: Path):
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
         "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+        **host_checks(host, sum(r["decodes"] + r["fusion_decodes"] for r in runs.values())),
     }
     ms_per_map = depth_run["depth_s"] / maps * 1e3
     row = {"phase": "eval_cli", "config": str(CONFIG.relative_to(REPO)),
@@ -2265,8 +2316,9 @@ def run_eval_cli(counters, work: Path):
            "loader_wait_share": depth_run["loader_wait_s"] / depth_run["depth_s"],
            "fusion_s_per_scan": {m: r["fusion_s"]["scan1"] for m, r in runs.items()},
            "points_per_cloud": {m: r["points"]["scan1"] for m, r in runs.items()},
-           "gt_fusion": gt, "peak_mem_gb": peak_gb, "launches": launches, "checks": checks,
-           "phase_s": time.perf_counter() - phase_t0}
+           "fusion_decodes": {m: r["fusion_decodes"] for m, r in runs.items()},
+           "gt_fusion": gt, "peak_mem_gb": peak_gb, "launches": launches, "host_calls": host,
+           "checks": checks, "phase_s": time.perf_counter() - phase_t0}
     emit(row)
     if not all(checks.values()):
         raise SystemExit(f"eval_cli checks failed: {checks}")
@@ -2342,6 +2394,7 @@ def run_casmvs_cli(counters, work: Path):
     eval_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = read_counts(counters)
+    host = read_host_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     release()
     scalars, images = read_scalars(save), panels(save)
@@ -2372,6 +2425,7 @@ def run_casmvs_cli(counters, work: Path):
         "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         "no_flash_kernel": none_launched(launches, FLASH),
+        **host_checks(host, stats["decodes"] + stats["fusion_decodes"], png=True),
     }
     row = {"phase": "casmvs_cli", "config": str(CASMVS_CONFIG.relative_to(REPO)),
            "argv": argv[4:], "buckets": buckets, "epochs": epoch_stats,
@@ -2383,7 +2437,8 @@ def run_casmvs_cli(counters, work: Path):
            if stats["forward_ms"] else None,
            "eval_decode_ms_per_image": stats["decode_s"] / max(stats["decodes"], 1) * 1e3,
            "fusion_s": stats["fusion_s"], "points": stats["points"], "peak_mem_gb": peak_gb,
-           "run_s": {"train": train_s, "eval": eval_s}, "launches": launches, "checks": checks,
+           "run_s": {"train": train_s, "eval": eval_s}, "launches": launches,
+           "host_calls": host, "checks": checks,
            "logged": logged, "phase_s": time.perf_counter() - phase_t0}
     emit(row)
     if not all(checks.values()):
@@ -2427,6 +2482,7 @@ def run_blended_cli(counters, work: Path):
     run_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = read_counts(counters)
+    host = read_host_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     datasets = {"train": trainer.train_loader.dataset, "val": trainer.val_loader.dataset}
     decodes = {k: (d.views.decodes, d.views.decode_s) for k, d in datasets.items()}
@@ -2469,6 +2525,7 @@ def run_blended_cli(counters, work: Path):
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
         "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+        **host_checks(host, sum(n for n, _ in decodes.values())),
     }
     n_dec = sum(n for n, _ in decodes.values())
     row = {"phase": "blended_cli", "config": str(FT_CONFIG.relative_to(REPO)),
@@ -2480,7 +2537,8 @@ def run_blended_cli(counters, work: Path):
            "decode_ms_per_image": sum(t for _, t in decodes.values()) / max(n_dec, 1) * 1e3,
            "scalars": {m: modes.count(m) for m in sorted(set(modes))}, "debug": debug,
            "panels": images, "peak_mem_gb": peak_gb, "run_s": run_s, "launches": launches,
-           "checks": checks, "logged": logged, "phase_s": time.perf_counter() - phase_t0}
+           "host_calls": host, "checks": checks, "logged": logged,
+           "phase_s": time.perf_counter() - phase_t0}
     emit(row)
     if not all(checks.values()):
         raise SystemExit(f"blended_cli checks failed: {checks}")
@@ -2762,8 +2820,8 @@ def run_train_cli_mesh(counters, work: Path):
 
 
 def eval_worker(argv):
-    """One eval command line process (spawned): its stats, pid and kernel
-    launches."""
+    """One eval command line process (spawned): its stats, pid, kernel
+    launches and host library calls."""
     import os
 
     from mvsformerplusplus_tpu_torch.eval import cli
@@ -2771,10 +2829,11 @@ def eval_worker(argv):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    zero_counts({})
     t0 = time.perf_counter()
     stats = cli.main(argv)
     return {"stats": stats, "pid": os.getpid(), "wall_s": time.perf_counter() - t0,
-            "launches": launch_counts()}
+            "launches": launch_counts(), "host": read_host_counts()}
 
 
 def run_eval_queue(counters, work: Path):
@@ -2815,8 +2874,9 @@ def run_eval_queue(counters, work: Path):
         with ctx.Pool(workers) as pool:
             res = pool.map(eval_worker, [base + ["--outdir", str(out)] + extra] * workers)
         runs[way] = {"out": out, "workers": res, "wall_s": time.perf_counter() - t0}
-    launches = child_counts(counters, [r["launches"] for run in runs.values()
-                                       for r in run["workers"]])
+    workers = [r for run in runs.values() for r in run["workers"]]
+    launches = child_counts(counters, [r["launches"] for r in workers])
+    host = read_host_counts([r["host"] for r in workers])
     claims = work / "eval_queue" / ".claims"
     claim_files = sorted(p.name for p in claims.iterdir())
     pids = {f"pid{r['pid']}": r["stats"]["maps"] for r in runs["queue"]["workers"]}
@@ -2853,11 +2913,15 @@ def run_eval_queue(counters, work: Path):
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
         "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+        **host_checks(host, sum(r["stats"]["decodes"] + r["stats"]["fusion_decodes"]
+                                for r in workers)),
     }
     row = {"phase": "eval_queue", "config": str(CONFIG.relative_to(REPO)),
            "scans": EVAL_QUEUE["scans"], "views": EVAL_CLI["views"], "hw": [h, w],
            "readings": readings, "depths_bitwise_equal": bitwise,
-           "depth_pixels_differing_share": differ, "launches": launches, "checks": checks,
+           "depth_pixels_differing_share": differ, "launches": launches, "host_calls": host,
+           "decode_ms_per_image": sum(r["stats"]["decode_s"] for r in workers) * 1e3
+           / max(sum(r["stats"]["decodes"] for r in workers), 1), "checks": checks,
            "phase_s": time.perf_counter() - phase_t0}
     emit(row)
     if not all(checks.values()):
@@ -2975,6 +3039,7 @@ def run_e2e_protocol(counters, root: Path, renderer) -> dict:
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = read_counts(counters)
+        host = read_host_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         release()
         mroot = root / name
@@ -2994,6 +3059,7 @@ def run_e2e_protocol(counters, root: Path, renderer) -> dict:
             "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
             "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
             "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+            **host_checks(host, sum(res[f]["image_decodes"] for f in filters), png=True),
         }
         if name == "casmvs":
             pcd = res["pcd"]
@@ -3008,7 +3074,7 @@ def run_e2e_protocol(counters, root: Path, renderer) -> dict:
                "results": res, "jax_artifact": jax_art.get(name),
                "render_s_in_its_process": float((root / "render_s.txt").read_text()),
                "render_wait_s": wait_s, "run_s": run_s, "peak_mem_gb": peak_gb,
-               "tb": tb, "launches": launches, "checks": checks}
+               "tb": tb, "launches": launches, "host_calls": host, "checks": checks}
         emit(row)
         for f in filters:
             print(f"e2e_protocol {name} {f} {json.dumps(res[f])}", flush=True)
@@ -3196,6 +3262,134 @@ def run_dino_match(counters, work: Path) -> dict:
     return launches
 
 
+# the host_codec phase: the host library (data/native.py) against the numpy
+# codec at the eval scans' 1152 x 1536, the BlendedMVS 1536 x 2048 and DTU's
+# 1200 x 1600, on images it writes; then the input-pipeline bench at its
+# defaults (2 scans x 5 views x 7 lights at 1200 x 1600, B=2, 4 workers)
+# for `bench_steps` steps at train_step's measured ms per step
+HOST_CODEC = dict(sizes=((1152, 1536), (1536, 2048), (1200, 1600)), bench_steps=20,
+                  bench_scans=2, native_reps=3)
+# each train_step path's measured ms per step, by family (run_train_step)
+STEP_MS: dict = {}
+
+
+def photo(seed: int, h: int, w: int) -> np.ndarray:
+    """A uint8 RGB image with a photograph's mix of smooth shading, edges and
+    sensor noise: low-frequency gradients, a blocky texture and noise."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[:h, :w].astype(np.float32)
+    shade = np.stack([np.sin(x / 97 + c) * np.cos(y / 71 - c) for c in range(3)], -1) * 60 + 120
+    cells = rng.rand(h // 24 + 1, w // 24 + 1, 3).astype(np.float32)
+    blocks = np.kron(cells, np.ones((24, 24, 1), np.float32))[:h, :w] * 60 - 30
+    noise = rng.randn(h, w, 3).astype(np.float32) * 4
+    return np.clip(shade + blocks + noise, 0, 255).astype(np.uint8)
+
+
+def _best_ms(fn, reps: int):
+    """(the result of fn, its least wall ms over reps calls)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return out, best
+
+
+def host_stage_ms(h: int, w: int) -> dict:
+    """Wall ms of each host stage of one DTU training view at h x w
+    (MVSTrainDataset.get_sample's order): reading and decoding the Paeth PNG
+    (uint8 to float32 included), pre_resize's area shrink at the protocol's
+    smallest crop (512 x 640 over a 0.55 scale), the colour jitter, the
+    native crop + normalise; the next host stage to port is the largest."""
+    from mvsformerplusplus_tpu_torch.data import native
+    from mvsformerplusplus_tpu_torch.data.io import read_image, write_png
+    from mvsformerplusplus_tpu_torch.data.mvs_dataset import crop, pre_resize
+    from mvsformerplusplus_tpu_torch.data.transforms import (apply_color_jitter,
+                                                             sample_jitter_params)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        path = Path(tmp) / "view.png"
+        write_png(path, photo(7, h, w), row_filter=4)
+        K = np.array([[1000.0, 0, w / 2], [0, 1000.0, h / 2], [0, 0, 1]], np.float32)
+        jitter = sample_jitter_params(np.random.RandomState(0))
+        img, read_ms = _best_ms(lambda: read_image(path), 2)
+    (small, _, K2, _), resize_ms = _best_ms(lambda: pre_resize(img, None, K, None, 0.55), 2)
+    view = crop(small, None, K2, None, 512, 640, 3, 5)[0]
+    jittered, jitter_ms = _best_ms(lambda: apply_color_jitter(view, jitter, include_gamma=False),
+                                   2)
+    _, norm_ms = _best_ms(lambda: native.crop_normalize(jittered, 0, 0, 512, 640,
+                                                        jitter["gamma"]), 2)
+    return {"read_png_to_f32": read_ms, "pre_resize_area": resize_ms,
+            "color_jitter": jitter_ms, "crop_normalize_native": norm_ms}
+
+
+def run_host_codec(host_build_s: float, step_ms: float) -> dict:
+    """The host library against the numpy codec, each size of HOST_CODEC on
+    an image this phase makes (photo): the JPEG encoder (quality 95, the
+    native bytes equal to the numpy bytes), the decoder on those bytes
+    (pixel-equal) and the row unfilter of a Paeth-filtered PNG of the same
+    image (equal), ms per image for each (the native side the least of
+    native_reps calls, zlib's inflate apart); the host stages of one DTU
+    training view (host_stage_ms); then the ported input-pipeline bench
+    (tools/bench_input_pipeline.py) at its defaults with `step_ms`, the
+    flagship's train_step ms per step, as the simulated device step, its
+    JSON line as it printed it. Checks the equalities, the bench's keys
+    and that the numpy codec ran only where this phase called it."""
+    import zlib
+
+    from mvsformerplusplus_tpu_torch.data import io as dio
+    from mvsformerplusplus_tpu_torch.data import jpeg, native
+    from mvsformerplusplus_tpu_torch.tools import bench_input_pipeline as bench
+
+    phase_t0 = time.perf_counter()
+    reps = HOST_CODEC["native_reps"]
+    sizes, checks = {}, {}
+    for i, (h, w) in enumerate(HOST_CODEC["sizes"]):
+        img = photo(i, h, w)
+        data, enc_native = _best_ms(lambda: jpeg.encode_native(img), reps)
+        plain_bytes, enc_plain = _best_ms(lambda: jpeg.encode(img), 1)
+        pixels, dec_native = _best_ms(lambda: jpeg.decode_native(data), reps)
+        plain_pixels, dec_plain = _best_ms(lambda: jpeg.decode(data), 1)
+        png = dio.encode_png(img, row_filter=4)
+        idat = png[png.index(b"IDAT") + 4:-16]  # encode_png writes one IDAT chunk
+        raw, inflate_ms = _best_ms(lambda: np.frombuffer(zlib.decompress(idat), np.uint8), reps)
+        rows = raw.reshape(h, w * 3 + 1)
+        png_native, unf_native = _best_ms(lambda: native.png_unfilter(rows, 3), reps)
+        png_plain, unf_plain = _best_ms(lambda: dio._unfilter(rows[:, 0], rows[:, 1:], 3), 1)
+        key = f"{h}x{w}"
+        checks[f"jpeg_bytes_equal_{key}"] = data == plain_bytes
+        checks[f"jpeg_pixels_equal_{key}"] = bool(np.array_equal(pixels, plain_pixels))
+        checks[f"png_rows_equal_{key}"] = (bool(np.array_equal(png_native, png_plain))
+                                           and bool(np.array_equal(png_native.reshape(h, w, 3),
+                                                                   img)))
+        sizes[key] = {"jpeg_bytes": len(data),
+                      "jpeg_decode_ms": {"native": dec_native, "numpy": dec_plain},
+                      "jpeg_encode_ms": {"native": enc_native, "numpy": enc_plain},
+                      "png_paeth_ms": {"zlib_inflate": inflate_ms, "native_unfilter": unf_native,
+                                       "numpy_unfilter": unf_plain,
+                                       "native_total": inflate_ms + unf_native}}
+    stages = host_stage_ms(1200, 1600)
+    zero_counts({})
+    argv = ["--steps", str(HOST_CODEC["bench_steps"]), "--scans", str(HOST_CODEC["bench_scans"]),
+            "--step-ms", f"{step_ms:.1f}"]
+    t0 = time.perf_counter()
+    result = bench.main(argv)
+    bench_s = time.perf_counter() - t0
+    host = read_host_counts()
+    checks["bench_keys"] = set(result) >= {"producer_ms_per_batch", "stall_ms_per_step",
+                                           "overlap_efficiency", "keeps_up", "p95_wait_ms"}
+    checks["bench_png_native"] = (host["native"]["png_unfilter"] > 0
+                                  and not any(host["plain"].values()))
+    row = {"phase": "host_codec", "host_build_s": host_build_s, "sizes": sizes,
+           "stages_ms_1200x1600": stages, "bench_argv": argv, "bench": result,
+           "bench_s": bench_s, "bench_scans": HOST_CODEC["bench_scans"], "host_calls": host,
+           "checks": checks, "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"host_codec checks failed: {checks}")
+    return row
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """nvcc -Xptxas -v output -> {kernel (mangled): its registers, shared
     memory and spills}."""
@@ -3256,10 +3450,16 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    from mvsformerplusplus_tpu_torch.data import native
+
     t0 = time.perf_counter()
+    host_build = concurrent.futures.ThreadPoolExecutor(1).submit(native.build)
     logs = kernels.build_all()
     build_s = time.perf_counter() - t0
-    emit({"phase": "build", "seconds": build_s,
+    host_build.result()
+    host_build_s = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": build_s, "host_library": str(native.lib_path().name),
+          "host_build_s": host_build_s,
           "ptxas": {name: ptxas_by_kernel(log) for name, log in logs.items()},
           "sass": {**{name: sass_counts(kernels, name) for name in ("warp", "warp_bwd")},
                    "conv2d": sass_counts(kernels, "conv2d", CONV_SASS_OPS)}})
@@ -3267,7 +3467,7 @@ def main() -> int:
     e2e_root = Path(tempfile.mkdtemp(prefix="chip_smoke_e2e_"))
     renderer = start_e2e_render(e2e_root)
     try:
-        return run_phases(card, kind, e2e_root, renderer)
+        return run_phases(card, kind, e2e_root, renderer, host_build_s)
     finally:
         if renderer.is_alive():
             renderer.terminate()
@@ -3275,7 +3475,7 @@ def main() -> int:
         shutil.rmtree(e2e_root, ignore_errors=True)
 
 
-def run_phases(card, kind, e2e_root, renderer) -> int:
+def run_phases(card, kind, e2e_root, renderer, host_build_s) -> int:
     """Every phase after the build, the e2e_protocol data rendered meanwhile
     by `renderer` under e2e_root; the last lines as main's docstring says."""
     counters = launch_counters()
@@ -3307,6 +3507,7 @@ def run_phases(card, kind, e2e_root, renderer) -> int:
         release()
         run_vit_pth_phase(work)
         by_path["dino_match"] = run_dino_match(counters, work)
+    run_host_codec(host_build_s, STEP_MS["flagship"])
     by_path["eval_cli"], eval_row = by_path["eval_cli"]
     for name, res in results.items():
         res["launches_by_path"] = {path: by_path[path][name] for path in by_path}

@@ -66,22 +66,71 @@ def _area_fast(img: np.ndarray, fy: int, fx: int) -> np.ndarray:
     return out
 
 
+def _area_linear_taps(ssize: int, dsize: int):
+    """OpenCV's INTER_AREA taps on its linear path (taken when either axis
+    enlarges), for one axis: per destination index d the source indices s
+    and s + 1 and the float32 weight f of the second, s = floor(d * scale)
+    and f = (d + 1) - (s + 1) / scale in double, then float32, 0 where it is
+    not positive and else its fraction; from the last source sample on, s
+    is that sample and f is 0."""
+    scale = 1.0 / (dsize / ssize)
+    d = np.arange(dsize)
+    s = np.floor(d * scale).astype(np.int64)
+    f = ((d + 1) - (s + 1) * (dsize / ssize)).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    edge = s >= ssize - 1
+    s = np.where(edge, ssize - 1, s)
+    f = np.where(edge, np.float32(0), f).astype(np.float32)
+    return s, np.minimum(s + 1, ssize - 1), f
+
+
+def _resize_area_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """INTER_AREA when an axis enlarges: OpenCV's linear resize with
+    `_area_linear_taps`' weights. float32 lerps each tap pair as
+    resize_linear does. uint8 takes the weights in fixed point (scale 2048,
+    rounded half to even), sums each row's tap pair exactly in int32, and
+    combines two rows as OpenCV's vector loop does, on every value of the
+    row: ((S0 >> 4) b0 >> 16) + ((S1 >> 4) b1 >> 16), then (+ 2) >> 2."""
+    sh, sw = img.shape[:2]
+    x0, x1, fx = _area_linear_taps(sw, width)
+    y0, y1, fy = _area_linear_taps(sh, height)
+    tail = (1,) * (img.ndim - 2)
+    if img.dtype != np.uint8:
+        rows = _lerp(img[:, x0], img[:, x1], fx.reshape((-1,) + tail))
+        return _lerp(rows[y0], rows[y1], fy.reshape((-1, 1) + tail))
+
+    def fixed(f):
+        return (np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64),
+                np.rint(f * np.float32(2048)).astype(np.int64))
+
+    ax0, ax1 = fixed(fx)
+    by0, by1 = fixed(fy)
+    src = img.astype(np.int64)
+    rows = src[:, x0] * ax0.reshape((-1,) + tail) + src[:, x1] * ax1.reshape((-1,) + tail)
+    s0 = rows[y0].reshape(height, -1)
+    s1 = rows[y1].reshape(height, -1)
+    b0, b1 = by0[:, None], by1[:, None]
+    out = (((s0 >> 4) * b0 >> 16) + ((s1 >> 4) * b1 >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape((height, width) + img.shape[2:])
+
+
 def resize_area(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA) for a
-    float32 or uint8 [H, W] or [H, W, C] image shrunk in both axes: every
+    float32 or uint8 [H, W] or [H, W, C] image. Shrunk in both axes, every
     output pixel is the fractional-coverage mean of its source cell,
     accumulated as OpenCV does (each source row across its x-cell, then
     those rows down the y-cell, in float32). A uint8 image gives uint8, as
     OpenCV's: an integer shrink sums each cell exactly and rounds half up
     ((sum + n/2) / n), any other shrink rounds the float32 mean to nearest,
-    ties to even."""
+    ties to even. Enlarged in either axis, OpenCV takes its linear path with
+    area weights (`_resize_area_linear`)."""
     u8 = np.asarray(img).dtype == np.uint8
     img = np.asarray(img) if u8 else np.asarray(img, np.float32)
     sh, sw = img.shape[:2]
     if (height, width) == (sh, sw):
         return img.copy()
     if height > sh or width > sw:
-        raise ValueError(f"resize_area shrinks only: {(sh, sw)} -> {(height, width)}")
+        return _resize_area_linear(img, height, width)
     scale_y, scale_x = 1.0 / (height / sh), 1.0 / (width / sw)
     iy, ix = round(scale_y), round(scale_x)
     fast = (abs(scale_y - iy) < 2.220446049250313e-16

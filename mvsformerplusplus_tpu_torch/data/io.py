@@ -9,7 +9,11 @@ JPEG (data/jpeg.py), chosen by the file's signature, and converts to RGB as
 PIL's `convert("RGB")` does. Other files (16-bit or interlaced PNG,
 progressive JPEG, other formats) raise ValueError naming the format.
 `write_png` writes 8-bit gray, gray+alpha, RGB or RGBA PNG with unfiltered
-rows.
+rows, or every row Paeth-filtered (row_filter=4).
+
+Reading unfilters PNG rows and decodes JPEG in the host library
+(data/native.py: `native.png_unfilter`, `jpeg.decode_native`); `_unfilter`
+and `jpeg.decode` are their numpy plain versions.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .jpeg import decode as decode_jpeg
+from . import native
+from .jpeg import decode_native as decode_jpeg
 
 
 def read_pfm(filename) -> Tuple[np.ndarray, float]:
@@ -168,6 +173,7 @@ def _unfilter(ftypes: np.ndarray, rows: np.ndarray, bpp: int) -> np.ndarray:
     step each; any Average or Paeth row makes the whole image go along
     anti-diagonals of pixels (a pixel needs its left, upper and upper-left
     neighbours, all on earlier diagonals)."""
+    native.count(native.plain_calls, "png_unfilter")
     h, stride = rows.shape
     if ftypes.max(initial=0) > 4:
         raise ValueError(f"PNG: unknown row filter {int(ftypes.max())}")
@@ -232,7 +238,7 @@ def _decode_png(filename, data: Optional[bytes] = None):
     if raw.size < h * (w * bpp + 1):
         raise ValueError(f"{filename}: truncated PNG image data")
     rows = raw[:h * (w * bpp + 1)].reshape(h, w * bpp + 1)
-    pixels = _unfilter(rows[:, 0], rows[:, 1:], bpp).reshape(h, w, bpp)
+    pixels = native.png_unfilter(rows, bpp).reshape(h, w, bpp)
     return pixels, ctype, palette
 
 
@@ -270,34 +276,60 @@ def read_image(filename) -> np.ndarray:
 
 class DecodedImages:
     """The decoded uint8 RGB of the last `size` image files read
-    (read_image_u8), keyed by path. A file is decoded once under the lock,
-    so two loader threads never decode it twice (decoding is Python and
-    holds the interpreter lock: they would gain nothing by overlapping).
-    The arrays handed out are read-only. `decodes` and `decode_s` count the
-    misses and their seconds, file read included."""
+    (read_image_u8), keyed by path. Decoding runs outside the lock (the host
+    library releases the interpreter lock, so loader threads decode
+    different files at once); a thread asking for a file another thread is
+    decoding waits for that file only, so each file is decoded once. The
+    arrays handed out are read-only. `decodes` and `decode_s` count the
+    misses and their seconds, file read included (summed over threads)."""
 
     def __init__(self, size: int):
         self.size = size
         self._images: OrderedDict = OrderedDict()
+        self._pending: Dict[str, "_Pending"] = {}
         self._lock = threading.Lock()
         self.decodes = 0
         self.decode_s = 0.0
 
     def get(self, path) -> np.ndarray:
         key = str(path)
-        with self._lock:
-            if key in self._images:
-                self._images.move_to_end(key)
-                return self._images[key]
+        while True:
+            with self._lock:
+                if key in self._images:
+                    self._images.move_to_end(key)
+                    return self._images[key]
+                pending = self._pending.get(key)
+                if pending is None:
+                    pending = self._pending[key] = _Pending()
+                    break
+            pending.done.wait()
+            if pending.pixels is not None:
+                return pending.pixels
+        try:
             t0 = time.perf_counter()
             pixels = read_image_u8(path)
             pixels.setflags(write=False)
-            self.decode_s += time.perf_counter() - t0
-            self.decodes += 1
-            self._images[key] = pixels
-            while len(self._images) > self.size:
-                self._images.popitem(last=False)
+            seconds = time.perf_counter() - t0
+            with self._lock:
+                self.decode_s += seconds
+                self.decodes += 1
+                self._images[key] = pending.pixels = pixels
+                while len(self._images) > self.size:
+                    self._images.popitem(last=False)
             return pixels
+        finally:
+            with self._lock:
+                del self._pending[key]
+            pending.done.set()
+
+
+class _Pending:
+    """A file one thread is decoding: set when it is done, with its pixels
+    (None if decoding failed: a waiting thread then decodes it itself)."""
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.pixels: Optional[np.ndarray] = None
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -305,17 +337,19 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(filename, img: np.ndarray) -> None:
+def write_png(filename, img: np.ndarray, row_filter: int = 0) -> None:
     """uint8 [H, W] or [H, W, C] (C 1-4: gray, gray+alpha, RGB, RGBA) ->
-    8-bit PNG file, every row unfiltered (encode_png)."""
-    data = encode_png(img)
+    8-bit PNG file (encode_png)."""
+    data = encode_png(img, row_filter)
     with open(filename, "wb") as f:
         f.write(data)
 
 
-def encode_png(img: np.ndarray) -> bytes:
+def encode_png(img: np.ndarray, row_filter: int = 0) -> bytes:
     """uint8 [H, W] or [H, W, C] (C 1-4: gray, gray+alpha, RGB, RGBA) ->
-    the bytes of an 8-bit PNG, every row unfiltered."""
+    the bytes of an 8-bit PNG, every row unfiltered (row_filter 0) or
+    Paeth-filtered (4), as an encoder such as PIL's filters most rows of a
+    photograph."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8, got {img.dtype}")
@@ -323,9 +357,16 @@ def encode_png(img: np.ndarray) -> bytes:
         img = img[..., None]
     if img.ndim != 3 or img.shape[2] not in (1, 2, 3, 4):
         raise ValueError(f"write_png takes [H, W] or [H, W, 1-4], got {img.shape}")
+    if row_filter not in (0, 4):
+        raise ValueError(f"write_png filters rows with 0 (None) or 4 (Paeth), got {row_filter}")
     h, w, c = img.shape
     ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+    rows = img.reshape(h, w * c)
+    if row_filter == 4:
+        x = np.zeros((h + 1, w * c + c), np.int16)  # one zero row above, one zero pixel left
+        x[1:, c:] = rows
+        rows = (x[1:, c:] - _paeth(x[1:, :-c], x[:-1, c:], x[:-1, :-c])).astype(np.uint8)
+    rows = np.concatenate([np.full((h, 1), row_filter, np.uint8), rows], axis=1)
     return b"".join((_PNG_SIGNATURE,
                      _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)),
                      _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)), _chunk(b"IEND", b"")))

@@ -19,6 +19,13 @@ file holds:
   4:2:0 with no restart markers (cv2.imwrite's defaults: quality 95, no
   optimisation). Huffman coding and bit packing are vectorised.
 
+`decode_native` and `encode_native` (what the data paths call) parse and
+write the same markers and raise the same errors in Python, and run the
+per-symbol and per-pixel work in the host library (data/native.py,
+csrc/host/jpeg.cpp) with the same integer arithmetic: the same pixels and
+the same bytes as `decode` and `encode`, which stay as their plain
+versions.
+
 `decode` takes baseline and extended-sequential Huffman files of 8 bits
 (SOF0, SOF1): grayscale, or three components at 4:4:4, 4:2:2 or 4:2:0,
 with or without restart intervals, of any size. A progressive, lossless,
@@ -33,6 +40,8 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from . import native
 
 # zigzag position -> natural (row-major) index within the 8 x 8 block
 ZIGZAG = np.array([
@@ -74,6 +83,15 @@ def _canonical_codes(counts, symbols):
     return out
 
 
+def _check_codes(counts: bytes, symbols: bytes) -> list:
+    """The canonical codes of a DHT table, ValueError if they overflow
+    their lengths."""
+    codes = _canonical_codes(counts, symbols)
+    if any(c >> length for length, c, _ in codes):
+        raise ValueError("JPEG: invalid Huffman table (codes overflow their lengths)")
+    return codes
+
+
 @functools.lru_cache(maxsize=64)
 def _lookup(counts: bytes, symbols: bytes, ac: bool) -> list:
     """The 16-bit look-ahead table of one Huffman table: per 16-bit prefix
@@ -83,9 +101,7 @@ def _lookup(counts: bytes, symbols: bytes, ac: bool) -> list:
     value bits still to read. AC's EOB has run 128 (ends the block), ZRL
     run 15 and value 0 (skips 16 positions). A prefix no code matches maps to
     None (the decode loop fails to unpack it: corrupt data)."""
-    codes = _canonical_codes(counts, symbols)
-    if any(c >> length for length, c, _ in codes):
-        raise ValueError("JPEG: invalid Huffman table (codes overflow their lengths)")
+    codes = _check_codes(counts, symbols)
     n = 1 << 16
     length = np.zeros(n, np.int64)
     sym = np.zeros(n, np.int64)
@@ -304,6 +320,17 @@ def _next_marker(data: bytes, pos: int, name: str):
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """Baseline JPEG bytes -> uint8 [H, W] (grayscale) or [H, W, 3] (RGB),
     as np.asarray(PIL.Image.open(f)) gives them."""
+    native.count(native.plain_calls, "jpeg_decode")
+    return _decode(data, name, use_native=False)
+
+
+def decode_native(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """`decode` with the entropy decoding and the reconstruction in the host
+    library: the same pixels and the same errors."""
+    return _decode(data, name, use_native=True)
+
+
+def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
     qt: Dict[int, np.ndarray] = {}
     ht: Dict[Tuple[int, int], Tuple[bytes, bytes]] = {}
     frame = None
@@ -381,13 +408,17 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError(f"{name}: JPEG scan before its frame header")
-            pos = _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name)
+            pos = _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
+                               use_native)
     if frame is None:
         raise ValueError(f"{name}: JPEG without a frame header")
+    if use_native:
+        return _reconstruct_native(frame, comps, qt, coefs, adobe_transform, name)
     return _reconstruct(frame, comps, qt, coefs, adobe_transform, name)
 
 
-def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name) -> int:
+def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
+                 use_native) -> int:
     """Decode one scan into `coefs` (zigzag order per block); returns the
     position of the marker that ends it."""
     h, w, hmax, vmax, mcux, mcuy = frame
@@ -406,7 +437,12 @@ def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name) -> i
     for c, td, ta in scan:
         if (0, td) not in ht or (1, ta) not in ht:
             raise ValueError(f"{name}: JPEG scan uses an undefined Huffman table")
-        tables.append((_lookup(*ht[(0, td)], False), _lookup(*ht[(1, ta)], True)))
+        if use_native:
+            _check_codes(*ht[(0, td)])
+            _check_codes(*ht[(1, ta)])
+            tables.append((ht[(0, td)], ht[(1, ta)]))
+        else:
+            tables.append((_lookup(*ht[(0, td)], False), _lookup(*ht[(1, ta)], True)))
     if ns == 1:
         c = scan[0][0]
         bw, bh = -(-c["w"] // 8), -(-c["h_px"] // 8)
@@ -427,10 +463,18 @@ def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name) -> i
         slots = np.tile(np.array(slot), mcuy * mcux)
         per_mcu = len(slot)
     segments, end = _split_scan(data, start + len(body))
-    blocks = list(zip(slots.tolist(), bases.tolist()))
-    step = restart * per_mcu if restart else len(blocks)
-    if len(segments) < -(-len(blocks) // step):
+    step = restart * per_mcu if restart else len(bases)
+    if len(segments) < -(-len(bases) // step):
         raise ValueError(f"{name}: JPEG scan has fewer restart intervals than its blocks need")
+    if use_native:
+        err = native.jpeg_decode_scan(segments[:-(-len(bases) // step)], bases, slots, step,
+                                      tables, coefs)
+        if err == native.AC_PAST_END:
+            raise ValueError("JPEG: AC coefficients run past the end of a block")
+        if err:
+            raise ValueError(f"{name}: corrupt or truncated JPEG entropy-coded data")
+        return end
+    blocks = list(zip(slots.tolist(), bases.tolist()))
     packed = []
     try:
         for i, seg in enumerate(segments[:-(-len(blocks) // step)]):
@@ -441,6 +485,21 @@ def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name) -> i
     idx = (packed + (1 << 15)) >> 16
     coefs[idx - idx % 64 + ZIGZAG[idx % 64]] = packed - (idx << 16)
     return end
+
+
+def _reconstruct_native(frame, comps, qt, coefs, adobe_transform, name) -> np.ndarray:
+    """_reconstruct in the host library."""
+    h, w, hmax, vmax, _, _ = frame
+    for c in comps:
+        if c["tq"] not in qt:
+            raise ValueError(f"{name}: JPEG component uses an undefined quantization table")
+    comp = np.array([[c["offset"], c["bw"], c["bh"], c["w"], c["h_px"], hmax // c["h"],
+                      vmax // c["v"], 0] for c in comps], np.int64)
+    ids = tuple(c["id"] for c in comps)
+    mode = 0 if len(comps) == 1 else (
+        2 if adobe_transform == 0 or ids == (ord("R"), ord("G"), ord("B")) else 1)
+    return native.jpeg_reconstruct(coefs, comp, np.stack([qt[c["tq"]] for c in comps]), h, w,
+                                   mode)
 
 
 def _reconstruct(frame, comps, qt, coefs, adobe_transform, name) -> np.ndarray:
@@ -584,6 +643,7 @@ def quantize(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
     return np.where(x < 0, -v, v).reshape(coef.shape)
 
 
+@functools.lru_cache(maxsize=8)
 def _code_table(counts: bytes, symbols: bytes):
     """symbol -> (code, length) arrays of 256 entries."""
     code = np.zeros(256, np.int64)
@@ -693,12 +753,9 @@ def encode(rgb: np.ndarray, quality: int = 95) -> bytes:
     tables scaled to `quality` and the standard Huffman tables, the
     coefficients libjpeg-turbo computes (cv2.imwrite's defaults: quality
     95, 4:2:0, no optimisation, no restart markers)."""
-    rgb = np.asarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3 or 0 in rgb.shape:
-        raise ValueError(f"encode takes uint8 [H, W, 3] RGB, got {rgb.dtype} {rgb.shape}")
+    native.count(native.plain_calls, "jpeg_encode")
+    rgb = _check_rgb(rgb)
     h, w, _ = rgb.shape
-    if h > 65535 or w > 65535:
-        raise ValueError(f"JPEG is at most 65535 x 65535, got {w} x {h}")
     mcuy, mcux = -(-h // 16), -(-w // 16)
     # edge replication to whole MCUs: the padding libjpeg's expand_right_edge
     # and expand_bottom_edge give every block inside the image
@@ -716,6 +773,33 @@ def encode(rgb: np.ndarray, quality: int = 95) -> bytes:
     luma = (_code_table(*_DC_LUMA), _code_table(*_AC_LUMA))
     chroma = (_code_table(*_DC_CHROMA), _code_table(*_AC_CHROMA))
     tokens, lengths = _huffman_tokens(zz, comp, (luma, chroma, chroma))
+    return _jfif(h, w, qy, qc, _pack_bits(tokens, lengths))
+
+
+def encode_native(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """`encode` with the colour conversion, downsampling, DCT, quantisation
+    and Huffman coding in the host library: the same bytes."""
+    rgb = _check_rgb(rgb)
+    qy, qc = quant_table(STD_LUMA_Q, quality), quant_table(STD_CHROMA_Q, quality)
+    tables = [_code_table(*t) for t in (_DC_LUMA, _AC_LUMA, _DC_CHROMA, _AC_CHROMA)]
+    scan = native.jpeg_encode_entropy(rgb, qy, qc, np.stack([c for c, _ in tables]),
+                                      np.stack([s for _, s in tables]))
+    return _jfif(rgb.shape[0], rgb.shape[1], qy, qc, scan)
+
+
+def _check_rgb(rgb) -> np.ndarray:
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3 or 0 in rgb.shape:
+        raise ValueError(f"encode takes uint8 [H, W, 3] RGB, got {rgb.dtype} {rgb.shape}")
+    h, w, _ = rgb.shape
+    if h > 65535 or w > 65535:
+        raise ValueError(f"JPEG is at most 65535 x 65535, got {w} x {h}")
+    return rgb
+
+
+def _jfif(h: int, w: int, qy: np.ndarray, qc: np.ndarray, scan: bytes) -> bytes:
+    """The JFIF file around an entropy-coded 4:2:0 scan: the tables, frame
+    and scan headers encode writes."""
 
     def segment(marker: int, body: bytes) -> bytes:
         return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
@@ -728,9 +812,10 @@ def encode(rgb: np.ndarray, quality: int = 95) -> bytes:
     sos = bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])
     return b"".join([b"\xff\xd8", segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"),
                      segment(0xDB, dqt), segment(0xC0, sof), segment(0xC4, dht),
-                     segment(0xDA, sos), _pack_bits(tokens, lengths), b"\xff\xd9"])
+                     segment(0xDA, sos), scan, b"\xff\xd9"])
 
 
 def write_jpeg(filename, rgb: np.ndarray, quality: int = 95) -> None:
-    """uint8 [H, W, 3] RGB -> a baseline JPEG file (see `encode`)."""
-    Path(filename).write_bytes(encode(rgb, quality))
+    """uint8 [H, W, 3] RGB -> a baseline JPEG file (`encode`'s bytes, through
+    encode_native)."""
+    Path(filename).write_bytes(encode_native(rgb, quality))

@@ -6,8 +6,9 @@ schedule of crop scales.
 Every sample of a batch shares one crop scale; ShapeBucketSchedule assigns
 the scales to batches from (seed, epoch), so a run is reproducible. Each
 view's intrinsics are scaled by 0.125/0.25/0.5/1 into the per-stage
-[V, 2, 4, 4] camera stacks the model takes. numpy only (data/image.py
-stands in for OpenCV, data/io.py and data/jpeg.py for PIL).
+[V, 2, 4, 4] camera stacks the model takes. numpy and the host library
+(data/image.py stands in for OpenCV, data/io.py and data/jpeg.py for PIL,
+data/native.py's crop_normalize for the JAX package's C pass).
 """
 from __future__ import annotations
 
@@ -18,10 +19,11 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from . import native
 from .image import resize_area, resize_nearest
 from .io import (DecodedImages, build_camera_stack, read_cam_file, read_image, read_pair_file,
                  read_pfm, read_png)
-from .transforms import apply_color_jitter, crop_normalize, sample_jitter_params, stage_pyramid
+from .transforms import apply_color_jitter, sample_jitter_params, stage_pyramid
 
 STAGE_SCALES = (0.125, 0.25, 0.5, 1.0)
 
@@ -206,7 +208,9 @@ class MVSTrainDataset:
             if jitter is not None:
                 img = apply_color_jitter(img, jitter, include_gamma=False)
                 gamma = jitter["gamma"]
-            imgs.append(crop_normalize(img, 0, 0, img.shape[0], img.shape[1], gamma))
+            # the fused (gamma +) ImageNet normalisation in the host library,
+            # the JAX package's C pass
+            imgs.append(native.crop_normalize(img, 0, 0, img.shape[0], img.shape[1], gamma))
             cams.append(stage_cameras(K, E))
 
         sample = {

@@ -1,0 +1,256 @@
+"""The port's host library (csrc/host/*.cpp) and its ctypes bindings: the
+data pipeline's fused float passes (fastio: the counterpart of
+mvsformerplusplus_tpu/data/native.py, under the same names), the JPEG
+decoder's entropy decoding and reconstruction, the JPEG encoder's
+per-pixel and per-symbol work, and the PNG row unfilter.
+
+The sources compile with the system C++ compiler ($CXX, else g++) into one
+shared library under <repo>/build/host/, named by a hash of the sources and
+flags, at the first call that needs it (nothing is built at import). The
+flags leave out -march=native and fast-math, and turn off floating-point
+contraction, so the float passes round as the JAX package's library and
+numpy do. Unlike the JAX module there is no fallback: a missing compiler or
+a failed build raises RuntimeError with the compiler's log. ctypes releases
+the interpreter lock during each call, so loader threads decode in
+parallel.
+
+`calls` counts the calls of each entry point; `plain_calls` counts the
+calls of the numpy codec (jpeg.decode, jpeg.encode, io._unfilter), the
+plain versions the tests hold the library to.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import numpy as np
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc" / "host"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-ffp-contract=off"]
+
+calls: Dict[str, int] = {k: 0 for k in (
+    "crop_normalize", "u8_to_f32", "stage_pyramid", "jpeg_decode_scan", "jpeg_reconstruct",
+    "jpeg_encode", "png_unfilter")}
+plain_calls: Dict[str, int] = {"jpeg_decode": 0, "jpeg_encode": 0, "png_unfilter": 0}
+
+_lib = None
+_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+_f32p = ctypes.POINTER(ctypes.c_float)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_i, _i64 = ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    "crop_normalize_f32": (None, [_f32p, _i, _i, _i, _i, _i, _i, ctypes.c_float, _f32p]),
+    "u8_to_f32": (None, [_u8p, _i64, _f32p]),
+    "stage_pyramid_f32": (None, [_f32p, _i, _i, _f32p, _f32p, _f32p, _f32p]),
+    "batch_crop_normalize_f32": (None, [_f32p, _i, _i, _i, _i32p, _i32p, _i, _i, ctypes.c_float,
+                                        _f32p, _i]),
+    "jpeg_decode_scan": (_i, [_u8p, _i64p, _i64p, _i64, _i64p, _i32p, _i64, _i64, _i, _u8p, _u8p,
+                              _i32p, _i64p, _i64]),
+    "jpeg_reconstruct": (_i, [_i64p, _i64, _i, _i64p, _i64p, _i64, _i64, _i, _u8p]),
+    "jpeg_encode_entropy": (_i, [_u8p, _i64, _i64, _i32p, _i32p, _i32p, _i32p, _u8p, _i64, _i64p]),
+    "png_unfilter": (_i, [_u8p, _i64, _i64, _i, _u8p]),
+}
+
+
+def count(table: Dict[str, int], name: str) -> None:
+    with _count_lock:
+        table[name] += 1
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cpp"))
+
+
+def lib_path() -> Path:
+    digest = hashlib.sha1(" ".join(CXX_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libhost_{digest.hexdigest()[:12]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/host/*.cpp into lib_path() unless it is there. One
+    process builds while the others wait on a lock file; the library is
+    written to a temporary file and moved into place."""
+    out = lib_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = os.environ.get("CXX") or "g++"
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"the host library needs a C++ compiler; {cxx!r} failed to "
+                               f"start: {e}") from e
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"building the host library failed ({' '.join(cmd)}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded host library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
+            _lib = lib
+        return _lib
+
+
+def _ptr(a: np.ndarray, kind):
+    return a.ctypes.data_as(kind)
+
+
+# ------------------------------------------------------------------- fastio
+
+def crop_normalize(img: np.ndarray, oy: int, ox: int, crop_h: int, crop_w: int,
+                   gamma: float = 0.0) -> np.ndarray:
+    """float32 [H, W, 3] in [0, 1] -> the [crop_h, crop_w, 3] crop at (oy,
+    ox), gamma-corrected (when gamma is set and not 1) and ImageNet-
+    normalized: transforms.crop_normalize in one C pass (powf for the
+    gamma, as the JAX package's library)."""
+    img = np.ascontiguousarray(img, np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"crop_normalize takes [H, W, 3], got {img.shape}")
+    if oy < 0 or ox < 0 or oy + crop_h > img.shape[0] or ox + crop_w > img.shape[1]:
+        raise ValueError(f"crop {(oy, ox, crop_h, crop_w)} outside the image {img.shape[:2]}")
+    out = np.empty((crop_h, crop_w, 3), np.float32)
+    lib = load()
+    count(calls, "crop_normalize")
+    lib.crop_normalize_f32(_ptr(img, _f32p), img.shape[0], img.shape[1], oy, ox, crop_h, crop_w,
+                           float(gamma), _ptr(out, _f32p))
+    return out
+
+
+def u8_to_f32(img: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 in [0, 1], each value times float32(1 / 255)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    out = np.empty(img.shape, np.float32)
+    lib = load()
+    count(calls, "u8_to_f32")
+    lib.u8_to_f32(_ptr(img, _u8p), img.size, _ptr(out, _f32p))
+    return out
+
+
+def stage_pyramid_native(arr: np.ndarray) -> dict:
+    """The nearest 4-level pyramid of a (h, w) float32 map,
+    transforms.stage_pyramid's {'stage1': 1/8, ..., 'stage4': 1/1}."""
+    arr = np.ascontiguousarray(arr, np.float32)
+    h, w = arr.shape
+    outs = [np.empty((h // f, w // f), np.float32) for f in (8, 4, 2, 1)]
+    lib = load()
+    count(calls, "stage_pyramid")
+    lib.stage_pyramid_f32(_ptr(arr, _f32p), h, w, *[_ptr(o, _f32p) for o in outs])
+    return {f"stage{i + 1}": o for i, o in enumerate(outs)}
+
+
+# ------------------------------------------------------------------ codecs
+
+CORRUPT, AC_PAST_END, BAD_TABLE, NO_CODE, BAD_ARGUMENT, BAD_FILTER = 1, 2, 3, 4, 5, 6
+MAX_SYMBOLS = 16 * 255  # a DHT table lists at most 16 x 255 symbols
+
+
+def jpeg_decode_scan(segments, bases: np.ndarray, slots: np.ndarray, step: int, tables,
+                     coefs: np.ndarray) -> int:
+    """Huffman-decode one scan into coefs (int64, natural order per block):
+    `segments` the destuffed restart intervals it needs, `bases` and
+    `slots` each block's flat offset and component slot in scan order,
+    `step` blocks per interval, `tables` per slot ((DC counts, symbols), (AC
+    counts, symbols)). Returns 0 or an error code."""
+    data = np.concatenate([np.asarray(s, np.uint8) for s in segments] + [np.zeros(1, np.uint8)])
+    lens = np.array([len(s) for s in segments], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    n = len(tables)
+    counts = np.zeros((n, 2, 16), np.uint8)
+    symbols = np.zeros((n, 2, MAX_SYMBOLS), np.uint8)
+    nsyms = np.zeros((n, 2), np.int32)
+    for s, pair in enumerate(tables):
+        for j, (cnt, sym) in enumerate(pair):
+            counts[s, j] = np.frombuffer(cnt, np.uint8)
+            symbols[s, j, :len(sym)] = np.frombuffer(sym, np.uint8)
+            nsyms[s, j] = len(sym)
+    bases = np.ascontiguousarray(bases, np.int64)
+    slots = np.ascontiguousarray(slots, np.int32)
+    lib = load()
+    count(calls, "jpeg_decode_scan")
+    return lib.jpeg_decode_scan(_ptr(data, _u8p), _ptr(starts, _i64p), _ptr(lens, _i64p),
+                                len(segments), _ptr(bases, _i64p), _ptr(slots, _i32p),
+                                len(bases), step, n, _ptr(counts, _u8p), _ptr(symbols, _u8p),
+                                _ptr(nsyms, _i32p), _ptr(coefs, _i64p), coefs.size)
+
+
+def jpeg_reconstruct(coefs: np.ndarray, comp: np.ndarray, qt: np.ndarray, h: int, w: int,
+                     mode: int) -> np.ndarray:
+    """Coefficients -> uint8 [h, w] (mode 0, one component) or [h, w, 3]
+    (mode 1 YCbCr -> RGB, mode 2 the planes as they are); comp [C, 8] per
+    component (offset, bw, bh, width, height, x ratio, y ratio, 0), qt
+    [C, 64] its dequantisation factors in natural order."""
+    comp = np.ascontiguousarray(comp, np.int64)
+    qt = np.ascontiguousarray(qt, np.int64)
+    out = np.empty((h, w) if mode == 0 else (h, w, 3), np.uint8)
+    lib = load()
+    count(calls, "jpeg_reconstruct")
+    err = lib.jpeg_reconstruct(_ptr(coefs, _i64p), coefs.size, len(comp), _ptr(comp, _i64p),
+                               _ptr(qt, _i64p), h, w, mode, _ptr(out, _u8p))
+    if err:
+        raise RuntimeError(f"jpeg_reconstruct: bad arguments (error {err})")
+    return out
+
+
+def jpeg_encode_entropy(rgb: np.ndarray, qy: np.ndarray, qc: np.ndarray, codes: np.ndarray,
+                        sizes: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] -> the entropy-coded scan of a baseline 4:2:0 JPEG
+    (jpeg.encode's), or ValueError when a symbol has no Huffman code."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, _ = rgb.shape
+    blocks = -(-h // 16) * -(-w // 16) * 6
+    cap = blocks * 528 + 16  # 65 tokens of at most 32 bits per block, each byte stuffed
+    out = np.empty(cap, np.uint8)
+    n = np.zeros(1, np.int64)
+    arrays = [np.ascontiguousarray(a, np.int32) for a in (qy, qc, codes, sizes)]
+    lib = load()
+    count(calls, "jpeg_encode")
+    err = lib.jpeg_encode_entropy(_ptr(rgb, _u8p), h, w, *[_ptr(a, _i32p) for a in arrays],
+                                  _ptr(out, _u8p), cap, _ptr(n, _i64p))
+    if err == NO_CODE:
+        raise ValueError("JPEG encode: a symbol has no Huffman code")
+    if err:
+        raise RuntimeError(f"jpeg_encode_entropy: bad arguments (error {err})")
+    return out[:int(n[0])].tobytes()
+
+
+def png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """[H, 1 + W*bpp] raw PNG rows (filter type byte first) -> [H, W*bpp]
+    uint8; ValueError for a filter type other than 0-4."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    lib = load()
+    count(calls, "png_unfilter")
+    err = lib.png_unfilter(_ptr(rows, _u8p), h, stride, bpp, _ptr(out, _u8p))
+    if err:
+        raise ValueError(f"PNG: unknown row filter {int(rows[:, 0].max())}")
+    return out

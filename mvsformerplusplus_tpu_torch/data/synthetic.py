@@ -25,8 +25,9 @@ from .jpeg import write_jpeg
 def make_synthetic_dtu(root: Path, n_scans: int = 1, n_views: int = 5, n_lights: int = 2,
                        h: int = 256, w: int = 320, seed: int = 0):
     """The DTU training layout (Cameras/pair.txt and per-view cam files,
-    Rectified_raw images, Depths_raw ground truth) with random content.
-    Returns the scan list."""
+    Rectified_raw images, Depths_raw ground truth) with random content; the
+    images' rows Paeth-filtered, as the JAX package's generator (PIL) filters
+    them. Returns the scan list."""
     root = Path(root)
     rng = np.random.RandomState(seed)
     (root / "Cameras").mkdir(parents=True)
@@ -50,7 +51,7 @@ def make_synthetic_dtu(root: Path, n_scans: int = 1, n_views: int = 5, n_lights:
             for light in range(n_lights):
                 img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
                 write_png(root / "Rectified_raw" / scan / f"rect_{v + 1:0>3}_{light}_r5000.png",
-                          img)
+                          img, row_filter=4)
             depth = rng.uniform(3.0, 7.0, (h, w)).astype(np.float32)
             save_pfm(root / "Depths_raw" / scan / f"depth_map_{v:0>4}.pfm", depth)
             mask = (rng.rand(h, w) > 0.2).astype(np.uint8) * 255

@@ -301,9 +301,10 @@ def save_depths(args, cfg, device: torch.device, stats: dict):
     return done
 
 
-def fuse_scan(args, scan: str, device: torch.device) -> int:
+def fuse_scan(args, scan: str, device: torch.device, stats: Optional[dict] = None) -> int:
     """Fuse one scan's written depth maps into --outdir/<scan>.ply; returns
-    the number of points."""
+    the number of points. Counts the reference images it decodes for the
+    points' colours in stats["fusion_decodes"] when stats is given."""
     scan_dir = Path(args.outdir) / scan
     pair = read_pair_file(Path(args.testpath) / scan / "pair.txt")
 
@@ -368,6 +369,8 @@ def fuse_scan(args, scan: str, device: torch.device) -> int:
             img_path = Path(args.testpath) / scan / "images" / f"{ref:0>8}.jpg"
         if img_path.exists():
             img = resize_linear(read_image(img_path), mask.shape[0], mask.shape[1])
+            if stats is not None:
+                stats["fusion_decodes"] += 1
             all_cols.append((img[mask] * 255).astype(np.uint8))
         else:
             all_cols.append(np.full((len(pts), 3), 128, np.uint8))
@@ -385,8 +388,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the command line `argv` (default: sys.argv[1:]); returns the
     run's timings: maps, depth_s, map_done_s (seconds from the start at
     each map's write-back), forward_ms (device ms per forward on the card),
-    loader_wait_s, encode_s, decode_s and decodes, and per scan fusion_s
-    and points."""
+    loader_wait_s, encode_s, decode_s and decodes, fusion_decodes (the
+    images fusion decodes), and per scan fusion_s and points."""
     p = parser()
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
@@ -397,11 +400,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.device == "cuda":
         device = torch.device("cuda", args.rank % torch.cuda.device_count())
     cfg = load_config(args.config)
-    stats: dict = {"fusion_s": {}, "points": {}}
+    stats: dict = {"fusion_s": {}, "points": {}, "decodes": 0, "fusion_decodes": 0}
     scans = _scans(args) if args.skip_depth else save_depths(args, cfg, device, stats)
     if args.filter_method != "none":
         for scan in scans:
             t0 = time.perf_counter()
-            stats["points"][scan] = fuse_scan(args, scan, device)
+            stats["points"][scan] = fuse_scan(args, scan, device, stats)
             stats["fusion_s"][scan] = time.perf_counter() - t0
     return stats

@@ -13,8 +13,8 @@ patch centres scaled back to pixels.
     pts_a, pts_b = match_fn(img_a_uint8_rgb, img_b_uint8_rgb)
 
 The ViT runs in fp32 on the card (its attention through the f32 flash
-kernel) unless device="cpu". Images must be at least the working size: the
-resize shrinks only (data/image.resize_area, OpenCV's INTER_AREA).
+kernel) unless device="cpu". The resize is data/image.resize_area, OpenCV's
+INTER_AREA, which shrinks or enlarges.
 """
 from __future__ import annotations
 

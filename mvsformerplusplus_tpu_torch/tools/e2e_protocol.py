@@ -276,7 +276,8 @@ def run_model(name: str, arch: dict, root: Path, scene: GeometricScene, tr: Path
               tensorboard: bool = False) -> dict:
     """Train one model (unless skip_train), evaluate and fuse with each
     filter; returns {"train_epochs", "train_seconds", filter: {depth
-    metrics, eval_seconds, cloud metrics}}."""
+    metrics, eval_seconds, image_decodes (the eval CLI's), cloud
+    metrics}}."""
     mroot = Path(root) / name
     mroot.mkdir(parents=True, exist_ok=True)
     cfg = model_config(name, arch, mroot, tr, epochs, device, tensorboard)
@@ -294,14 +295,15 @@ def run_model(name: str, arch: dict, root: Path, scene: GeometricScene, tr: Path
     for i, (fname, extra) in enumerate(FILTERS):
         (out / "scan1.ply").unlink(missing_ok=True)
         t0 = time.time()
-        eval_cli.main(["--config", str(mroot / "cfg.json"),
-                       "--ckpt", str(mroot / "saved" / "checkpoints"),
-                       "--testpath", str(ev), "--testlist", str(Path(root) / "list.txt"),
-                       "--outdir", str(out), "--gt_depth_path", str(ev / "gt_depths"),
-                       "--num_view", "5", "--numdepth", str(DEPTHS),
-                       "--max_h", str(H), "--max_w", str(W),
-                       "--device", device] + extra + (["--skip_depth"] if i else []))
-        entry = {"eval_seconds": round(time.time() - t0, 1)}
+        stats = eval_cli.main(["--config", str(mroot / "cfg.json"),
+                               "--ckpt", str(mroot / "saved" / "checkpoints"),
+                               "--testpath", str(ev), "--testlist", str(Path(root) / "list.txt"),
+                               "--outdir", str(out), "--gt_depth_path", str(ev / "gt_depths"),
+                               "--num_view", "5", "--numdepth", str(DEPTHS),
+                               "--max_h", str(H), "--max_w", str(W),
+                               "--device", device] + extra + (["--skip_depth"] if i else []))
+        entry = {"eval_seconds": round(time.time() - t0, 1),
+                 "image_decodes": stats["decodes"] + stats["fusion_decodes"]}
         entry.update(_depth_metrics(out / "depth_metric.txt"))
         if (out / "scan1.ply").exists():
             entry.update(cloud_metrics(scene, out / "scan1.ply", ev, device))

@@ -2,10 +2,10 @@
 data/synthetic.make_blended_scan writes (the BlendedMVS layout, JPEG
 through the port's encoder): flat and nested {scan}/{scan}/{scan}, cam
 files with and without the depth_num and depth_max fields. The decoded
-views bit for bit, the samples (ImageNet-normalised crops within 2e-6,
-the JAX side's native pass rounding differently; cameras, depth values,
-depth pyramids and masks exact), the metas, the top-7 source shuffle and
-the per-dataset cache of decoded views."""
+views bit for bit, the samples bit for bit (both sides normalise the
+crops in the same C pass, the port's copy of the JAX package's fastio;
+cameras, depth values, depth pyramids and masks), the metas, the top-7
+source shuffle and the per-dataset cache of decoded views."""
 import random
 
 import numpy as np
@@ -67,7 +67,7 @@ def test_train_sample_matches_jax(scans, idx, crop, epoch):
     got, want = port.get_sample(idx, crop, epoch), jax_ds.get_sample(idx, crop, epoch)
     assert got["filename"] == want["filename"]
     assert got["imgs"].shape == want["imgs"].shape == (4, *crop, 3)
-    np.testing.assert_allclose(got["imgs"], want["imgs"], rtol=0, atol=2e-6)
+    np.testing.assert_array_equal(got["imgs"], want["imgs"])
     for k in want["cams"]:
         np.testing.assert_array_equal(got["cams"][k], want["cams"][k])
     np.testing.assert_array_equal(got["depth_values"], want["depth_values"])
@@ -82,7 +82,7 @@ def test_val_sample_matches_jax(scans):
     root, _ = scans
     port, jax_ds = _pair(root, mode="val", nviews=5, ndepths=48, interval_scale=1.0)
     got, want = port.get_sample(3, (96, 128)), jax_ds.get_sample(3, (96, 128))
-    np.testing.assert_allclose(got["imgs"], want["imgs"], rtol=0, atol=2e-6)
+    np.testing.assert_array_equal(got["imgs"], want["imgs"])
     np.testing.assert_array_equal(got["depth_values"], want["depth_values"])
     np.testing.assert_array_equal(got["mask"]["stage4"], want["mask"]["stage4"])
 

@@ -3,7 +3,10 @@ data/image.py's resizes and HSV conversions) against PIL and cv2 here: the
 PNG pixels bit-equal to PIL's on PNGs that PIL writes (every colour type
 and every row filter), the nearest resize and the HSV conversions
 bit-equal to cv2, the area resize within 1e-6 of cv2 at the shrink factors
-pre_resize gives (0.45-1.0)."""
+pre_resize gives (0.45-1.0). The area resize enlarging (either axis):
+uint8 bit-equal to cv2, float32 within 1e-6; and the DINOv2 matcher on an
+image smaller than its working size, which both tools enlarge, against the
+JAX tool."""
 import zlib
 
 import cv2
@@ -171,3 +174,54 @@ def test_hsv_conversions_match_cv2():
     for img in (hsv, hsv[:len(hsv) // 1000 * 1000].reshape(-1, 1000, 3)):
         np.testing.assert_array_equal(hsv_to_rgb_u8(img), cv2.cvtColor(img, cv2.COLOR_HSV2RGB))
         np.testing.assert_array_equal(rgb_to_hsv_u8(img), cv2.cvtColor(img, cv2.COLOR_RGB2HSV))
+
+
+@pytest.mark.parametrize("src,dst", [((20, 30), (41, 67)), ((37, 23), (74, 46)), ((5, 7), (160, 9)),
+                                     ((64, 48), (90, 30)), ((48, 64), (20, 200)),
+                                     ((100, 140), (154, 210)), ((1, 3), (2, 3))],
+                         ids=["up", "up2x", "up_tall", "mixed_y_up", "mixed_x_up", "matcher",
+                              "one_axis"])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_resize_area_enlarging_matches_cv2(src, dst, channels):
+    """OpenCV's INTER_AREA on its linear path with area weights whenever an
+    axis enlarges: uint8 bit for bit, float32 in [0, 1] within 1e-6."""
+    rng = np.random.RandomState(src[0] * 7 + channels)
+    img = rng.randint(0, 256, src + (channels,)).astype(np.uint8)
+    img = img[..., 0] if channels == 1 else img
+    got = resize_area(img, *dst)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, cv2.resize(img, dst[::-1], interpolation=cv2.INTER_AREA))
+    f = img.astype(np.float32) / 255
+    got = resize_area(f, *dst)
+    want = cv2.resize(f, dst[::-1], interpolation=cv2.INTER_AREA)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_matcher_enlarges_small_images_as_the_jax_tool():
+    """A 98 x 140 pair, under the 154 x 210 working size: both tools enlarge
+    it (INTER_AREA) and find the same matches (the same A-side patches,
+    points within 1e-3 px) with the same DINOv2-B weights (params=)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from mvsformerplusplus_tpu.models.dino import DinoVisionTransformer as JaxViT
+    from mvsformerplusplus_tpu_torch.tools import dino_match
+    from tools.dino_match import make_dino_matcher as jax_make_dino_matcher
+
+    h, w = 154, 210
+    params = jax.jit(JaxViT().init)(jax.random.PRNGKey(0), jnp.zeros((1, h, w, 3)))["params"]
+    cells = np.random.RandomState(3).randint(0, 255, (7, 10, 3), np.uint8)
+    a = np.kron(cells, np.ones((14, 14, 1), np.uint8))  # 98 x 140
+    b = np.roll(a, 14, axis=1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = dino_match.make_dino_matcher(long_side=w, params=params, device="cpu")(a, b)
+    finally:
+        torch.set_num_threads(threads)
+    want = jax_make_dino_matcher(long_side=w, params=params)(a, b)
+    assert len(want[0]) >= 20 and len(got[0]) == len(want[0])
+    for g, x in zip(got, want):
+        np.testing.assert_allclose(g, x, atol=1e-3, rtol=0)
