@@ -158,10 +158,20 @@ Phases, one JSON line each:
   host_codec  the host library against the numpy codec on images it makes at
               1152 x 1536, 1536 x 2048 and 1200 x 1600: JPEG encode (bytes
               equal), decode (pixels equal) and a Paeth PNG's row unfilter
-              (equal), ms per image each; the host stages of one DTU
-              training view; then the input-pipeline bench
-              (tools/bench_input_pipeline.py) at its defaults for 20 steps
-              at train_step's measured ms per step, and its JSON.
+              (equal), ms per image each; OpenCV's share against data/
+              image.py's numpy versions (equal): the area shrink at 0.55
+              and 0.6133 of 1200 x 1600, the nearest shrink of a depth map,
+              the hue shift of a 512 x 640 crop and the linear resize at the
+              eval scripts' three sizes; the committed files PIL wrote
+              (tests/data/, make_image_fixtures.py: progressive, CMYK and
+              YCCK JPEG, 16-bit, 4-bit and Adam7 PNG) decoded natively and
+              by numpy against PIL's stored pixels, and a 1152 x 1536
+              progressive JPEG's native decode (its pixels' SHA-256 PIL's)
+              timed against the baseline file of the same image and
+              quality; the host stages of one DTU training view; then the
+              input-pipeline bench (tools/bench_input_pipeline.py) at its
+              defaults for 20 steps at train_step's measured ms per step,
+              and its JSON, its resizes and hue shifts all native.
 Each path (main_path, train_step, train_cli, eval_cli, casmvs_main_path,
 casmvs_train_step, variants_main_path, variants_train_step, casmvs_cli,
 blended_cli, dist_step, train_cli_mesh, eval_queue, e2e_casmvs, e2e_flagship,
@@ -173,8 +183,8 @@ kernels, whose cases belong to no path, must not launch there, nor any flash
 kernel on a CasMVSNet path). The host library's and the numpy codec's call
 counts are set to 0 with them: on eval_cli, casmvs_cli, blended_cli,
 eval_queue and e2e_protocol every JPEG decode must be a native one (as many
-as DecodedImages' misses and fusion's reads) and the numpy codec must not
-run.
+as DecodedImages' misses and fusion's reads) and no plain version (the
+numpy codec, data/image.py's resizes and hue shift) may run.
 Then the eval CLI's metric line, the {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Needs one CUDA card.
@@ -1292,10 +1302,11 @@ def host_checks(host, decodes: int, png: bool = False) -> dict:
     native decodes (one scan each) as the path counted (`decodes`: its
     DecodedImages misses and fusion's reads), the numpy codec never called,
     and where the path trains on DTU PNGs (`png`) their rows unfiltered
-    natively."""
+    natively; no numpy plain version of the library (the codec, the
+    resizes, the hue shift) ran."""
     n = host["native"]
     checks = {"jpeg_decodes_native": n["jpeg_reconstruct"] == n["jpeg_decode_scan"] == decodes,
-              "numpy_codec_unused": not any(host["plain"].values())}
+              "plain_versions_unused": not any(host["plain"].values())}
     if png:
         checks["png_rows_native"] = n["png_unfilter"] > 0
     return checks
@@ -3269,6 +3280,20 @@ def run_dino_match(counters, work: Path) -> dict:
 # for `bench_steps` steps at train_step's measured ms per step
 HOST_CODEC = dict(sizes=((1152, 1536), (1536, 2048), (1200, 1600)), bench_steps=20,
                   bench_scans=2, native_reps=3)
+# OpenCV's share, as the data paths call it: the training resize's area
+# shrink at the protocol's smallest scale and a fractional one, the DINOv2
+# matcher's uint8 shrink of a 1260 x 1932 photo to its 420 x 644 working
+# size (3 x 3 cells), the hue shift of the protocol's smallest crop, the
+# linear resize of scripts/test_dtu.sh, test_tt_inter.sh and test_eth3d.sh
+RESAMPLE = dict(area_scales=(0.55, 0.6133), train_hw=(1200, 1600), hue_crop=(512, 640),
+                match_u8=((1260, 1932), (420, 644)),
+                linear=(((1200, 1600), (1152, 1536)), ((1080, 1920), (1024, 1920)),
+                        ((4032, 6048), (1024, 1600))))
+# the files PIL wrote (tests/data/make_image_fixtures.py), each with PIL's
+# pixels beside it as .npy; the large progressive JPEG's pixels by SHA-256
+FIXTURES = REPO / "tests" / "data"
+F3_FIXTURES = ("progressive_420_q90.jpg", "cmyk_q90.jpg", "ycck_q90.jpg", "gray16.png",
+               "rgb16_adam7.png", "gray4_adam7.png")
 # each train_step path's measured ms per step, by family (run_train_step)
 STEP_MS: dict = {}
 
@@ -3298,29 +3323,112 @@ def _best_ms(fn, reps: int):
 def host_stage_ms(h: int, w: int) -> dict:
     """Wall ms of each host stage of one DTU training view at h x w
     (MVSTrainDataset.get_sample's order): reading and decoding the Paeth PNG
-    (uint8 to float32 included), pre_resize's area shrink at the protocol's
-    smallest crop (512 x 640 over a 0.55 scale), the colour jitter, the
-    native crop + normalise; the next host stage to port is the largest."""
+    (uint8 to float32 included), the area shrink at the protocol's smallest
+    crop (512 x 640 over a 0.55 scale) as get_sample makes it, in the
+    crop's window only, checked against the same crop of the whole shrink,
+    the colour jitter, the native crop + normalise; the next host stage to
+    port is the largest."""
     from mvsformerplusplus_tpu_torch.data import native
     from mvsformerplusplus_tpu_torch.data.io import read_image, write_png
-    from mvsformerplusplus_tpu_torch.data.mvs_dataset import crop, pre_resize
+    from mvsformerplusplus_tpu_torch.data.mvs_dataset import resize_image
     from mvsformerplusplus_tpu_torch.data.transforms import (apply_color_jitter,
                                                              sample_jitter_params)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
         path = Path(tmp) / "view.png"
         write_png(path, photo(7, h, w), row_filter=4)
-        K = np.array([[1000.0, 0, w / 2], [0, 1000.0, h / 2], [0, 0, 1]], np.float32)
         jitter = sample_jitter_params(np.random.RandomState(0))
         img, read_ms = _best_ms(lambda: read_image(path), 2)
-    (small, _, K2, _), resize_ms = _best_ms(lambda: pre_resize(img, None, K, None, 0.55), 2)
-    view = crop(small, None, K2, None, 512, 640, 3, 5)[0]
+    view, window_ms = _best_ms(lambda: resize_image(img, 0.55, (3, 5, 512, 640)), 2)
+    if not np.array_equal(view, resize_image(img, 0.55)[3:3 + 512, 5:5 + 640]):
+        raise SystemExit("host_codec: the windowed area shrink differs from the whole's crop")
     jittered, jitter_ms = _best_ms(lambda: apply_color_jitter(view, jitter, include_gamma=False),
                                    2)
     _, norm_ms = _best_ms(lambda: native.crop_normalize(jittered, 0, 0, 512, 640,
                                                         jitter["gamma"]), 2)
-    return {"read_png_to_f32": read_ms, "pre_resize_area": resize_ms,
+    return {"read_png_to_f32": read_ms, "area_shrink_window": window_ms,
             "color_jitter": jitter_ms, "crop_normalize_native": norm_ms}
+
+
+def host_resample(reps: int):
+    """The host library's resizes and hue shift against data/image.py's
+    numpy versions at RESAMPLE's sizes: ({name: {"native": ms, "numpy":
+    ms}}, {check: equal})."""
+    from mvsformerplusplus_tpu_torch.data import image, native
+
+    rows, checks = {}, {}
+
+    def pair(name, native_fn, plain_fn):
+        got, native_ms = _best_ms(native_fn, reps)
+        want, plain_ms = _best_ms(plain_fn, 1)
+        checks[name] = bool(got.dtype == want.dtype and np.array_equal(got, want))
+        rows[name] = {"native": native_ms, "numpy": plain_ms}
+
+    h, w = RESAMPLE["train_hw"]
+    img = photo(3, h, w).astype(np.float32) / 255.0
+    for s in RESAMPLE["area_scales"]:
+        nh, nw = int(h * s), int(w * s)
+        pair(f"resize_area_{h}x{w}_to_{nh}x{nw}", lambda: native.resize_area(img, nh, nw),
+             lambda: image.resize_area(img, nh, nw))
+    (mh, mw), (nh, nw) = RESAMPLE["match_u8"]
+    photo_u8 = photo(5, mh, mw)
+    pair(f"resize_area_u8_{mh}x{mw}_to_{nh}x{nw}", lambda: native.resize_area(photo_u8, nh, nw),
+         lambda: image.resize_area(photo_u8, nh, nw))
+    depth = np.random.RandomState(4).uniform(425, 935, (h, w)).astype(np.float32)
+    nh, nw = int(h * 0.55), int(w * 0.55)
+    pair(f"resize_nearest_depth_{h}x{w}_to_{nh}x{nw}",
+         lambda: native.resize_nearest(depth, nh, nw), lambda: image.resize_nearest(depth, nh, nw))
+    ch, cw = RESAMPLE["hue_crop"]
+    crop = np.ascontiguousarray(img[:ch, :cw])
+    pair(f"hue_shift_{ch}x{cw}", lambda: native.hue_shift(crop, 5),
+         lambda: image.hue_shift(crop, 5))
+    del img, depth, crop, photo_u8
+    for i, ((sh, sw), (dh, dw)) in enumerate(RESAMPLE["linear"]):
+        src = photo(10 + i, sh, sw).astype(np.float32) / 255.0
+        pair(f"resize_linear_{sh}x{sw}_to_{dh}x{dw}", lambda: native.resize_linear(src, dh, dw),
+             lambda: image.resize_linear(src, dh, dw))
+        del src
+    return rows, checks
+
+
+def host_fixtures(reps: int):
+    """The committed files PIL wrote, each decoded natively and by numpy
+    against PIL's stored pixels, and the large progressive JPEG's native
+    decode (pixels hashed) against the baseline file of the same image and
+    quality: ({name: ms}, {check: equal})."""
+    import hashlib
+
+    from mvsformerplusplus_tpu_torch.data import io as dio
+    from mvsformerplusplus_tpu_torch.data import jpeg, native
+
+    rows, checks = {}, {}
+    for name in F3_FIXTURES:
+        path = FIXTURES / name
+        want = np.load(FIXTURES / (name + ".npy"))
+        if name.endswith(".jpg"):
+            data = path.read_bytes()
+            sides = {"native": lambda: jpeg.decode_native(data), "numpy": lambda: jpeg.decode(data)}
+        else:
+            sides = {"native": lambda: dio.read_png(path),
+                     "numpy": lambda: dio.read_png(path, plain=True)}
+        rows[name] = {}
+        for side, fn in sides.items():
+            got, ms = _best_ms(fn, reps if side == "native" else 1)
+            checks[f"{name}_{side}"] = bool(got.dtype == want.dtype and np.array_equal(got, want))
+            rows[name][side] = ms
+    (big, meta), = json.loads((FIXTURES / "image_fixtures.json").read_text()).items()
+    data = (FIXTURES / big).read_bytes()
+    before = native.calls["jpeg_decode_progressive"]
+    pixels, prog_ms = _best_ms(lambda: jpeg.decode_native(data), reps)
+    checks["large_progressive_scans_native"] = native.calls["jpeg_decode_progressive"] > before
+    checks["large_progressive_pil_pixels"] = (
+        list(pixels.shape) == meta["shape"]
+        and hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest() == meta["sha256"])
+    baseline = jpeg.encode_native(photo(0, *meta["shape"][:2]), meta["quality"])
+    _, base_ms = _best_ms(lambda: jpeg.decode_native(baseline), reps)
+    rows[big] = {"native_progressive": prog_ms, "native_baseline": base_ms,
+                 "progressive_bytes": len(data), "baseline_bytes": len(baseline)}
+    return rows, checks
 
 
 def run_host_codec(host_build_s: float, step_ms: float) -> dict:
@@ -3333,8 +3441,10 @@ def run_host_codec(host_build_s: float, step_ms: float) -> dict:
     training view (host_stage_ms); then the ported input-pipeline bench
     (tools/bench_input_pipeline.py) at its defaults with `step_ms`, the
     flagship's train_step ms per step, as the simulated device step, its
-    JSON line as it printed it. Checks the equalities, the bench's keys
-    and that the numpy codec ran only where this phase called it."""
+    JSON line as it printed it. Between them, OpenCV's share
+    (host_resample) and the committed files PIL wrote (host_fixtures).
+    Checks the equalities, the bench's keys and that no plain version ran
+    in the bench, whose resizes and hue shifts are native."""
     import zlib
 
     from mvsformerplusplus_tpu_torch.data import io as dio
@@ -3368,6 +3478,10 @@ def run_host_codec(host_build_s: float, step_ms: float) -> dict:
                       "png_paeth_ms": {"zlib_inflate": inflate_ms, "native_unfilter": unf_native,
                                        "numpy_unfilter": unf_plain,
                                        "native_total": inflate_ms + unf_native}}
+    resample, resample_checks = host_resample(reps)
+    fixtures, fixture_checks = host_fixtures(reps)
+    checks.update(resample_checks)
+    checks.update(fixture_checks)
     stages = host_stage_ms(1200, 1600)
     zero_counts({})
     argv = ["--steps", str(HOST_CODEC["bench_steps"]), "--scans", str(HOST_CODEC["bench_scans"]),
@@ -3380,8 +3494,10 @@ def run_host_codec(host_build_s: float, step_ms: float) -> dict:
                                            "overlap_efficiency", "keeps_up", "p95_wait_ms"}
     checks["bench_png_native"] = (host["native"]["png_unfilter"] > 0
                                   and not any(host["plain"].values()))
+    checks["bench_resample_native"] = all(host["native"][k] > 0 for k in (
+        "resize_area", "resize_nearest", "hue_shift"))
     row = {"phase": "host_codec", "host_build_s": host_build_s, "sizes": sizes,
-           "stages_ms_1200x1600": stages, "bench_argv": argv, "bench": result,
+           "resample_ms": resample, "fixtures_ms": fixtures, "stages_ms_1200x1600": stages, "bench_argv": argv, "bench": result,
            "bench_s": bench_s, "bench_scans": HOST_CODEC["bench_scans"], "host_calls": host,
            "checks": checks, "phase_s": time.perf_counter() - phase_t0}
     emit(row)

@@ -1,13 +1,17 @@
-// Baseline JPEG, the per-symbol and per-pixel work of data/jpeg.py's numpy
-// codec in C++, step for step the same integer arithmetic (libjpeg-turbo's),
+// JPEG, the per-symbol and per-pixel work of data/jpeg.py's numpy codec in
+// C++, step for step the same integer arithmetic (libjpeg-turbo's),
 // so it gives the numpy codec's pixels and bytes. Marker parsing, tables and
 // error messages stay in Python; these return an error code it turns into
 // the numpy codec's ValueError.
 //
-// decode: jpeg_decode_scan Huffman-decodes one scan (every restart interval)
-// straight into the coefficient array; jpeg_reconstruct dequantises, runs the
-// islow IDCT (jidctint.c), crops, upsamples 4:2:2 / 4:2:0 chroma (fancy,
-// jdsample.c) and converts YCbCr to RGB (jdcolor.c).
+// decode: jpeg_decode_scan Huffman-decodes one sequential scan (every restart
+// interval) straight into the coefficient array, jpeg_decode_progressive one
+// scan of a progressive file (jdphuff.c's four kinds: DC first, DC
+// refinement, AC first with EOB runs, AC refinement with its correction
+// bits); jpeg_reconstruct dequantises, runs the islow IDCT (jidctint.c),
+// crops, upsamples 4:2:2 / 4:2:0 chroma (fancy, jdsample.c) and converts
+// YCbCr to RGB (jdcolor.c), or YCCK to inverted CMYK as PIL reads Adobe
+// files.
 // encode: jpeg_encode_entropy converts RGB to YCbCr (jccolor.c) with edge
 // replication to whole 16 x 16 MCUs, downsamples chroma h2v2 (jcsample.c),
 // runs the islow forward DCT (jfdctint.c), quantises by libjpeg-turbo's
@@ -148,6 +152,146 @@ int decode_interval(const BitReader& br, const int64_t* bases, const int32_t* sl
       ++k;
     }
     if (k > 64 && k < 128) return kAcPastEnd;
+  }
+  return kOk;
+}
+
+// One progressive scan's restart interval (jdphuff.c): `tables` per slot
+// the DC table (DC first) or the AC table (AC scans; one slot). Bits read
+// as BitReader's windows; a symbol's size is its low four bits, as in the
+// sequential decoder. A coefficient outside JCOEF's 16 bits is corrupt
+// data, and an AC coefficient past Se ends the block with kAcPastEnd.
+struct Progressive {
+  const BitReader& br;
+  int64_t p = 0;
+  bool get_bits(int n, int64_t* v) {
+    if (n == 0) {
+      *v = 0;
+      return true;
+    }
+    uint32_t w;
+    if (!br.peek(p, &w)) return false;
+    *v = w >> (16 - n);
+    p += n;
+    return true;
+  }
+  bool symbol(const Lookup& t, int* sym) {
+    uint32_t w;
+    if (!br.peek(p, &w) || !t.len[w]) return false;
+    *sym = t.sym[w];
+    p += t.len[w];
+    return true;
+  }
+};
+
+inline bool in_jcoef(int64_t v) { return v >= -32768 && v <= 32767; }
+
+// the refinement of an already non-zero coefficient: one correction bit
+inline int refine(Progressive& pr, int64_t* c, int64_t p1) {
+  int64_t bit;
+  if (!pr.get_bits(1, &bit)) return kCorrupt;
+  if (bit && (*c & p1) == 0) *c += *c >= 0 ? p1 : -p1;
+  return in_jcoef(*c) ? kOk : kCorrupt;
+}
+
+int decode_progressive_interval(const BitReader& br, const int64_t* bases, const int32_t* slots,
+                                int64_t nblocks, const Lookup* tables, int nslots, int ss, int se,
+                                int ah, int al, int64_t* coefs, int64_t ncoefs) {
+  Progressive pr{br};
+  int64_t pred[4] = {0, 0, 0, 0};
+  int64_t eobrun = 0;
+  const int64_t p1 = int64_t(1) << al;
+  for (int64_t i = 0; i < nblocks; ++i) {
+    const int ci = slots[i];
+    const int64_t base = bases[i];
+    if (ci < 0 || ci >= nslots || base < 0 || base + 64 > ncoefs) return kBadArgument;
+    int64_t* blk = coefs + base;
+    int64_t v;
+    int sym;
+    if (ss == 0 && ah == 0) {  // DC first
+      if (!pr.symbol(tables[ci], &sym)) return kCorrupt;
+      const int s = sym & 15;
+      if (!pr.get_bits(s, &v)) return kCorrupt;
+      pred[ci] += extend(v, s);
+      const int64_t dc = pred[ci] * p1;
+      if (!in_jcoef(dc)) return kCorrupt;
+      blk[0] = dc;
+    } else if (ss == 0) {  // DC refinement
+      if (!pr.get_bits(1, &v)) return kCorrupt;
+      if (v) blk[0] |= p1;
+    } else if (ah == 0) {  // AC first
+      if (eobrun > 0) {
+        --eobrun;
+        continue;
+      }
+      for (int k = ss; k <= se; ++k) {
+        if (!pr.symbol(tables[ci], &sym)) return kCorrupt;
+        const int r = sym >> 4, s = sym & 15;
+        if (s) {
+          k += r;
+          if (k > se) return kAcPastEnd;
+          if (!pr.get_bits(s, &v)) return kCorrupt;
+          const int64_t ac = extend(v, s) * p1;
+          if (!in_jcoef(ac)) return kCorrupt;
+          blk[kZigzag[k]] = ac;
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          eobrun = int64_t(1) << r;
+          if (r) {
+            if (!pr.get_bits(r, &v)) return kCorrupt;
+            eobrun += v;
+          }
+          --eobrun;
+          break;
+        }
+      }
+    } else {  // AC refinement
+      int k = ss;
+      if (eobrun == 0) {
+        for (; k <= se; ++k) {
+          if (!pr.symbol(tables[ci], &sym)) return kCorrupt;
+          int r = sym >> 4;
+          int64_t s = sym & 15;
+          if (s) {  // a newly non-zero coefficient, its sign in one bit
+            if (!pr.get_bits(1, &v)) return kCorrupt;
+            s = v ? p1 : -p1;
+          } else if (r != 15) {
+            eobrun = int64_t(1) << r;
+            if (r) {
+              if (!pr.get_bits(r, &v)) return kCorrupt;
+              eobrun += v;
+            }
+            break;
+          }
+          // skip r zero coefficients, refining the non-zero ones passed
+          do {
+            int64_t* c = blk + kZigzag[k];
+            if (*c != 0) {
+              const int err = refine(pr, c, p1);
+              if (err) return err;
+            } else if (--r < 0) {
+              break;
+            }
+            ++k;
+          } while (k <= se);
+          if (s) {
+            if (k > se) return kAcPastEnd;
+            blk[kZigzag[k]] = s;
+          }
+        }
+      }
+      if (eobrun > 0) {  // the band's rest: refine its non-zero coefficients
+        for (; k <= se; ++k) {
+          int64_t* c = blk + kZigzag[k];
+          if (*c != 0) {
+            const int err = refine(pr, c, p1);
+            if (err) return err;
+          }
+        }
+        --eobrun;
+      }
+    }
   }
   return kOk;
 }
@@ -467,14 +611,49 @@ int jpeg_decode_scan(const uint8_t* data, const int64_t* starts, const int64_t* 
   return kOk;
 }
 
+// One scan of a progressive file, laid out as jpeg_decode_scan's
+// arguments, with one Huffman table per slot (counts 16 and symbols
+// kMaxSymbols each: the DC table of a DC-first scan, the AC table of an AC
+// scan, unused by a DC refinement) and the scan's spectral selection
+// (ss, se) and successive approximation (ah, al), which the caller has
+// checked. Returns 0 or an Err.
+int jpeg_decode_progressive(const uint8_t* data, const int64_t* starts, const int64_t* lens,
+                            int64_t nseg, const int64_t* bases, const int32_t* slots,
+                            int64_t nblocks, int64_t step, int nslots, const uint8_t* counts,
+                            const uint8_t* symbols, const int32_t* nsyms, int ss, int se, int ah,
+                            int al, int64_t* coefs, int64_t ncoefs) {
+  if (nslots < 1 || nslots > 4 || step < 1 || ss < 0 || se > 63 || ss > se || al < 0 ||
+      al > 13 || (ss > 0 && nslots != 1))
+    return kBadArgument;
+  Lookup tables[4];
+  for (int s = 0; s < nslots; ++s) {
+    const int err = build_lookup(counts + 16 * s, symbols + kMaxSymbols * s, nsyms[s], &tables[s]);
+    if (err) return err;
+  }
+  for (int64_t i = 0; i < nseg; ++i) {
+    const int64_t first = i * step;
+    if (first >= nblocks) break;
+    const int64_t count = std::min(step, nblocks - first);
+    const BitReader br{data + starts[i], lens[i]};
+    const int err = decode_progressive_interval(br, bases + first, slots + first, count, tables,
+                                                nslots, ss, se, ah, al, coefs, ncoefs);
+    if (err) return err;
+  }
+  return kOk;
+}
+
 // Coefficients -> pixels. Per component (comp[8 c ...]): flat offset of its
 // blocks, blocks across (bw) and down (bh), its sample width and height,
 // its horizontal and vertical upsampling ratios (1 or 2); qt: its 64
 // dequantisation factors (natural order). mode 0: one component, gray
-// [h, w]; 1: YCbCr -> RGB [h, w, 3]; 2: the three planes as they are.
+// [h, w]; 1: YCbCr -> RGB [h, w, 3]; 2: the three planes as they are; four
+// components [h, w, 4] as PIL reads them (libjpeg's CMYK, inverted): 3 the
+// planes as CMYK, 4 YCCK (jdcolor.c ycck_cmyk_convert: C, M, Y the
+// inverted R, G, B of the YCbCr triple, K as it is).
 int jpeg_reconstruct(const int64_t* coefs, int64_t ncoefs, int nc, const int64_t* comp,
                      const int64_t* qt, int64_t h, int64_t w, int mode, uint8_t* out) {
-  if (nc != 1 && nc != 3) return kBadArgument;
+  if (nc != 1 && nc != 3 && nc != 4) return kBadArgument;
+  if ((nc == 4) != (mode == 3 || mode == 4)) return kBadArgument;
   std::vector<std::vector<uint8_t>> planes(nc);
   for (int ci = 0; ci < nc; ++ci) {
     const int64_t* cp = comp + 8 * ci;
@@ -516,6 +695,26 @@ int jpeg_reconstruct(const int64_t* coefs, int64_t ncoefs, int nc, const int64_t
     return kOk;
   }
   const uint8_t *p0 = planes[0].data(), *p1 = planes[1].data(), *p2 = planes[2].data();
+  static const YccTables t;
+  if (mode == 3 || mode == 4) {
+    const uint8_t* p3 = planes[3].data();
+    for (int64_t i = 0; i < n; ++i) {
+      uint8_t* o = out + 4 * i;
+      if (mode == 3) {
+        o[0] = uint8_t(255 - p0[i]);
+        o[1] = uint8_t(255 - p1[i]);
+        o[2] = uint8_t(255 - p2[i]);
+      } else {
+        const int64_t y = p0[i];
+        const int cb = p1[i], cr = p2[i];
+        o[0] = clamp_u8(y + t.cr_r[cr]);
+        o[1] = clamp_u8(y + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+        o[2] = clamp_u8(y + t.cb_b[cb]);
+      }
+      o[3] = uint8_t(255 - p3[i]);
+    }
+    return kOk;
+  }
   if (mode == 2) {
     for (int64_t i = 0; i < n; ++i) {
       out[3 * i] = p0[i];
@@ -524,7 +723,6 @@ int jpeg_reconstruct(const int64_t* coefs, int64_t ncoefs, int nc, const int64_t
     }
     return kOk;
   }
-  static const YccTables t;
   for (int64_t i = 0; i < n; ++i) {
     const int64_t y = p0[i];
     const int cb = p1[i], cr = p2[i];

@@ -6,10 +6,10 @@ max_w rounded down to multiples of 64 (exactly max_h x max_w with
 fix_res), per-stage intrinsics, and the optional DTU ground-truth depth.
 
 A view is read by up to `nviews` samples of a scan (once as the reference,
-then as a source of its neighbours), and decoding a JPEG in numpy takes
-about a second per 1152 x 1536 view on a host CPU (PERF.md): each dataset
-keeps the decoded uint8 pixels of its last CACHED_VIEWS views, so a 5-view
-scan decodes each view once.
+then as a source of its neighbours): each dataset keeps the decoded uint8
+pixels of its last CACHED_VIEWS views, so a 5-view scan decodes each view
+once. The resize is the host library's (native.resize_linear, cv2's
+INTER_LINEAR bit for bit at the eval scripts' sizes).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .image import resize_linear
+from . import native
 from .io import DecodedImages, read_cam_file, read_pair_file, read_pfm
 from .mvs_dataset import stage_cameras
 from .transforms import normalize_imagenet
@@ -89,7 +89,7 @@ class EvalDataset:
             new_h = int(h * scale) // 64 * 64
             new_w = int(w * scale) // 64 * 64
         sx, sy = new_w / w, new_h / h
-        img = resize_linear(img, new_h, new_w)
+        img = native.resize_linear(img, new_h, new_w)
         K = K.copy()
         K[0] *= sx
         K[1] *= sy

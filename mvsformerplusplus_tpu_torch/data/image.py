@@ -3,12 +3,19 @@ area, nearest and linear resizes of `cv2.resize` and the 8-bit RGB <-> HSV
 conversions of `cv2.cvtColor` (the machine the port trains on has no
 OpenCV). Each follows OpenCV's arithmetic step for step in the same
 precision, so it gives OpenCV's values, not just close ones.
+
+These are the plain versions of the host library's resample.cpp
+(data/native.py: resize_area, resize_nearest, resize_linear, hue_shift),
+which the data paths call; each public function here counts its calls in
+native.plain_calls.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+
+from . import native
 
 
 def _area_table(ssize: int, dsize: int):
@@ -114,16 +121,35 @@ def _resize_area_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8).reshape((height, width) + img.shape[2:])
 
 
+def _area_factors(sh: int, sw: int, height: int, width: int):
+    """OpenCV's choice of the integer area path for a shrink of (sh, sw) to
+    (height, width): the integer factors (fy, fx) when both scales are
+    within machine epsilon of integers, else (0, 0)."""
+    scale_y, scale_x = 1.0 / (height / sh), 1.0 / (width / sw)
+    iy, ix = round(scale_y), round(scale_x)
+    if (abs(scale_y - iy) < 2.220446049250313e-16
+            and abs(scale_x - ix) < 2.220446049250313e-16):
+        return iy, ix
+    return 0, 0
+
+
 def resize_area(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA) for a
     float32 or uint8 [H, W] or [H, W, C] image. Shrunk in both axes, every
     output pixel is the fractional-coverage mean of its source cell,
     accumulated as OpenCV does (each source row across its x-cell, then
     those rows down the y-cell, in float32). A uint8 image gives uint8, as
-    OpenCV's: an integer shrink sums each cell exactly and rounds half up
-    ((sum + n/2) / n), any other shrink rounds the float32 mean to nearest,
-    ties to even. Enlarged in either axis, OpenCV takes its linear path with
-    area weights (`_resize_area_linear`)."""
+    OpenCV's: an integer shrink sums each cell exactly, then a 2 x 2 one of
+    1, 3 or 4 channels rounds half up ((sum + 2) >> 2, OpenCV's vector
+    loop) and any other takes float32(sum) * float32(1 / n) to nearest,
+    ties to even; a fractional shrink rounds the float32 mean the same way.
+    Enlarged in either axis, OpenCV takes its linear path with area weights
+    (`_resize_area_linear`)."""
+    native.count(native.plain_calls, "resize_area")
+    return _resize_area(img, height, width)
+
+
+def _resize_area(img: np.ndarray, height: int, width: int) -> np.ndarray:
     u8 = np.asarray(img).dtype == np.uint8
     img = np.asarray(img) if u8 else np.asarray(img, np.float32)
     sh, sw = img.shape[:2]
@@ -131,16 +157,17 @@ def resize_area(img: np.ndarray, height: int, width: int) -> np.ndarray:
         return img.copy()
     if height > sh or width > sw:
         return _resize_area_linear(img, height, width)
-    scale_y, scale_x = 1.0 / (height / sh), 1.0 / (width / sw)
-    iy, ix = round(scale_y), round(scale_x)
-    fast = (abs(scale_y - iy) < 2.220446049250313e-16
-            and abs(scale_x - ix) < 2.220446049250313e-16)
+    iy, ix = _area_factors(sh, sw, height, width)
+    fast = iy > 0
     if u8:
         if fast:
             cells = img[:height * iy, :width * ix].reshape(
                 (height, iy, width, ix) + img.shape[2:]).astype(np.int32).sum(axis=(1, 3))
-            return ((cells + iy * ix // 2) // (iy * ix)).astype(np.uint8)
-        out = resize_area(img.astype(np.float32), height, width)
+            if (iy, ix) == (2, 2) and (img.ndim == 2 or img.shape[2] in (1, 3, 4)):
+                return ((cells + 2) >> 2).astype(np.uint8)
+            mean = cells.astype(np.float32) * (np.float32(1) / np.float32(iy * ix))
+            return np.clip(np.rint(mean), 0, 255).astype(np.uint8)
+        out = _resize_area(img.astype(np.float32), height, width)
         return np.clip(np.rint(out), 0, 255).astype(np.uint8)
     if fast:
         return _area_fast(img, iy, ix)
@@ -161,6 +188,7 @@ def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """cv2.resize(img, (width, height), interpolation=cv2.INTER_NEAREST):
     source index floor(dst * (src / dst)), the ratio taken as OpenCV takes
     it (1 / (dst / src) in double), clamped to the last pixel. Not rounding."""
+    native.count(native.plain_calls, "resize_nearest")
     img = np.asarray(img)
     sh, sw = img.shape[:2]
     fy, fx = 1.0 / (height / sh), 1.0 / (width / sw)
@@ -170,12 +198,14 @@ def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def _linear_taps(ssize: int, dsize: int):
-    """OpenCV's INTER_LINEAR taps for one axis: per destination index the
-    two source indices and their weights: f = (d + 0.5) *
-    (ssize / dsize) - 0.5, its floor and its fraction in double, the
-    fraction then rounded to float32; clamped at both borders to the edge
-    sample with weight 0."""
-    scale = 1.0 / (dsize / ssize)
+    """OpenCV's INTER_LINEAR taps for one axis (its IPP path, which cv2 takes
+    for float32): per destination index the two source indices and their
+    weights: f = (d + 0.5) * (ssize / dsize) - 0.5, its floor and its
+    fraction in double, the fraction then rounded to float32; clamped at
+    both borders to the edge sample with weight 0. The ratio is one
+    division, as IPP takes it: OpenCV's own loops take 1 / (dsize / ssize),
+    which differs where f falls within a rounding of an integer."""
+    scale = ssize / dsize
     f = (np.arange(dsize) + 0.5) * scale - 0.5
     s = np.floor(f).astype(np.int64)
     frac = (f - s).astype(np.float32)
@@ -196,7 +226,10 @@ def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR) for a
     float32 [H, W] or [H, W, C] image: a horizontal pass, then a vertical
     one, each tap pair `_lerp`ed with `_linear_taps`' weights. The same
-    size gives a copy."""
+    size gives a copy. One gap to cv2 is known: when the width grows about
+    8x or more, cv2's IPP path computes the columns clamped to an edge
+    sample otherwise, up to 2^-24 apart in some rows."""
+    native.count(native.plain_calls, "resize_linear")
     img = np.asarray(img, np.float32)
     sh, sw = img.shape[:2]
     if (height, width) == (sh, sw):
@@ -269,3 +302,14 @@ def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
     w = rgb.shape[-2]
     vector = (np.arange(w) < w // 32 * 32)[:, None]
     return np.clip(np.where(vector, np.trunc(rgb), np.rint(rgb)), 0, 255).astype(np.uint8)
+
+
+def hue_shift(img: np.ndarray, shift: int) -> np.ndarray:
+    """The colour jitter's hue step (the JAX package's transforms._adjust_hue
+    with cv2): float32 [H, W, 3] RGB in [0, 1] times 255 truncated to
+    uint8, to 8-bit HSV, the hue turned by `shift` of its 180 steps, back
+    to RGB, / 255 as float32."""
+    native.count(native.plain_calls, "hue_shift")
+    hsv = rgb_to_hsv_u8((np.asarray(img, np.float32) * 255).astype(np.uint8))
+    hsv[..., 0] = (hsv[..., 0].astype(np.int32) + int(shift)) % 180
+    return hsv_to_rgb_u8(hsv).astype(np.float32) / 255.0

@@ -2,14 +2,17 @@
 depth maps, MVSNet cam files, pair lists, and PNG and JPEG images.
 
 numpy, zlib and struct only: the machine the port runs on has no PIL and
-no OpenCV. `read_png` decodes 8-bit non-interlaced PNG of every colour type
-(gray, RGB, palette, gray+alpha, RGBA) with all five row filters and returns
-what numpy makes of the image PIL opens; `read_image` reads PNG or baseline
-JPEG (data/jpeg.py), chosen by the file's signature, and converts to RGB as
-PIL's `convert("RGB")` does. Other files (16-bit or interlaced PNG,
-progressive JPEG, other formats) raise ValueError naming the format.
-`write_png` writes 8-bit gray, gray+alpha, RGB or RGBA PNG with unfiltered
-rows, or every row Paeth-filtered (row_filter=4).
+no OpenCV. `read_png` decodes every PNG that PIL reads here: each colour
+type (gray, RGB, palette, gray+alpha, RGBA) at each bit depth the format
+allows (1, 2, 4, 8 and 16), with all five row filters, interlaced (Adam7)
+or not, and returns what numpy makes of the image PIL opens (a tRNS chunk
+changes neither). `read_image` reads PNG or JPEG (data/jpeg.py: baseline,
+extended and progressive, gray, YCbCr, CMYK and YCCK), chosen by the file's
+signature, and converts to RGB as PIL's `convert("RGB")` does. Other files
+(BMP, TIFF, 12-bit, lossless, hierarchical or arithmetic-coded JPEG, ...)
+raise ValueError naming the format. `write_png` writes 8-bit gray,
+gray+alpha, RGB or RGBA PNG with unfiltered rows, or every row
+Paeth-filtered (row_filter=4).
 
 Reading unfilters PNG rows and decodes JPEG in the host library
 (data/native.py: `native.png_unfilter`, `jpeg.decode_native`); `_unfilter`
@@ -149,6 +152,10 @@ def scale_intrinsics(intrinsics: np.ndarray, scale: float) -> np.ndarray:
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# the Adam7 passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+          (1, 0, 2, 1))
 
 
 def _sniff(head: bytes) -> str:
@@ -204,8 +211,39 @@ def _unfilter(ftypes: np.ndarray, rows: np.ndarray, bpp: int) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8).reshape(h, stride)
 
 
-def _decode_png(filename, data: Optional[bytes] = None):
-    """-> (pixels uint8 [H, W, samples], colour type, palette [N, 3] or None)."""
+def _samples(rows: np.ndarray, w: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered rows [H, stride] -> their samples [H, w, channels]:
+    uint8 (depths 1-8, the values as stored) or uint16 (16, big-endian)."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * channels].reshape(h, w, channels)
+    if depth == 16:
+        return rows[:, :2 * w * channels].copy().view(">u2").astype(np.uint16).reshape(
+            h, w, channels)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :w * channels].reshape(h, w, channels)
+
+
+def _pass_rows(raw: np.ndarray, pos: int, h: int, w: int, depth: int, channels: int, name,
+               plain: bool = False):
+    """The h filtered rows of a (sub-)image of width w from raw[pos:],
+    unfiltered (by `_unfilter` when plain, else natively) and unpacked:
+    (samples [h, w, channels], the position after them)."""
+    stride = -(-w * channels * depth // 8)
+    n = h * (stride + 1)
+    if raw.size < pos + n:
+        raise ValueError(f"{name}: truncated PNG image data")
+    rows = raw[pos:pos + n].reshape(h, stride + 1)
+    bpp = max(1, channels * depth // 8)
+    unfiltered = (_unfilter(rows[:, 0], rows[:, 1:], bpp) if plain
+                  else native.png_unfilter(rows, bpp))
+    return _samples(unfiltered, w, depth, channels), pos + n
+
+
+def _decode_png(filename, data: Optional[bytes] = None, plain: bool = False):
+    """-> (samples [H, W, channels], uint8 or uint16 at depth 16, as stored;
+    colour type, bit depth, palette [N, 3] or None)."""
     data = Path(filename).read_bytes() if data is None else data
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{filename}: {_sniff(data[:8])} file, not PNG")
@@ -217,7 +255,7 @@ def _decode_png(filename, data: Optional[bytes] = None):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -227,46 +265,93 @@ def _decode_png(filename, data: Optional[bytes] = None):
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _CHANNELS:
         raise ValueError(f"{filename}: PNG colour type {ctype} is not a valid PNG colour type")
-    if depth != 8:
-        raise ValueError(f"{filename}: {depth}-bit PNG is not supported (8-bit PNG only)")
-    if interlace:
-        raise ValueError(f"{filename}: interlaced (Adam7) PNG is not supported")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{filename}: {depth}-bit PNG of colour type {ctype} is not a valid PNG")
+    if interlace > 1:
+        raise ValueError(f"{filename}: PNG interlace method {interlace} is not a valid PNG (0: "
+                         "not interlaced, 1: interlaced, Adam7)")
     if ctype == 3 and palette is None:
         raise ValueError(f"{filename}: palette PNG without a PLTE chunk")
-    bpp = _CHANNELS[ctype]
+    channels = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (w * bpp + 1):
-        raise ValueError(f"{filename}: truncated PNG image data")
-    rows = raw[:h * (w * bpp + 1)].reshape(h, w * bpp + 1)
-    pixels = native.png_unfilter(rows, bpp).reshape(h, w, bpp)
-    return pixels, ctype, palette
+    if not interlace:
+        pixels, _ = _pass_rows(raw, 0, h, w, depth, channels, filename, plain)
+        return pixels, ctype, depth, palette
+    # Adam7: seven sub-images, each filtered on its own, scattered back
+    pixels = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx in _ADAM7:
+        ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
+        if ph > 0 and pw > 0:
+            pixels[y0::dy, x0::dx], pos = _pass_rows(raw, pos, ph, pw, depth, channels, filename,
+                                                     plain)
+    return pixels, ctype, depth, palette
 
 
-def read_png(filename) -> np.ndarray:
-    """8-bit PNG -> uint8 [H, W] (gray; palette indices) or [H, W, C] (gray +
-    alpha C=2, RGB 3, RGBA 4), as np.asarray(PIL.Image.open(filename))."""
-    pixels, _, _ = _decode_png(filename)
-    return pixels[..., 0] if pixels.shape[2] == 1 else pixels
+def _to_8bit(pixels: np.ndarray, depth: int) -> np.ndarray:
+    """Samples of a gray, gray+alpha, RGB or RGBA PNG as PIL unpacks them to
+    8 bits: the high byte at depth 16, a 1-, 2- or 4-bit gray level scaled
+    to 0-255."""
+    if depth == 16:
+        return (pixels >> 8).astype(np.uint8)
+    if depth < 8:
+        return pixels * np.uint8(255 // ((1 << depth) - 1))
+    return pixels
+
+
+def read_png(filename, plain: bool = False):
+    """PNG -> np.asarray(PIL.Image.open(filename)): [H, W] gray (uint8; bool
+    at 1 bit; uint16 at 16 bits, PIL's I;16) or palette indices (uint8), or
+    uint8 [H, W, C]: gray + alpha C=2 (at 16 bits PIL's RGBA, C=4), RGB 3,
+    RGBA 4, each 16-bit sample its high byte. `plain` unfilters the rows
+    with the numpy plain version."""
+    pixels, ctype, depth, _ = _decode_png(filename, plain=plain)
+    if ctype == 3:
+        return pixels[..., 0]
+    if ctype == 0:
+        if depth == 1:
+            return pixels[..., 0] != 0
+        return pixels[..., 0] if depth == 16 else _to_8bit(pixels[..., 0], depth)
+    pixels = _to_8bit(pixels, depth)
+    if ctype == 4 and depth == 16:
+        return pixels[..., [0, 0, 0, 1]]
+    return pixels
 
 
 def read_image_u8(filename) -> np.ndarray:
     """PNG or JPEG file -> uint8 [H, W, 3], converted to RGB as PIL's
-    convert("RGB") does: gray replicated, alpha dropped, palette looked up."""
+    convert("RGB") does: gray replicated (16-bit gray saturated at 255),
+    alpha dropped, palette looked up, CMYK by PIL's cmyk2rgb."""
     data = Path(filename).read_bytes()
     if _sniff(data[:8]) == "JPEG":
         pixels = decode_jpeg(data, str(filename))
-        return np.repeat(pixels[..., None], 3, axis=2) if pixels.ndim == 2 else pixels
+        if pixels.ndim == 2:
+            return np.repeat(pixels[..., None], 3, axis=2)
+        return cmyk_to_rgb(pixels) if pixels.shape[2] == 4 else pixels
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{filename}: {_sniff(data[:8])} file; only PNG and JPEG images can "
                          "be read")
-    pixels, ctype, palette = _decode_png(filename, data)
+    pixels, ctype, depth, palette = _decode_png(filename, data)
     if ctype == 3:
         table = np.zeros((256, 3), np.uint8)
         table[:len(palette)] = palette[:256]
         return table[pixels[..., 0]]
+    if ctype == 0 and depth == 16:
+        return np.repeat(np.minimum(pixels, 255).astype(np.uint8), 3, axis=2)
+    pixels = _to_8bit(pixels, depth)
     if ctype in (0, 4):
         return np.repeat(pixels[..., :1], 3, axis=2)
     return pixels[..., :3]
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's CMYK -> RGB (Convert.c cmyk2rgb): each of R, G, B is
+    nk - nk x / 255 with nk = 255 - K, x = C, M, Y, the quotient rounded as
+    PIL's MULDIV255 rounds it."""
+    x = cmyk[..., :3].astype(np.int32)
+    nk = 255 - cmyk[..., 3:].astype(np.int32)
+    t = x * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 def read_image(filename) -> np.ndarray:

@@ -1,16 +1,18 @@
-"""Baseline JPEG in numpy: the decoder that reads eval scans (the JAX
-package reads them with PIL) and the encoder that writes the eval CLI's
-reference images (the JAX package writes them with cv2.imwrite).
+"""JPEG in numpy: the decoder that reads eval scans (the JAX package reads
+them with PIL) and the baseline encoder that writes the eval CLI's reference
+images (the JAX package writes them with cv2.imwrite).
 
 Both follow libjpeg-turbo's integer arithmetic step for step, so `decode`
 gives PIL's pixels and `encode` gives the quantized coefficients cv2's
 file holds:
 - decode: Huffman entropy decoding (one Python loop over the symbols with
   a 16-bit look-ahead table: one lookup gives a symbol, its code length
-  and, where they fit in the 16 bits, its value bits), then, vectorised
-  over all blocks, dequantisation, the islow integer IDCT (jidctint.c),
-  fancy (triangle) upsampling of 4:2:2 and 4:2:0 chroma (jdsample.c) and
-  the fixed-point YCbCr -> RGB tables (jdcolor.c);
+  and, where they fit in the 16 bits, its value bits; a progressive file's
+  scans in jdphuff.c's four kinds: DC first, DC refinement, AC first with
+  its end-of-band runs, AC refinement with its correction bits), then,
+  vectorised over all blocks, dequantisation, the islow integer IDCT
+  (jidctint.c), fancy (triangle) upsampling of 4:2:2 and 4:2:0 chroma
+  (jdsample.c) and the fixed-point YCbCr -> RGB tables (jdcolor.c);
 - encode: the fixed-point RGB -> YCbCr tables (jccolor.c), edge
   replication and h2v2 downsampling with alternating biases 1, 2
   (jcsample.c), the islow integer forward DCT (jfdctint.c), quantisation
@@ -26,11 +28,14 @@ csrc/host/jpeg.cpp) with the same integer arithmetic: the same pixels and
 the same bytes as `decode` and `encode`, which stay as their plain
 versions.
 
-`decode` takes baseline and extended-sequential Huffman files of 8 bits
-(SOF0, SOF1): grayscale, or three components at 4:4:4, 4:2:2 or 4:2:0,
-with or without restart intervals, of any size. A progressive, lossless,
-hierarchical, arithmetic-coded or 12-bit file, CMYK or any other sampling
-raises ValueError naming what it is.
+`decode` takes 8-bit Huffman files, baseline, extended-sequential and
+progressive (SOF0, SOF1, SOF2): grayscale, three components at 4:4:4,
+4:2:2 or 4:2:0 (YCbCr, or RGB), or four (Adobe CMYK or YCCK, returned as
+PIL reads them: libjpeg's CMYK inverted), with or without restart
+intervals, of any size. A lossless, hierarchical, arithmetic-coded or
+12-bit file, or any other sampling, raises ValueError naming what it is.
+A progressive file must hold every scan: libjpeg's block smoothing of a
+partly refined image does not arise.
 """
 from __future__ import annotations
 
@@ -49,8 +54,9 @@ ZIGZAG = np.array([
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_ZZ = ZIGZAG.tolist()
 
-_SOF_KIND = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical (differential)",
+_SOF_KIND = {0xC3: "lossless", 0xC5: "hierarchical (differential)",
              0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
              0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
              0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
@@ -85,7 +91,9 @@ def _canonical_codes(counts, symbols):
 
 def _check_codes(counts: bytes, symbols: bytes) -> list:
     """The canonical codes of a DHT table, ValueError if they overflow
-    their lengths."""
+    their lengths or the table lists fewer symbols than its counts."""
+    if sum(counts) > len(symbols):
+        raise ValueError("JPEG: invalid Huffman table (fewer symbols than its counts)")
     codes = _canonical_codes(counts, symbols)
     if any(c >> length for length, c, _ in codes):
         raise ValueError("JPEG: invalid Huffman table (codes overflow their lengths)")
@@ -170,6 +178,134 @@ def _decode_segment(w, blocks, tables, out):
             k += 1
         if 64 < k < 128:
             raise ValueError("JPEG: AC coefficients run past the end of a block")
+
+
+class _OutOfRange(Exception):
+    """A decoded coefficient outside JCOEF's 16 bits: corrupt data."""
+
+
+@functools.lru_cache(maxsize=64)
+def _code_lookup(counts: bytes, symbols: bytes) -> list:
+    """Per 16-bit prefix of the bit stream, (code length, symbol) of the
+    code it starts with, or None where no code matches."""
+    codes = _check_codes(counts, symbols)
+    table: list = [None] * (1 << 16)
+    for ln, c, sym in codes:
+        lo = c << (16 - ln)
+        table[lo:lo + (1 << (16 - ln))] = [(ln, sym)] * (1 << (16 - ln))
+    return table
+
+
+def _extend(t: int, s: int) -> int:
+    return t if t >> (s - 1) else t - (1 << s) + 1
+
+
+def _jcoef(v: int) -> int:
+    if not -32768 <= v <= 32767:
+        raise _OutOfRange
+    return v
+
+
+def _decode_progressive_segment(w, blocks, tables, ss, se, ah, al, c):
+    """One restart interval of a progressive scan (jdphuff.c) into the flat
+    coefficient list `c` (natural order per block): `blocks` [(slot, flat
+    offset), ...], `tables` per slot the code lookup (DC table for DC
+    first, AC table for AC scans). A symbol's size is its low four bits;
+    bits are read as `_windows` gives them; an AC coefficient past Se
+    raises ValueError. The host library's jpeg_decode_progressive does the
+    same steps."""
+    p = 0
+    pred = [0] * len(tables)
+    eobrun = 0
+    p1 = 1 << al
+
+    def bits(n):  # the next n (1-16) bits
+        return ((w[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - n)
+
+    def refine(i):  # a correction bit for the non-zero coefficient c[i]
+        if bits(1) and not c[i] & p1:
+            c[i] = _jcoef(c[i] + (p1 if c[i] >= 0 else -p1))
+
+    for ci, base in blocks:
+        table = tables[ci]
+        if ss == 0 and ah == 0:  # DC first
+            ln, sym = table[(w[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+            p += ln
+            s = sym & 15
+            if s:
+                pred[ci] += _extend(bits(s), s)
+                p += s
+            c[base] = _jcoef(pred[ci] * p1)
+        elif ss == 0:  # DC refinement
+            if bits(1):
+                c[base] |= p1
+            p += 1
+        elif ah == 0:  # AC first
+            if eobrun > 0:
+                eobrun -= 1
+                continue
+            k = ss
+            while k <= se:
+                ln, sym = table[(w[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+                p += ln
+                r, s = sym >> 4, sym & 15
+                if s:
+                    k += r
+                    if k > se:
+                        raise ValueError("JPEG: AC coefficients run past the end of a block")
+                    v = _extend(bits(s), s)
+                    p += s
+                    c[base + _ZZ[k]] = _jcoef(v * p1)
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += bits(r)
+                        p += r
+                    eobrun -= 1
+                    break
+                k += 1
+        else:  # AC refinement
+            k = ss
+            if eobrun == 0:
+                while k <= se:
+                    ln, sym = table[(w[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+                    p += ln
+                    r, s = sym >> 4, sym & 15
+                    if s:  # a newly non-zero coefficient, its sign in one bit
+                        s = p1 if bits(1) else -p1
+                        p += 1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += bits(r)
+                            p += r
+                        break
+                    # skip r zero coefficients, refining the non-zero ones passed
+                    while k <= se:
+                        i = base + _ZZ[k]
+                        if c[i]:
+                            refine(i)
+                            p += 1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if s:
+                        if k > se:
+                            raise ValueError("JPEG: AC coefficients run past the end of a block")
+                        c[base + _ZZ[k]] = s
+                    k += 1
+            if eobrun > 0:  # the band's rest: refine its non-zero coefficients
+                while k <= se:
+                    i = base + _ZZ[k]
+                    if c[i]:
+                        refine(i)
+                        p += 1
+                    k += 1
+                eobrun -= 1
 
 
 def _split_scan(data: bytes, pos: int):
@@ -318,8 +454,8 @@ def _next_marker(data: bytes, pos: int, name: str):
 
 
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Baseline JPEG bytes -> uint8 [H, W] (grayscale) or [H, W, 3] (RGB),
-    as np.asarray(PIL.Image.open(f)) gives them."""
+    """JPEG bytes -> uint8 [H, W] (grayscale), [H, W, 3] (RGB) or [H, W, 4]
+    (CMYK), as np.asarray(PIL.Image.open(f)) gives them."""
     native.count(native.plain_calls, "jpeg_decode")
     return _decode(data, name, use_native=False)
 
@@ -338,6 +474,7 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
     adobe_transform = None
     comps: List[dict] = []
     coefs = None
+    progressive = False
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     pos = 2
@@ -372,14 +509,18 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
             adobe_transform = body[11]
         elif marker in _SOF_KIND:
             raise ValueError(f"{name}: {_SOF_KIND[marker]} JPEG (SOF{marker - 0xC0}) is not "
-                             "supported; baseline (SOF0/SOF1) Huffman files only")
-        elif marker in (0xC0, 0xC1):
+                             "supported; baseline, extended or progressive (SOF0/SOF1/SOF2) "
+                             "Huffman files only")
+        elif marker in (0xC0, 0xC1, 0xC2):
+            if frame is not None:
+                raise ValueError(f"{name}: JPEG with a second frame header")
+            progressive = marker == 0xC2
             precision, h, w, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"{name}: {precision}-bit JPEG is not supported (8-bit only)")
-            if nc not in (1, 3):
-                raise ValueError(f"{name}: JPEG with {nc} components (CMYK/YCCK or other) is "
-                                 "not supported (grayscale or YCbCr only)")
+            if nc not in (1, 3, 4):
+                raise ValueError(f"{name}: JPEG with {nc} components is not supported "
+                                 "(grayscale, YCbCr, RGB, CMYK or YCCK only)")
             if h == 0 or w == 0:
                 raise ValueError(f"{name}: JPEG with a zero dimension ({w} x {h}) or a DNL "
                                  "marker is not supported")
@@ -392,7 +533,8 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
                     or not ratios <= {(1, 1), (2, 1), (2, 2)}
                     or (nc == 3 and (comps[0]["h"], comps[0]["v"]) != (hmax, vmax))):
                 samp = ",".join(f"{c['h']}x{c['v']}" for c in comps)
-                raise ValueError(f"{name}: JPEG chroma sampling {samp} is not supported "
+                kind = "CMYK/YCCK JPEG sampling" if nc == 4 else "JPEG chroma sampling"
+                raise ValueError(f"{name}: {kind} {samp} is not supported "
                                  "(4:4:4, 4:2:2 or 4:2:0 only)")
             mcux = -(-w // (8 * hmax))
             mcuy = -(-h // (8 * vmax))
@@ -409,7 +551,7 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
             if frame is None:
                 raise ValueError(f"{name}: JPEG scan before its frame header")
             pos = _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
-                               use_native)
+                               use_native, progressive)
     if frame is None:
         raise ValueError(f"{name}: JPEG without a frame header")
     if use_native:
@@ -417,9 +559,27 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
     return _reconstruct(frame, comps, qt, coefs, adobe_transform, name)
 
 
+def _scan_tables(ht, scan, ss, ah, progressive, name) -> list:
+    """The Huffman tables one scan reads, per slot (DC, AC) as DHT (counts,
+    symbols) pairs; a progressive scan reads the DC table (DC first), the
+    AC table (AC scans) or none (DC refinement), the others left empty."""
+    none = (bytes(16), b"")
+    tables = []
+    for c, td, ta in scan:
+        dc = (0, td) if not progressive or (ss == 0 and ah == 0) else None
+        ac = (1, ta) if not progressive or ss > 0 else None
+        if (dc and dc not in ht) or (ac and ac not in ht):
+            raise ValueError(f"{name}: JPEG scan uses an undefined Huffman table")
+        pair = (ht[dc] if dc else none, ht[ac] if ac else none)
+        for t in pair:
+            _check_codes(*t)
+        tables.append(pair)
+    return tables
+
+
 def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
-                 use_native) -> int:
-    """Decode one scan into `coefs` (zigzag order per block); returns the
+                 use_native, progressive=False) -> int:
+    """Decode one scan into `coefs` (natural order per block); returns the
     position of the marker that ends it."""
     h, w, hmax, vmax, mcux, mcuy = frame
     ns = body[0]
@@ -431,18 +591,14 @@ def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
             raise ValueError(f"{name}: JPEG scan names an unknown component {cid}")
         scan.append((by_id[cid], tdta >> 4, tdta & 15))
     ss, se, ahal = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
+    ah, al = ahal >> 4, ahal & 15
+    if not progressive and (ss, se, ahal) != (0, 63, 0):
         raise ValueError(f"{name}: progressive JPEG scan parameters in a sequential file")
-    tables = []
-    for c, td, ta in scan:
-        if (0, td) not in ht or (1, ta) not in ht:
-            raise ValueError(f"{name}: JPEG scan uses an undefined Huffman table")
-        if use_native:
-            _check_codes(*ht[(0, td)])
-            _check_codes(*ht[(1, ta)])
-            tables.append((ht[(0, td)], ht[(1, ta)]))
-        else:
-            tables.append((_lookup(*ht[(0, td)], False), _lookup(*ht[(1, ta)], True)))
+    if progressive and ((se != 0) if ss == 0 else (ss > se or se > 63 or ns != 1)
+                        or (ah != 0 and al != ah - 1) or al > 13):
+        raise ValueError(f"{name}: invalid progressive JPEG scan parameters (Ss={ss} Se={se} "
+                         f"Ah={ah} Al={al}, {ns} components)")
+    tables = _scan_tables(ht, scan, ss, ah, progressive, name)
     if ns == 1:
         c = scan[0][0]
         bw, bh = -(-c["w"] // 8), -(-c["h_px"] // 8)
@@ -466,18 +622,35 @@ def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
     step = restart * per_mcu if restart else len(bases)
     if len(segments) < -(-len(bases) // step):
         raise ValueError(f"{name}: JPEG scan has fewer restart intervals than its blocks need")
+    segments = segments[:-(-len(bases) // step)]
     if use_native:
-        err = native.jpeg_decode_scan(segments[:-(-len(bases) // step)], bases, slots, step,
-                                      tables, coefs)
+        if progressive:
+            err = native.jpeg_decode_progressive(
+                segments, bases, slots, step, [pair[0 if ss == 0 else 1] for pair in tables],
+                (ss, se, ah, al), coefs)
+        else:
+            err = native.jpeg_decode_scan(segments, bases, slots, step, tables, coefs)
         if err == native.AC_PAST_END:
             raise ValueError("JPEG: AC coefficients run past the end of a block")
         if err:
             raise ValueError(f"{name}: corrupt or truncated JPEG entropy-coded data")
         return end
     blocks = list(zip(slots.tolist(), bases.tolist()))
+    if progressive:
+        lookups = [_code_lookup(*pair[0 if ss == 0 else 1]) for pair in tables]
+        c = coefs.tolist()
+        try:
+            for i, seg in enumerate(segments):
+                _decode_progressive_segment(_windows(seg), blocks[i * step:(i + 1) * step],
+                                            lookups, ss, se, ah, al, c)
+        except (TypeError, IndexError, _OutOfRange) as e:
+            raise ValueError(f"{name}: corrupt or truncated JPEG entropy-coded data") from e
+        coefs[:] = c
+        return end
+    tables = [(_lookup(*dc, False), _lookup(*ac, True)) for dc, ac in tables]
     packed = []
     try:
-        for i, seg in enumerate(segments[:-(-len(blocks) // step)]):
+        for i, seg in enumerate(segments):
             _decode_segment(_windows(seg), blocks[i * step:(i + 1) * step], tables, packed)
     except (TypeError, IndexError) as e:
         raise ValueError(f"{name}: corrupt or truncated JPEG entropy-coded data") from e
@@ -495,11 +668,22 @@ def _reconstruct_native(frame, comps, qt, coefs, adobe_transform, name) -> np.nd
             raise ValueError(f"{name}: JPEG component uses an undefined quantization table")
     comp = np.array([[c["offset"], c["bw"], c["bh"], c["w"], c["h_px"], hmax // c["h"],
                       vmax // c["v"], 0] for c in comps], np.int64)
-    ids = tuple(c["id"] for c in comps)
-    mode = 0 if len(comps) == 1 else (
-        2 if adobe_transform == 0 or ids == (ord("R"), ord("G"), ord("B")) else 1)
     return native.jpeg_reconstruct(coefs, comp, np.stack([qt[c["tq"]] for c in comps]), h, w,
-                                   mode)
+                                   _colour_mode(comps, adobe_transform))
+
+
+def _colour_mode(comps, adobe_transform) -> int:
+    """libjpeg's colour space for the components (jdapimin.c
+    default_decompress_parms), as native.jpeg_reconstruct's mode: 0 gray,
+    1 YCbCr, 2 RGB (an Adobe transform of 0, or components named R, G, B),
+    3 CMYK (no Adobe marker, or transform 0), 4 YCCK (any other
+    transform)."""
+    if len(comps) == 1:
+        return 0
+    if len(comps) == 4:
+        return 3 if adobe_transform in (None, 0) else 4
+    ids = tuple(c["id"] for c in comps)
+    return 2 if adobe_transform == 0 or ids == (ord("R"), ord("G"), ord("B")) else 1
 
 
 def _reconstruct(frame, comps, qt, coefs, adobe_transform, name) -> np.ndarray:
@@ -519,12 +703,17 @@ def _reconstruct(frame, comps, qt, coefs, adobe_transform, name) -> np.ndarray:
         elif ratio == (2, 2):
             plane = upsample_h2v2(plane)
         planes.append(plane[:h, :w])
-    if len(planes) == 1:
+    mode = _colour_mode(comps, adobe_transform)
+    if mode == 0:
         return planes[0]
-    ids = tuple(c["id"] for c in comps)
-    if adobe_transform == 0 or ids == (ord("R"), ord("G"), ord("B")):
+    if mode == 2:
         return np.stack(planes, axis=-1)
-    return ycc_to_rgb(*planes)
+    if mode == 1:
+        return ycc_to_rgb(*planes)
+    # PIL reads libjpeg's CMYK inverted ("CMYK;I"); YCCK's C, M, Y are the
+    # inverted R, G, B of its YCbCr (jdcolor.c ycck_cmyk_convert)
+    cmy = ycc_to_rgb(*planes[:3]) if mode == 4 else 255 - np.stack(planes[:3], axis=-1)
+    return np.concatenate([cmy, 255 - planes[3][..., None]], axis=-1).astype(np.uint8)
 
 
 # ----------------------------------------------------------------- encoder

@@ -7,8 +7,9 @@ Every sample of a batch shares one crop scale; ShapeBucketSchedule assigns
 the scales to batches from (seed, epoch), so a run is reproducible. Each
 view's intrinsics are scaled by 0.125/0.25/0.5/1 into the per-stage
 [V, 2, 4, 4] camera stacks the model takes. numpy and the host library
-(data/image.py stands in for OpenCV, data/io.py and data/jpeg.py for PIL,
-data/native.py's crop_normalize for the JAX package's C pass).
+(data/native.py: its resizes and hue shift stand in for OpenCV, the codecs
+behind data/io.py and data/jpeg.py for PIL, crop_normalize for the JAX
+package's C pass).
 """
 from __future__ import annotations
 
@@ -20,7 +21,6 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from . import native
-from .image import resize_area, resize_nearest
 from .io import (DecodedImages, build_camera_stack, read_cam_file, read_image, read_pair_file,
                  read_pfm, read_png)
 from .transforms import apply_color_jitter, sample_jitter_params, stage_pyramid
@@ -38,27 +38,43 @@ def stage_cameras(intrinsics: np.ndarray, extrinsics: np.ndarray) -> Dict[str, n
     return cams
 
 
-def pre_resize(img, depth, intrinsics, mask, scale: float):
-    """Area-resize the image (nearest for depth and mask) by `scale` and
-    scale K to match."""
+def resized_size(h: int, w: int, scale: float) -> Tuple[int, int]:
+    """(h, w) of an h x w view resized by `scale` (the JAX package's
+    pre_resize)."""
+    return (h, w) if scale == 1.0 else (int(h * scale), int(w * scale))
+
+
+def resize_maps(depth, intrinsics, mask, hw: Tuple[int, int], scale: float):
+    """The resize of everything but the image: depth and mask of an `hw`
+    view by nearest, K scaled."""
     if scale == 1.0:
-        return img, depth, intrinsics, mask
-    h, w = img.shape[:2]
-    nw, nh = int(w * scale), int(h * scale)
-    img = resize_area(img, nh, nw)
+        return depth, intrinsics, mask
+    nh, nw = resized_size(*hw, scale)
     k = intrinsics.copy()
     k[0] *= scale
     k[1] *= scale
     if depth is not None:
-        depth = resize_nearest(depth, nh, nw)
+        depth = native.resize_nearest(depth, nh, nw)
     if mask is not None:
-        mask = resize_nearest(mask, nh, nw)
-    return img, depth, k, mask
+        mask = native.resize_nearest(mask, nh, nw)
+    return depth, k, mask
 
 
-def crop(img, depth, intrinsics, mask, crop_h, crop_w, offset_y, offset_x):
-    """Crop and shift the principal point."""
-    img = img[offset_y:offset_y + crop_h, offset_x:offset_x + crop_w]
+def resize_image(img, scale: float, window=None):
+    """The image's area shrink by `scale`; with `window` (oy, ox, h, w) only
+    that part of the result, bit-equal to the same crop of the whole (each
+    output pixel depends only on its own source cell)."""
+    if scale == 1.0:
+        if window is None:
+            return img
+        oy, ox, wh, ww = window
+        return img[oy:oy + wh, ox:ox + ww]
+    return native.resize_area(img, *resized_size(*img.shape[:2], scale), window)
+
+
+def crop(depth, intrinsics, mask, crop_h, crop_w, offset_y, offset_x):
+    """Crop depth and mask and shift the principal point (the image is
+    cropped by resize_image's window)."""
     k = intrinsics.copy()
     k[0, 2] -= offset_x
     k[1, 2] -= offset_y
@@ -66,7 +82,7 @@ def crop(img, depth, intrinsics, mask, crop_h, crop_w, offset_y, offset_x):
         depth = depth[offset_y:offset_y + crop_h, offset_x:offset_x + crop_w]
     if mask is not None:
         mask = mask[offset_y:offset_y + crop_h, offset_x:offset_x + crop_w]
-    return img, depth, k, mask
+    return depth, k, mask
 
 
 @dataclass
@@ -183,26 +199,31 @@ class MVSTrainDataset:
         depth_ms = mask_ms = depth_values = None
         for i, vid in enumerate(view_ids):
             img, depth, mask, K, E, dmin, dint = self.load_view(meta, vid, want_depth=(i == 0))
-            img, depth, K, mask = pre_resize(img, depth, K, mask, resize_scale)
-            h, w = img.shape[:2]
+            # the resize: depth, mask and K whole, the image only in the
+            # window its crop keeps, so the crop offsets are drawn before
+            # the image's resize (which draws nothing: the JAX package's
+            # order of draws)
+            depth, K, mask = resize_maps(depth, K, mask, img.shape[:2], resize_scale)
+            h, w = resized_size(*img.shape[:2], resize_scale)
             if i == 0:
                 # retry the reference crop until its 1/8-resolution mask has
                 # a valid pixel; the accepted offsets are the last drawn
                 oy = ox = 0
                 for _ in range(20):
                     oy, ox = self._offsets(nprng, h, w, crop_h, crop_w)
-                    _, _, _, m_ = crop(img, depth, K, mask, crop_h, crop_w, oy, ox)
+                    m_ = mask[oy:oy + crop_h, ox:ox + crop_w] if mask is not None else None
                     m_s1 = stage_pyramid(m_)["stage1"] if m_ is not None else None
                     if m_s1 is None or np.any(m_s1 > 0) or not self.random_crop:
                         break
-                img, depth, K, mask = crop(img, depth, K, mask, crop_h, crop_w, oy, ox)
+                depth, K, mask = crop(depth, K, mask, crop_h, crop_w, oy, ox)
                 depth_ms = stage_pyramid(depth) if depth is not None else None
                 mask_ms = stage_pyramid(mask) if mask is not None else None
                 depth_values = np.arange(dmin, dint * self.ndepths + dmin, dint,
                                          dtype=np.float32)[: self.ndepths]
             else:
                 oy, ox = self._offsets(nprng, h, w, crop_h, crop_w)
-                img, depth, K, mask = crop(img, depth, K, mask, crop_h, crop_w, oy, ox)
+                depth, K, mask = crop(depth, K, mask, crop_h, crop_w, oy, ox)
+            img = resize_image(img, resize_scale, (oy, ox, crop_h, crop_w))
 
             gamma = 0.0
             if jitter is not None:

@@ -1,8 +1,11 @@
 """The port's host library (csrc/host/*.cpp) and its ctypes bindings: the
 data pipeline's fused float passes (fastio: the counterpart of
 mvsformerplusplus_tpu/data/native.py, under the same names), the JPEG
-decoder's entropy decoding and reconstruction, the JPEG encoder's
-per-pixel and per-symbol work, and the PNG row unfilter.
+decoder's entropy decoding (baseline and progressive) and reconstruction,
+the JPEG encoder's per-pixel and per-symbol work, the PNG row unfilter, and
+OpenCV's share of the data path (resample.cpp: the area, nearest and linear
+resizes and the 8-bit hue shift, each equal bit for bit to its numpy
+version in data/image.py).
 
 The sources compile with the system C++ compiler ($CXX, else g++) into one
 shared library under <repo>/build/host/, named by a hash of the sources and
@@ -14,9 +17,12 @@ a failed build raises RuntimeError with the compiler's log. ctypes releases
 the interpreter lock during each call, so loader threads decode in
 parallel.
 
-`calls` counts the calls of each entry point; `plain_calls` counts the
-calls of the numpy codec (jpeg.decode, jpeg.encode, io._unfilter), the
-plain versions the tests hold the library to.
+`calls` counts the calls of each entry point, each where it enters the
+library; `plain_calls` counts the calls of the numpy codec (jpeg.decode,
+jpeg.encode, io._unfilter) and of data/image.py's resizes and hue shift,
+the plain versions the tests hold the library to, and under
+"resize_area_enlarge" the area enlargements resize_area leaves to numpy
+(only the DINOv2 matcher enlarges). No data path calls a plain version.
 """
 from __future__ import annotations
 
@@ -37,8 +43,11 @@ CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-ffp-contract
 
 calls: Dict[str, int] = {k: 0 for k in (
     "crop_normalize", "u8_to_f32", "stage_pyramid", "jpeg_decode_scan", "jpeg_reconstruct",
-    "jpeg_encode", "png_unfilter")}
-plain_calls: Dict[str, int] = {"jpeg_decode": 0, "jpeg_encode": 0, "png_unfilter": 0}
+    "jpeg_encode", "png_unfilter", "jpeg_decode_progressive", "resize_area", "resize_nearest",
+    "resize_linear", "hue_shift")}
+plain_calls: Dict[str, int] = {k: 0 for k in (
+    "jpeg_decode", "jpeg_encode", "png_unfilter", "resize_area", "resize_nearest", "resize_linear",
+    "hue_shift", "resize_area_enlarge")}
 
 _lib = None
 _lock = threading.Lock()
@@ -60,6 +69,15 @@ _SIGNATURES = {
     "jpeg_reconstruct": (_i, [_i64p, _i64, _i, _i64p, _i64p, _i64, _i64, _i, _u8p]),
     "jpeg_encode_entropy": (_i, [_u8p, _i64, _i64, _i32p, _i32p, _i32p, _i32p, _u8p, _i64, _i64p]),
     "png_unfilter": (_i, [_u8p, _i64, _i64, _i, _u8p]),
+    "jpeg_decode_progressive": (_i, [_u8p, _i64p, _i64p, _i64, _i64p, _i32p, _i64, _i64, _i, _u8p,
+                                     _u8p, _i32p, _i, _i, _i, _i, _i64p, _i64]),
+    "resize_area_f32": (_i, [_f32p, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64,
+                             _i64, _f32p]),
+    "resize_area_u8": (_i, [_u8p, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64,
+                            _u8p]),
+    "resize_nearest": (_i, [_u8p, _i64, _i64, _i64, _i64, _i64, _u8p]),
+    "resize_linear_f32": (_i, [_f32p, _i64, _i64, _i64, _i64, _i64, _f32p]),
+    "hue_shift_f32": (None, [_f32p, _i64, _i64, _i, _f32p]),
 }
 
 
@@ -202,15 +220,44 @@ def jpeg_decode_scan(segments, bases: np.ndarray, slots: np.ndarray, step: int, 
                                 _ptr(nsyms, _i32p), _ptr(coefs, _i64p), coefs.size)
 
 
+def jpeg_decode_progressive(segments, bases: np.ndarray, slots: np.ndarray, step: int, tables,
+                            params, coefs: np.ndarray) -> int:
+    """Huffman-decode one progressive scan into coefs, laid out as
+    jpeg_decode_scan's arguments with one table per slot ((counts,
+    symbols): DC first's DC table, an AC scan's AC table, any for a DC
+    refinement) and params (Ss, Se, Ah, Al). Returns 0 or an error code."""
+    data = np.concatenate([np.asarray(s, np.uint8) for s in segments] + [np.zeros(1, np.uint8)])
+    lens = np.array([len(s) for s in segments], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    n = len(tables)
+    counts = np.zeros((n, 16), np.uint8)
+    symbols = np.zeros((n, MAX_SYMBOLS), np.uint8)
+    nsyms = np.zeros(n, np.int32)
+    for s, (cnt, sym) in enumerate(tables):
+        counts[s] = np.frombuffer(cnt, np.uint8)
+        symbols[s, :len(sym)] = np.frombuffer(sym, np.uint8)
+        nsyms[s] = len(sym)
+    bases = np.ascontiguousarray(bases, np.int64)
+    slots = np.ascontiguousarray(slots, np.int32)
+    lib = load()
+    count(calls, "jpeg_decode_progressive")
+    return lib.jpeg_decode_progressive(_ptr(data, _u8p), _ptr(starts, _i64p), _ptr(lens, _i64p),
+                                       len(segments), _ptr(bases, _i64p), _ptr(slots, _i32p),
+                                       len(bases), step, n, _ptr(counts, _u8p),
+                                       _ptr(symbols, _u8p), _ptr(nsyms, _i32p), *map(int, params),
+                                       _ptr(coefs, _i64p), coefs.size)
+
+
 def jpeg_reconstruct(coefs: np.ndarray, comp: np.ndarray, qt: np.ndarray, h: int, w: int,
                      mode: int) -> np.ndarray:
-    """Coefficients -> uint8 [h, w] (mode 0, one component) or [h, w, 3]
-    (mode 1 YCbCr -> RGB, mode 2 the planes as they are); comp [C, 8] per
-    component (offset, bw, bh, width, height, x ratio, y ratio, 0), qt
-    [C, 64] its dequantisation factors in natural order."""
+    """Coefficients -> uint8 [h, w] (mode 0, one component), [h, w, 3]
+    (mode 1 YCbCr -> RGB, mode 2 the planes as they are) or [h, w, 4] (PIL's
+    inverted CMYK from mode 3 CMYK, mode 4 YCCK); comp [C, 8] per component
+    (offset, bw, bh, width, height, x ratio, y ratio, 0), qt [C, 64] its
+    dequantisation factors in natural order."""
     comp = np.ascontiguousarray(comp, np.int64)
     qt = np.ascontiguousarray(qt, np.int64)
-    out = np.empty((h, w) if mode == 0 else (h, w, 3), np.uint8)
+    out = np.empty((h, w) if mode == 0 else (h, w, 4 if mode >= 3 else 3), np.uint8)
     lib = load()
     count(calls, "jpeg_reconstruct")
     err = lib.jpeg_reconstruct(_ptr(coefs, _i64p), coefs.size, len(comp), _ptr(comp, _i64p),
@@ -253,4 +300,103 @@ def png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     err = lib.png_unfilter(_ptr(rows, _u8p), h, stride, bpp, _ptr(out, _u8p))
     if err:
         raise ValueError(f"PNG: unknown row filter {int(rows[:, 0].max())}")
+    return out
+
+
+# ---------------------------------------------------------------- resample
+
+def _window(height: int, width: int, window):
+    """(oy, ox, wh, ww) of a (height, width) output, the whole of it when
+    window is None; ValueError when it is not inside."""
+    oy, ox, wh, ww = (0, 0, height, width) if window is None else map(int, window)
+    if oy < 0 or ox < 0 or wh < 0 or ww < 0 or oy + wh > height or ox + ww > width:
+        raise ValueError(f"window {(oy, ox, wh, ww)} outside the {height} x {width} output")
+    return oy, ox, wh, ww
+
+
+def _channels_last(img: np.ndarray):
+    if img.ndim not in (2, 3) or 0 in img.shape:
+        raise ValueError(f"takes a non-empty [H, W] or [H, W, C] image, got {img.shape}")
+    return img.shape[0], img.shape[1], 1 if img.ndim == 2 else img.shape[2]
+
+
+def resize_area(img: np.ndarray, height: int, width: int, window=None) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA) for a
+    float32 or uint8 [H, W] or [H, W, C] image, bit for bit
+    image.resize_area's; `window` (oy, ox, h, w) gives only that part of
+    the output, equal to the same slice of the whole (get_sample's crop).
+    A shrink runs in the library (the integer fast path and the fractional
+    one); the same size is a copy, and an enlarging axis takes
+    image.resize_area's linear path in numpy, counted in
+    plain_calls["resize_area_enlarge"]."""
+    from .image import _area_factors, _resize_area_linear
+
+    u8 = np.asarray(img).dtype == np.uint8
+    img = np.ascontiguousarray(img, np.uint8 if u8 else np.float32)
+    sh, sw, c = _channels_last(img)
+    oy, ox, wh, ww = _window(height, width, window)
+    if (height, width) == (sh, sw):
+        return img[oy:oy + wh, ox:ox + ww].copy()
+    if height > sh or width > sw:
+        count(plain_calls, "resize_area_enlarge")
+        return _resize_area_linear(img, height, width)[oy:oy + wh, ox:ox + ww]
+    fy, fx = _area_factors(sh, sw, height, width)
+    out = np.empty((wh, ww) + img.shape[2:], img.dtype)
+    lib = load()
+    count(calls, "resize_area")
+    if u8:
+        err = lib.resize_area_u8(_ptr(img, _u8p), sh, sw, c, height, width, fy, fx, oy, ox, wh,
+                                 ww, _ptr(out, _u8p))
+    else:
+        err = lib.resize_area_f32(_ptr(img, _f32p), sh, sw, c, height, width, fy, fx, oy, ox, wh,
+                                  ww, _ptr(out, _f32p))
+    if err:
+        raise RuntimeError(f"resize_area: bad arguments (error {err})")
+    return out
+
+
+def resize_nearest(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_NEAREST) for
+    an [H, W] or [H, W, C] image of any dtype, image.resize_nearest's
+    pixels."""
+    img = np.ascontiguousarray(img)
+    sh, sw, c = _channels_last(img)
+    out = np.empty((height, width) + img.shape[2:], img.dtype)
+    lib = load()
+    count(calls, "resize_nearest")
+    err = lib.resize_nearest(_ptr(img.view(np.uint8), _u8p), sh, sw, c * img.itemsize, height,
+                             width, _ptr(out.view(np.uint8), _u8p))
+    if err:
+        raise RuntimeError(f"resize_nearest: bad arguments (error {err})")
+    return out
+
+
+def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR) for a
+    float32 [H, W] or [H, W, C] image, bit for bit image.resize_linear's.
+    The same size is a copy."""
+    img = np.ascontiguousarray(img, np.float32)
+    sh, sw, c = _channels_last(img)
+    if (height, width) == (sh, sw):
+        return img.copy()
+    out = np.empty((height, width) + img.shape[2:], np.float32)
+    lib = load()
+    count(calls, "resize_linear")
+    err = lib.resize_linear_f32(_ptr(img, _f32p), sh, sw, c, height, width, _ptr(out, _f32p))
+    if err:
+        raise RuntimeError(f"resize_linear: bad arguments (error {err})")
+    return out
+
+
+def hue_shift(img: np.ndarray, shift: int) -> np.ndarray:
+    """float32 [H, W, 3] RGB in [0, 1] -> its 8-bit hue turned by `shift`
+    of OpenCV's 180 steps, as float32 in [0, 1]: image.hue_shift's values
+    (cv2's RGB -> HSV -> RGB) in one pass."""
+    img = np.ascontiguousarray(img, np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"hue_shift takes [H, W, 3], got {img.shape}")
+    out = np.empty_like(img)
+    lib = load()
+    count(calls, "hue_shift")
+    lib.hue_shift_f32(_ptr(img, _f32p), img.shape[0], img.shape[1], int(shift), _ptr(out, _f32p))
     return out

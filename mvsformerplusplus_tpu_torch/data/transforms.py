@@ -1,6 +1,10 @@
 """Photometric augmentation and normalization (counterpart of
-mvsformerplusplus_tpu/data/transforms.py), numpy only: the OpenCV calls of
-the JAX package are data/image.py's numpy copies.
+mvsformerplusplus_tpu/data/transforms.py): numpy, and for the JAX package's
+OpenCV calls (the hue shift, the nearest pyramid) the host library
+(data/native.py), whose plain versions are data/image.py's. Brightness,
+contrast and saturation stay in numpy: `img @ _GRAY` goes through numpy's
+matrix product and `.mean()` through its pairwise sum, whose orders a C
+loop is not sure to repeat.
 
 One set of jitter factors is drawn per sample and applied to every view, so
 the views stay photometrically consistent with each other.
@@ -9,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .image import hsv_to_rgb_u8, resize_nearest, rgb_to_hsv_u8
+from . import native
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -51,10 +55,8 @@ def _adjust_saturation(img, f):
 
 
 def _adjust_hue(img, f):
-    hsv = rgb_to_hsv_u8((img * 255).astype(np.uint8))
     # 8-bit hue is [0, 180); a shift of f (a fraction of the cycle)
-    hsv[..., 0] = (hsv[..., 0].astype(np.int32) + int(round(f * 180))) % 180
-    return hsv_to_rgb_u8(hsv).astype(np.float32) / 255.0
+    return native.hue_shift(img, int(round(f * 180)))
 
 
 def apply_color_jitter(img: np.ndarray, params: dict, include_gamma: bool = True) -> np.ndarray:
@@ -90,5 +92,5 @@ def stage_pyramid(arr: np.ndarray, levels: int = 4) -> dict:
     out = {}
     for i in range(levels):
         f = 2 ** (levels - 1 - i)
-        out[f"stage{i + 1}"] = arr if f == 1 else resize_nearest(arr, h // f, w // f)
+        out[f"stage{i + 1}"] = arr if f == 1 else native.resize_nearest(arr, h // f, w // f)
     return out

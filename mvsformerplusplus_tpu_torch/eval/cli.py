@@ -52,8 +52,8 @@ import torch
 
 from ..config import build_model, load_config
 from ..convert import load_npz, load_vit
+from ..data import native
 from ..data.eval_dataset import EvalDataset
-from ..data.image import resize_linear, resize_nearest
 from ..data.io import build_camera_stack, read_cam_file, read_image, read_pair_file, read_pfm
 from ..data.io import save_cam_file, save_pfm
 from ..data.jpeg import write_jpeg
@@ -230,7 +230,7 @@ def save_depths(args, cfg, device: torch.device, stats: dict):
         if "gt_depth" in sample:
             gt = sample["gt_depth"]
             if gt.shape != depth.shape:
-                gt = resize_nearest(gt, depth.shape[0], depth.shape[1])
+                gt = native.resize_nearest(gt, depth.shape[0], depth.shape[1])
             g = torch.from_numpy(np.ascontiguousarray(gt))[None]
             m = depth_metrics(torch.from_numpy(depth)[None], g, g > 0)
             metric_sums.append({k: float(v) for k, v in m.items()})
@@ -368,7 +368,7 @@ def fuse_scan(args, scan: str, device: torch.device, stats: Optional[dict] = Non
         if not img_path.exists():
             img_path = Path(args.testpath) / scan / "images" / f"{ref:0>8}.jpg"
         if img_path.exists():
-            img = resize_linear(read_image(img_path), mask.shape[0], mask.shape[1])
+            img = native.resize_linear(read_image(img_path), mask.shape[0], mask.shape[1])
             if stats is not None:
                 stats["fusion_decodes"] += 1
             all_cols.append((img[mask] * 255).astype(np.uint8))

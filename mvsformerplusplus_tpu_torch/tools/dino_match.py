@@ -13,8 +13,9 @@ patch centres scaled back to pixels.
     pts_a, pts_b = match_fn(img_a_uint8_rgb, img_b_uint8_rgb)
 
 The ViT runs in fp32 on the card (its attention through the f32 flash
-kernel) unless device="cpu". The resize is data/image.resize_area, OpenCV's
-INTER_AREA, which shrinks or enlarges.
+kernel) unless device="cpu". The resize is the host library's
+native.resize_area (data/image.resize_area's values), OpenCV's INTER_AREA,
+which shrinks or enlarges.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 from torch import nn
 
 from ..convert import from_jax_variables, load_vit
-from ..data.image import resize_area
+from ..data import native
 from ..models.dino import DinoVisionTransformer
 
 # ImageNet normalisation, DINOv2's input distribution
@@ -87,7 +88,7 @@ def make_dino_matcher(vit_path=None, long_side: int = 644, sim_thresh: float = 0
     def extract(img_u8):
         h, w = img_u8.shape[:2]
         wh, ww = _work_shape(h, w, long_side)
-        im = resize_area(np.asarray(img_u8, np.uint8), wh, ww)
+        im = native.resize_area(np.asarray(img_u8, np.uint8), wh, ww)
         im = (im.astype(np.float32) / 255.0 - _MEAN) / _STD
         return feats_of(im), (wh // 14, ww // 14), (w / ww, h / wh)
 

@@ -14,9 +14,10 @@ the CPU. Tolerance: none (bit for bit) unless a case says otherwise.
   what it decodes cv2.imwrite's file to.
 - PNG: a file per row filter 0-4 and PIL-written photos: native = numpy
   `_unfilter` = PIL.
-- Errors: a progressive file, a truncated scan, a bad Huffman code and
-  random byte flips in the scan raise the numpy decoder's ValueError text
-  through read_image_u8 (or give its pixels).
+- Errors: a truncated scan, a bad Huffman code and random byte flips in
+  the scan raise the numpy decoder's ValueError text through
+  read_image_u8 (or give its pixels); a progressive file gives its pixels
+  (PIL's).
 - Four threads decoding different files at once give the same pixels.
 - A build with CXX pointed at a missing compiler raises; nothing falls
   back.
@@ -308,7 +309,8 @@ def _same_outcome(data: bytes, tmp_path):
 
 def test_progressive_truncated_and_bad_code_raise_as_numpy(tmp_path):
     img = _texture(0, 40, 48)
-    assert "progressive JPEG" in _same_outcome(_pil_jpeg(img, progressive=True), tmp_path)
+    progressive = _pil_jpeg(img, progressive=True)
+    np.testing.assert_array_equal(_same_outcome(progressive, tmp_path), _pil(progressive))
     data = _pil_jpeg(img, quality=90)
     sos = data.index(b"\xff\xda")
     assert "corrupt or truncated" in _same_outcome(data[:sos + 40], tmp_path)

@@ -1,7 +1,8 @@
 """The port's numpy stand-ins for PIL and OpenCV (data/io.py's PNG codec,
 data/image.py's resizes and HSV conversions) against PIL and cv2 here: the
 PNG pixels bit-equal to PIL's on PNGs that PIL writes (every colour type
-and every row filter), the nearest resize and the HSV conversions
+and every row filter; the other bit depths and interlacing in
+test_torch_image_formats.py), the nearest resize and the HSV conversions
 bit-equal to cv2, the area resize within 1e-6 of cv2 at the shrink factors
 pre_resize gives (0.45-1.0). The area resize enlarging (either axis):
 uint8 bit-equal to cv2, float32 within 1e-6; and the DINOv2 matcher on an
@@ -122,19 +123,30 @@ def test_write_png_reads_back_in_pil(tmp_path, channels):
 
 
 def test_unsupported_files_name_their_format(tmp_path):
+    """Progressive, 16-bit and interlaced files are read (tests/
+    test_torch_image_formats.py); what stays refused names itself: an
+    arithmetic-coded progressive JPEG, a 16-bit palette PNG and an unknown
+    interlace method, none of them a file PIL reads."""
     arr = _texture(np.random.RandomState(0), 16, 16, 3)
     Image.fromarray(arr).save(tmp_path / "x.jpg", quality=90, progressive=True)
+    data = (tmp_path / "x.jpg").read_bytes()
+    i = data.index(b"\xff\xc2")
+    (tmp_path / "x.jpg").write_bytes(data[:i + 1] + b"\xca" + data[i + 2:])  # SOF10
     with pytest.raises(ValueError, match="progressive JPEG"):
         read_image(tmp_path / "x.jpg")
-    Image.fromarray(arr[..., 0].astype(np.uint16) * 200).save(tmp_path / "x16.png")
+
+    def patched(data, offset, value):
+        data = bytearray(data)
+        data[offset] = value
+        data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
+        return bytes(data)
+
+    write_png(tmp_path / "x.png", arr[..., 0])
+    png = (tmp_path / "x.png").read_bytes()
+    (tmp_path / "x16.png").write_bytes(patched(patched(png, 24, 16), 25, 3))  # 16-bit palette
     with pytest.raises(ValueError, match="16-bit"):
         read_image(tmp_path / "x16.png")
-    write_png(tmp_path / "xi.png", arr)
-    data = bytearray((tmp_path / "xi.png").read_bytes())
-    data[28] = 1  # IHDR interlace method: Adam7
-    data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
-    (tmp_path / "xi.png").write_bytes(bytes(data))
-    assert Image.open(tmp_path / "xi.png").info.get("interlace") == 1
+    (tmp_path / "xi.png").write_bytes(patched(png, 28, 2))  # IHDR interlace method 2
     with pytest.raises(ValueError, match="interlaced"):
         read_image(tmp_path / "xi.png")
 

@@ -89,13 +89,23 @@ def test_read_image_takes_jpeg_as_pil_converts_it(tmp_path):
 @pytest.mark.parametrize("kind,kw", [("progressive", dict(progressive=True)),
                                      ("CMYK", dict(mode="CMYK"))])
 def test_unsupported_jpeg_raises_naming_it(kind, kw):
+    """Progressive and CMYK files are read (tests/test_torch_image_formats.py);
+    their variants the decoder still refuses name themselves: arithmetic-
+    coded progressive (SOF10) and a CMYK file sampled 4:1:1."""
     img = Image.fromarray(_texture(0, 24, 24))
     if kw.pop("mode", None):
         img = img.convert("CMYK")
     buf = io.BytesIO()
     img.save(buf, "JPEG", **kw)
-    with pytest.raises(ValueError, match=kind):
-        jpeg.decode(buf.getvalue())
+    data = bytearray(buf.getvalue())
+    sof = data.index(b"\xff\xc2" if kind == "progressive" else b"\xff\xc0")
+    if kind == "progressive":
+        data[sof + 1] = 0xCA
+    else:
+        data[sof + 11] = 0x41  # the first component 4 x 1
+    for decode in (jpeg.decode, jpeg.decode_native):
+        with pytest.raises(ValueError, match=kind):
+            decode(bytes(data))
 
 
 @pytest.mark.parametrize("size", SIZES + [(1, 1), (33, 17)], ids=lambda s: f"{s[0]}x{s[1]}")
