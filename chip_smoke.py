@@ -155,6 +155,18 @@ Phases, one JSON line each:
               blocky image's shift recovered, the matches the CPU's; first,
               outside the counted run, the JAX tool's test at its size and
               gates;
+  scene_convert
+              the port's scene converters through their command lines on
+              scenes of the analytic scene (SCENE_CONVERT): a 12-frame NeRF
+              scene at 1152 x 1536 with ORB on the host and with the DINOv2
+              matcher on the card (the f32 flash kernel, 2 x 12 launches per
+              match call), a 49-view COLMAP text model at 1200 x 1600 with
+              --convert_format from PNG, BMP, LZW TIFF and an EXIF-rotated
+              JPEG, then the eval command line --dataset custom on 2
+              references of the converted scan; the native ORB against
+              cv2's keypoints and descriptors of two committed images
+              (tests/data/make_orb_fixtures.py), each view's converted
+              depth range against its true depth;
   host_codec  the host library against the numpy codec on images it makes at
               1152 x 1536, 1536 x 2048 and 1200 x 1600: JPEG encode (bytes
               equal), decode (pixels equal) and a Paeth PNG's row unfilter
@@ -175,7 +187,7 @@ Phases, one JSON line each:
 Each path (main_path, train_step, train_cli, eval_cli, casmvs_main_path,
 casmvs_train_step, variants_main_path, variants_train_step, casmvs_cli,
 blended_cli, dist_step, train_cli_mesh, eval_queue, e2e_casmvs, e2e_flagship,
-dino_match) is run with every kernel's launch count set to 0 just before it
+dino_match, scene_convert) is run with every kernel's launch count set to 0 just before it
 and read just after, the counts of the processes it starts reported back by
 each (ops.cuda.launch_counts) and added; the kernel phase's cases must add
 up to those counts (so the f32 flash and conv kernels and the warps' scalar
@@ -407,6 +419,28 @@ VIT_TINY = (3, 2, 24, True)
 # test at its own size (11 x 15 patches) and gates
 DINO_MATCH = dict(hw=(490, 644), test_hw=(154, 210), shift=28, blocks=12)
 
+# the scene_convert phase: the port's scene converters on scenes of the
+# analytic scene at sizes users convert, rendered and written by a process
+# of its own from the start of the run (render_scene_data). A NeRF scene of 12 frames at 1152 x
+# 1536 (frames 1, 5 and 9 RGBA PNGs, camera_angle_x), converted with ORB on
+# the host and with the DINOv2 matcher (the vit_pth phase's seeded ViT-B
+# .pth) on the card: the matcher's working size is 34 x 46 patches (long
+# side 644), 2 ViT forwards of 12 blocks per match call. A COLMAP text
+# model of 49 views at DTU's raw 1200 x 1600 (PINHOLE, 50000 points lifted
+# from the views' renders; PNG sources but view 1 a BMP, view 2 an LZW TIFF,
+# view 3 a JPEG with EXIF orientation 6), converted with --convert_format;
+# then the eval CLI (--dataset custom) on 2 reference views of that scan
+# (each the other's one fusion source: --fusion_view 1), 5 views at the
+# DTU-eval size, gipuma fusion with --num_consistent 1 (dpcd needs two
+# sources; gipuma samples the nearest pixel, no warp kernel)
+SCENE_CONVERT = dict(nerf_frames=12, nerf_hw=(1152, 1536), nerf_rgba=(1, 5, 9), colmap_views=49,
+                     colmap_hw=(1200, 1600), colmap_points=50000,
+                     colmap_formats={1: "bmp", 2: "tif", 3: "jpg6"}, eval_refs=2,
+                     dino_hw=(476, 644))
+# the dino conversion's flash launches: 2 x 12 per match call, the calls
+# counted in its run (scene_convert fills it before the launch check)
+SCENE_DINO_RUNS: dict = {}
+
 
 class ShapeConfig(NamedTuple):
     """One shape a path runs the model at (shape_configs)."""
@@ -477,7 +511,7 @@ def shape_configs():
     configs = [
         C("eval1152", "eval", (1, 1152, 1536), 0,
           {"main_path": 1, "eval_cli": EVAL_CLI["views"], "eval_queue": queue_maps,
-           "variants_main_path": 1}, "flagship"),
+           "variants_main_path": 1, "scene_convert": SCENE_CONVERT["eval_refs"]}, "flagship"),
         C("train640", "train", (2, 512, 640), 1,
           {"train_step": 1, "train_cli": steps[(512, 640)],
            "dist_step": len(DIST_PROBES) + 1 + DIST["timed"],
@@ -809,13 +843,17 @@ F32_PADDED = (("dh24", (10, 321, 2, 24)), ("dh32", (2, 333, 3, 32)))
 def flash_f32_cases():
     """The f32 SIMT forward at the dino_match path's shape (the fp32 ViT-B
     on 35 x 46 patches and the class token, 12 blocks per image, 2 images),
-    and at shapes no path runs: the tiny flagship's (the fp32 model of the
+    at the scene_convert path's (34 x 46 patches, 2 x 12 per match call:
+    SCENE_DINO_RUNS), and at shapes no path runs: the tiny flagship's (the fp32 model of the
     reference phases) and head dims 24 and 32."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     n = (DINO_MATCH["hw"][0] // 14) * (DINO_MATCH["hw"][1] // 14) + 1
     q, k, v = (torch.randn(1, n, 12, 64, generator=gen, device="cuda") for _ in range(3))
     yield "dino_match_vit", {"dino_match": 2 * DINO_MATCH["blocks"]}, (q, k, v, 64 ** -0.5,
                                                                        False), (2,)
+    n = (SCENE_CONVERT["dino_hw"][0] // 14) * (SCENE_CONVERT["dino_hw"][1] // 14) + 1
+    q, k, v = (torch.randn(1, n, 12, 64, generator=gen, device="cuda") for _ in range(3))
+    yield "scene_convert_vit", SCENE_DINO_RUNS, (q, k, v, 64 ** -0.5, False), (2,)
     vit_scale, cta_scale = _tiny_scales()
     for part, (b, n, h, dh), sc, lse in (("tiny_vit", TINY_VIT, vit_scale, False),
                                          ("tiny_cta", TINY_CTA, cta_scale, True),
@@ -1343,6 +1381,47 @@ def err_over_tol(got, want, tol=None) -> float:
     return ratio
 
 
+# each kernel's (source, TPU kernel, library, earlier, kernel-phase rows)
+KERNEL_ROWS: dict = {}
+
+
+def kernel_summary(name) -> dict:
+    """A kernel's entry of the kernels line from its kernel-phase rows, each
+    case's time x its launches per path run; built again after the paths
+    ran, as scene_convert counts its case's launches in its own run."""
+    src, replaces, library, earlier, rows = KERNEL_ROWS[name]
+    paths = sorted({p for r in rows for p in r["launches_by_path"]})
+
+    def total(key, path=None):
+        if not paths:  # a kernel no path runs: each case once
+            return sum(r[key] for r in rows)
+        return sum(r[key] * n for r in rows for p, n in r["launches_by_path"].items()
+                   if path in (None, p))
+
+    return {
+        "name": name, "route": "cuda", "source": f"mvsformerplusplus_tpu_torch/{src}",
+        "replaces": replaces, "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: total(k) for k in ("ms", "plain_ms", "bound_ms")},
+        "library_ms": total("library_ms") if library is not None else None,
+        **({"simt_ms": total("simt_ms")} if earlier is not None else {}),
+        "bound_by": max(rows, key=lambda r: r["bound_ms"] * sum(
+            r["launches_by_path"].values()))["bound_by"],
+        "times": ("summed over the runs of the paths it serves (a forward, a train step, "
+                  "a command line's run): each case's time x its launches there"
+                  if paths else "no path runs it: one launch of each case, summed"),
+        "max_err_over_tol": max(r["err_over_tol"] for r in rows),
+        "min_fault_err_over_tol": min(r["fault_err_over_tol"] for r in rows),
+        "cases": {p: {r["case"]: r["launches_by_path"][p] for r in rows
+                      if p in r["launches_by_path"]} for p in paths},
+        "by_path": {p: {k: (total(k, p) if library is not None or k != "library_ms"
+                            else None)
+                        for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+                        + (("simt_ms",) if earlier is not None else ())}
+                    for p in paths},
+    }
+
+
 def run_kernel_phase(counters):
     """Each kernel against its plain version at every shape the paths give
     it, element by element within its tolerance (`ops.cuda.tolerance`, or
@@ -1396,36 +1475,8 @@ def run_kernel_phase(counters):
             del args
             torch.cuda.empty_cache()
         all_rows += rows
-        paths = sorted({p for r in rows for p in r["launches_by_path"]})
-
-        def total(key, path=None):
-            if not paths:  # a kernel no path runs: each case once
-                return sum(r[key] for r in rows)
-            return sum(r[key] * n for r in rows for p, n in r["launches_by_path"].items()
-                       if path in (None, p))
-
-        results[name] = {
-            "name": name, "route": "cuda", "source": f"mvsformerplusplus_tpu_torch/{src}",
-            "replaces": replaces, "launches": None,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: total(k) for k in ("ms", "plain_ms", "bound_ms")},
-            "library_ms": total("library_ms") if library is not None else None,
-            **({"simt_ms": total("simt_ms")} if earlier is not None else {}),
-            "bound_by": max(rows, key=lambda r: r["bound_ms"] * sum(
-                r["launches_by_path"].values()))["bound_by"],
-            "times": ("summed over the runs of the paths it serves (a forward, a train step, "
-                      "a command line's run): each case's time x its launches there"
-                      if paths else "no path runs it: one launch of each case, summed"),
-            "max_err_over_tol": max(r["err_over_tol"] for r in rows),
-            "min_fault_err_over_tol": min(r["fault_err_over_tol"] for r in rows),
-            "cases": {p: {r["case"]: r["launches_by_path"][p] for r in rows
-                          if p in r["launches_by_path"]} for p in paths},
-            "by_path": {p: {k: (total(k, p) if library is not None or k != "library_ms"
-                                else None)
-                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")
-                            + (("simt_ms",) if earlier is not None else ())}
-                        for p in paths},
-        }
+        KERNEL_ROWS[name] = (src, replaces, library, earlier, rows)
+        results[name] = kernel_summary(name)
     emit(tpu_row_summary(all_rows))
     return results
 
@@ -2954,17 +3005,19 @@ def render_e2e_data(root: str) -> None:
     (Path(root) / "render_s.txt").write_text(str(time.perf_counter() - t0))
 
 
-def start_e2e_render(root: Path):
-    """render_e2e_data in a spawned process with two BLAS threads (the
-    environment variables only for the child)."""
+def start_render(target, root: Path, threads: int):
+    """target(root) in a spawned process with `threads` BLAS threads (the
+    environment variables only for the child): render_e2e_data with two,
+    render_scene_data with one."""
     import multiprocessing
     import os
 
-    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
-    os.environ.update({k: "2" for k in saved})
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                            "MKL_NUM_THREADS")}
+    os.environ.update({k: str(threads) for k in saved})
     try:
-        proc = multiprocessing.get_context("spawn").Process(
-            target=render_e2e_data, args=(str(root),), daemon=True)
+        proc = multiprocessing.get_context("spawn").Process(target=target, args=(str(root),),
+                                                            daemon=True)
         proc.start()
     finally:
         for k, v in saved.items():
@@ -2973,6 +3026,38 @@ def start_e2e_render(root: Path):
             else:
                 os.environ[k] = v
     return proc
+
+
+def render_scene_data(root: str) -> None:
+    """The scene_convert phase's scenes (SCENE_CONVERT), rendered and written
+    in a process of its own while the card runs the earlier phases: the NeRF
+    scene and the COLMAP project of the analytic scene (its 1024-texel
+    textures) under root, each view's true depth (min, median, max) and
+    the seconds it took in scenes.json. At the lowest CPU priority: the
+    paths timed meanwhile keep the host's cores."""
+    import os
+
+    os.nice(19)
+    sys.path.insert(0, str(REPO))
+    from mvsformerplusplus_tpu_torch.data import synthetic
+
+    sc = SCENE_CONVERT
+    root = Path(root)
+    t0 = time.perf_counter()
+    scene = synthetic.GeometricScene(0)
+    _, nerf = synthetic.make_nerf_scene(root / "nerf_scene", sc["nerf_frames"], *sc["nerf_hw"],
+                                        rgba=sc["nerf_rgba"], scene=scene)
+    formats = [sc["colmap_formats"].get(v, "png") for v in range(sc["colmap_views"])]
+    _, colmap = synthetic.make_colmap_scene(root / "colmap_scene", sc["colmap_views"],
+                                            *sc["colmap_hw"], n_points=sc["colmap_points"],
+                                            formats=formats, scene=scene)
+
+    def stats(depths):
+        return [[float(d[d > 0].min()), float(np.median(d[d > 0])), float(d[d > 0].max())]
+                for d in depths]
+
+    (root / "scenes.json").write_text(json.dumps(
+        {"nerf": stats(nerf), "colmap": stats(colmap), "seconds": time.perf_counter() - t0}))
 
 
 def tb_events(save: Path) -> dict:
@@ -3270,6 +3355,186 @@ def run_dino_match(counters, work: Path) -> dict:
     release()
     if not all(checks.values()):
         raise SystemExit(f"dino_match checks failed: {checks}")
+    return launches
+
+
+def _depth_rows(scan: Path, truth) -> list:
+    """Per view of a converted scan: its cam file's [depth_min, depth_max]
+    beside the true depth's min, median and max (`truth`)."""
+    from mvsformerplusplus_tpu_torch.data.io import read_cam_file
+
+    out = []
+    for i, true in enumerate(truth):
+        _, _, dmin, _, extra = read_cam_file(scan / "cams" / f"{i:0>8}_cam.txt")
+        out.append([dmin, extra["depth_max"], *true])
+    return out
+
+
+def _holds_medians(rows) -> bool:
+    return all(dmin <= med <= dmax for dmin, dmax, _, med, _ in rows)
+
+
+def run_scene_convert(counters, work: Path, scene_root: Path, scene_renderer) -> dict:
+    """The port's scene converters at sizes users convert (SCENE_CONVERT),
+    each through its command line's main, as a user runs them: the NeRF
+    scene with ORB on the host (nerf2mvsnet), again with --matcher dino
+    --vit_path (the vit_pth phase's seeded ViT-B .pth) on the card, the
+    COLMAP model with --convert_format (colmap2mvsnet), then the eval
+    command line --dataset custom with seeded weights on 2 reference views
+    of the converted scan. Before the counted run: the ORB of the
+    committed fixtures (tests/data/make_orb_fixtures.py: cv2's keypoints and
+    descriptors of two images) against the native ORB, and ORB ms per image
+    and Hamming kNN ms per pair on the NeRF frames. Checks: the fixtures
+    equal; no kernel launched by the ORB and COLMAP conversions; the dino
+    conversion's launches the f32 flash kernel's alone, 2 x 12 per match
+    call; every view's converted depth range of the ORB and COLMAP scans
+    holding its median true depth; the dino scan's files (its ranges are
+    not checked: random weights match at random); the eval's 2 maps and its
+    PLY (its points counted: random weights rarely agree across views); no
+    plain version of the host library called in the counted run.
+    The scenes were rendered and written by `scene_renderer` under
+    scene_root (render_scene_data) while the earlier phases ran."""
+    from mvsformerplusplus_tpu_torch.data import io as dio
+    from mvsformerplusplus_tpu_torch.data import native, orb
+    from mvsformerplusplus_tpu_torch.eval import cli as eval_cli
+    from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from mvsformerplusplus_tpu_torch.tools import colmap2mvsnet, dino_match, nerf2mvsnet
+
+    phase_t0 = time.perf_counter()
+    sc = SCENE_CONVERT
+    scene_renderer.join()
+    wait_s = time.perf_counter() - phase_t0
+    if scene_renderer.exitcode != 0:
+        raise SystemExit(f"the scene_convert renderer failed (exit {scene_renderer.exitcode})")
+    nerf, colmap = scene_root / "nerf_scene", scene_root / "colmap_scene"
+    truth = json.loads((scene_root / "scenes.json").read_text())
+
+    checks = {}
+    for name in ("photo_1152x1536_progressive_q75.jpg", "orb_texture_301x419.png"):
+        feats = orb.detect_and_compute(native.rgb_to_gray(dio.imread_rgb(FIXTURES / name)),
+                                       4000)
+        checks[f"orb_fixture_{name}"] = (
+            np.array_equal(feats.rows(), np.load(FIXTURES / f"{name}.orb.npy"))
+            and np.array_equal(feats.descriptors, np.load(FIXTURES / f"{name}.orb_desc.npy")))
+    grays = [native.rgb_to_gray(dio.imread_rgb(nerf / "train" / f"r_{i}.png")) for i in (0, 1)]
+    fa, orb_ms = _best_ms(lambda: orb.detect_and_compute(grays[0], 4000), 3)
+    fb = orb.detect_and_compute(grays[1], 4000)
+    _, knn_ms = _best_ms(lambda: orb.knn_match2(fa.descriptors, fb.descriptors), 3)
+
+    real_make = dino_match.make_dino_matcher
+    calls = [0]
+
+    def counted_matcher(*args, **kw):
+        fn = real_make(*args, **kw)
+
+        def match_fn(a, b):
+            calls[0] += 1
+            return fn(a, b)
+        return match_fn
+
+    vit_pth = work / "dinov2_vitb14.pth"
+    ev_root, ev_out = work / "scene_eval", work / "scene_eval_out"
+    (ev_root / "scan1").mkdir(parents=True)
+    zero_counts(counters)
+    seconds, steps = {}, {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t0
+        steps[name] = read_counts(counters)
+        return result
+
+    step("nerf_orb", lambda: nerf2mvsnet.main(["--scene_dir", str(nerf), "--out_dir",
+                                               str(work / "nerf_orb")]))
+    dino_match.make_dino_matcher = counted_matcher
+    try:
+        step("nerf_dino", lambda: nerf2mvsnet.main(
+            ["--scene_dir", str(nerf), "--out_dir", str(work / "nerf_dino"), "--matcher", "dino",
+             "--vit_path", str(vit_pth)]))
+    finally:
+        dino_match.make_dino_matcher = real_make
+    step("colmap", lambda: colmap2mvsnet.main(["--dense_folder", str(colmap),
+                                               "--convert_format"]))
+    # 2 references, each the other's first source, over the converted scan
+    pairs = dio.read_pair_file(colmap / "pair.txt")
+    a = 0
+    b = pairs[0][1][0]
+    refs = [(a, [b] + [s for s in pairs[a][1] if s != b]),
+            (b, [a] + [s for s in pairs[b][1] if s != a])]
+    for sub in ("images", "cams"):
+        (ev_root / "scan1" / sub).symlink_to(colmap / sub)
+    with open(ev_root / "scan1" / "pair.txt", "w") as f:
+        f.write(f"{len(refs)}\n")
+        for ref, srcs in refs:
+            f.write(f"{ref}\n{len(srcs)} " + " ".join(f"{s} 1.0" for s in srcs) + "\n")
+    (ev_root / "list.txt").write_text("scan1\n")
+    stats = step("eval_cli", lambda: eval_cli.main(
+        ["--config", str(CONFIG), "--dataset", "custom", "--testpath", str(ev_root),
+         "--testlist", str(ev_root / "list.txt"), "--outdir", str(ev_out), "--num_view", "5",
+         "--numdepth", "192", "--max_h", "1152", "--max_w", "1536", "--filter_method",
+         "gipuma", "--fusion_view", "1", "--num_consistent", "1"]))
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    host = read_host_counts()
+    SCENE_DINO_RUNS["scene_convert"] = 2 * DINO_MATCH["blocks"] * calls[0]
+
+    vit = dino_match._vit_from(vit_pth, None, torch.device("cuda"))
+    img0, img1 = (dio.imread_rgb(nerf / "train" / f"r_{i}.png") for i in (0, 1))
+    match = dino_match.make_dino_matcher(model=vit, device="cuda")
+    _, match_ms = _best_ms(lambda: match(img0, img1), 3)
+    n = (sc["dino_hw"][0] // 14) * (sc["dino_hw"][1] // 14) + 1
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(1, n, 12, 64, generator=gen, device="cuda") for _ in range(3))
+    flash_ms = device_ms(lambda: flash_attention_fwd(q, k, v, 64 ** -0.5))
+    del vit, match, q, k, v
+
+    zero = {k: 0 for k in launches}
+    orb_rows = _depth_rows(work / "nerf_orb", truth["nerf"])
+    colmap_rows = _depth_rows(colmap, truth["colmap"])
+    dino_launches = {k: steps["nerf_dino"][k] - steps["nerf_orb"][k] for k in launches}
+    ply = ev_out / "scan1.ply"
+    checks.update({
+        "orb_conversion_launches_nothing": steps["nerf_orb"] == zero,
+        "colmap_conversion_launches_nothing": steps["colmap"] == steps["nerf_dino"],
+        "dino_calls": calls[0] > 0,
+        "dino_f32_flash_alone": dino_launches["flash_attention_fwd_f32"]
+        == 2 * DINO_MATCH["blocks"] * calls[0]
+        and not any(n for k, n in dino_launches.items() if k != "flash_attention_fwd_f32"),
+        "orb_ranges_hold_medians": _holds_medians(orb_rows),
+        "colmap_ranges_hold_medians": _holds_medians(colmap_rows),
+        "dino_scan_files": all((work / "nerf_dino" / "cams" / f"{i:0>8}_cam.txt").exists()
+                               and (work / "nerf_dino" / "images" / f"{i:0>8}.jpg").exists()
+                               for i in range(sc["nerf_frames"]))
+        and len(dio.read_pair_file(work / "nerf_dino" / "pair.txt")) == sc["nerf_frames"],
+        "colmap_scan_files": all((colmap / "images" / f"{i:0>8}.jpg").exists()
+                                 for i in range(sc["colmap_views"])),
+        "eval_maps": stats["maps"] == sc["eval_refs"],
+        "eval_depths_finite": all(np.isfinite(dio.read_pfm(
+            ev_out / "scan1" / "depth_est" / f"{r:0>8}.pfm")[0]).all() for r, _ in refs),
+        "eval_ply": ply.exists() and ply.read_bytes().startswith(b"ply"),
+        "eval_every_forward_kernel": all(launches[k] > steps["colmap"][k] for k in (
+            "warp_bilinear", "flash_attention_fwd", "conv2d_same")),
+        "plain_versions_unused": not any(host["plain"].values()),
+    })
+    row = {"phase": "scene_convert", "config": {k: (list(v) if isinstance(v, tuple) else v)
+                                                for k, v in sc.items()},
+           "render_write_s": truth["seconds"], "renderer_wait_s": wait_s,
+           "converter_s": seconds,
+           "orb_ms_per_image": orb_ms, "orb_keypoints": len(fa),
+           "hamming_knn_ms_per_pair": knn_ms, "dino_match_calls": calls[0],
+           "dino_ms_per_pair": match_ms, "flash_f32_ms": flash_ms,
+           "eval_ms_per_map": stats["depth_s"] / max(stats["maps"], 1) * 1e3,
+           "eval_points": stats["points"].get("scan1", 0),
+           "depth_ranges": {"nerf_orb": orb_rows, "colmap": colmap_rows,
+                            "nerf_dino": _depth_rows(work / "nerf_dino", truth["nerf"])},
+           "depth_range_columns": ["depth_min", "depth_max", "true_min", "true_median",
+                                   "true_max"],
+           "launches": launches, "host_calls": host, "checks": checks,
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"scene_convert checks failed: {checks}")
     return launches
 
 
@@ -3581,19 +3846,26 @@ def main() -> int:
                    "conv2d": sass_counts(kernels, "conv2d", CONV_SASS_OPS)}})
 
     e2e_root = Path(tempfile.mkdtemp(prefix="chip_smoke_e2e_"))
-    renderer = start_e2e_render(e2e_root)
+    scene_root = Path(tempfile.mkdtemp(prefix="chip_smoke_scenes_"))
+    renderer = start_render(render_e2e_data, e2e_root, 2)
+    scene_renderer = start_render(render_scene_data, scene_root, 1)
     try:
-        return run_phases(card, kind, e2e_root, renderer, host_build_s)
+        return run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root,
+                          scene_renderer)
     finally:
-        if renderer.is_alive():
-            renderer.terminate()
-        renderer.join()
+        for proc in (renderer, scene_renderer):
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
         shutil.rmtree(e2e_root, ignore_errors=True)
+        shutil.rmtree(scene_root, ignore_errors=True)
 
 
-def run_phases(card, kind, e2e_root, renderer, host_build_s) -> int:
+def run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root,
+               scene_renderer) -> int:
     """Every phase after the build, the e2e_protocol data rendered meanwhile
-    by `renderer` under e2e_root; the last lines as main's docstring says."""
+    by `renderer` under e2e_root and scene_convert's by `scene_renderer`
+    under scene_root; the last lines as main's docstring says."""
     counters = launch_counters()
     results = run_kernel_phase(counters)
     assert set(counters) == set(results)
@@ -3623,6 +3895,10 @@ def run_phases(card, kind, e2e_root, renderer, host_build_s) -> int:
         release()
         run_vit_pth_phase(work)
         by_path["dino_match"] = run_dino_match(counters, work)
+        release()
+        by_path["scene_convert"] = run_scene_convert(counters, work, scene_root,
+                                                     scene_renderer)
+    results = {name: kernel_summary(name) for name in results}
     run_host_codec(host_build_s, STEP_MS["flagship"])
     by_path["eval_cli"], eval_row = by_path["eval_cli"]
     for name, res in results.items():

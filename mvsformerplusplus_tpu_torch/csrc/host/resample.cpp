@@ -163,6 +163,36 @@ inline float lerp(float a, float b, float t) {
   return float(double(b - a) * double(t) + double(a));
 }
 
+// image._lerp_twice: the product and the sum each rounded to float32.
+inline float lerp_twice(float a, float b, float t) { return (b - a) * t + a; }
+
+// image._edge_runs: the float elements of a row (indices into [dw * c])
+// whose vertical tap pair IPP rounds twice. Each clamped region (n pixels
+// from its first) is blocks of 16 pixels, rounded twice at 4 channels, and
+// the remainder n % 16, rounded twice when it is 5 pixels or more: every
+// channel at 4 channels, channels 0 and 1 at 3.
+std::vector<int64_t> edge_runs(int64_t sw, int64_t dw, int64_t c) {
+  const double scale = double(sw) / double(dw);
+  int64_t left = 0, right = 0;
+  for (int64_t d = 0; d < dw; ++d) {
+    const double f = (double(d) + 0.5) * scale - 0.5;
+    left += f < 0;
+    right += f >= double(sw - 1);
+  }
+  std::vector<int64_t> out;
+  const int64_t starts[2] = {0, dw - right}, counts[2] = {left, right};
+  for (int k = 0; k < 2; ++k) {
+    const int64_t start = starts[k], n = counts[k], tail = start + n / 16 * 16;
+    for (int64_t x = start; x < start + n; ++x)
+      for (int64_t ch = 0; ch < c; ++ch) {
+        const bool in_block = x < tail && c == 4;
+        const bool in_rest = x >= tail && n % 16 >= 5 && (c == 4 || (c == 3 && ch < 2));
+        if (in_block || in_rest) out.push_back(x * c + ch);
+      }
+  }
+  return out;
+}
+
 // image._SDIV and image._HDIV180: round((255 << 12) / v) and
 // round((180 << 12) / (6 v)), half to even, 0 at 0.
 struct HsvTables {
@@ -257,7 +287,8 @@ int resize_nearest(const uint8_t* src, int64_t sh, int64_t sw, int64_t pixel, in
 
 // cv2 INTER_LINEAR of float32 [sh, sw, c] to (dh, dw) into out: the
 // horizontal pass over every source row, then the vertical one, each tap
-// pair lerped (image.resize_linear).
+// pair lerped, the vertical pair rounded twice where edge_runs says
+// (image.resize_linear).
 int resize_linear_f32(const float* src, int64_t sh, int64_t sw, int64_t c, int64_t dh,
                       int64_t dw, float* out) {
   if (sh < 1 || sw < 1 || c < 1 || dh < 1 || dw < 1) return kBadArgument;
@@ -265,6 +296,7 @@ int resize_linear_f32(const float* src, int64_t sh, int64_t sw, int64_t c, int64
   std::vector<float> ax, ay;
   linear_taps(sw, dw, &x0, &x1, &ax);
   linear_taps(sh, dh, &y0, &y1, &ay);
+  const std::vector<int64_t> twice = edge_runs(sw, dw, c);
   const int64_t rw = dw * c;
   std::vector<float> rows(sh * rw);
   for (int64_t r = 0; r < sh; ++r) {
@@ -281,6 +313,7 @@ int resize_linear_f32(const float* src, int64_t sh, int64_t sw, int64_t c, int64
     const float* b = &rows[y1[y] * rw];
     float* o = out + y * rw;
     for (int64_t i = 0; i < rw; ++i) o[i] = lerp(a[i], b[i], ay[y]);
+    for (int64_t i : twice) o[i] = lerp_twice(a[i], b[i], ay[y]);
   }
   return kOk;
 }

@@ -1,12 +1,15 @@
 """OpenCV's image operations that the data pipeline uses, in numpy: the
 area, nearest and linear resizes of `cv2.resize` and the 8-bit RGB <-> HSV
 conversions of `cv2.cvtColor` (the machine the port trains on has no
-OpenCV). Each follows OpenCV's arithmetic step for step in the same
-precision, so it gives OpenCV's values, not just close ones.
+OpenCV), and two primitives ORB runs (RGB -> gray and the uint8
+INTER_LINEAR_EXACT resize) with its Gaussian kernel. Each follows
+OpenCV's arithmetic step for step in the same precision, so it gives
+OpenCV's values, not just close ones.
 
-These are the plain versions of the host library's resample.cpp
-(data/native.py: resize_area, resize_nearest, resize_linear, hue_shift),
-which the data paths call; each public function here counts its calls in
+These are the plain versions of the host library's resample.cpp and
+orb.cpp (data/native.py: resize_area, resize_nearest, resize_linear,
+hue_shift, rgb_to_gray, resize_linear_exact), which the data
+paths call; each public function here counts its calls in
 native.plain_calls.
 """
 from __future__ import annotations
@@ -222,13 +225,43 @@ def _lerp(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
     return ((b - a).astype(np.float64) * t + a).astype(np.float32)
 
 
+def _lerp_twice(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """a + (b - a) t in float32 with the product and the sum each rounded."""
+    return ((b - a) * t).astype(np.float32) + a
+
+
+def _edge_runs(sw: int, dw: int, channels: int) -> np.ndarray:
+    """The float elements of a resized row ([dw * max(channels, 1)] bool)
+    whose vertical tap pair cv2's IPP path rounds twice (`_lerp_twice`)
+    instead of once: only in the columns clamped to the first or last
+    source sample, which arise when the width grows 8x or more. Each of the
+    two clamped regions, n pixels from its first one, is taken as blocks of
+    16 pixels and a remainder of n mod 16: the blocks are rounded twice at 4
+    channels, the remainder when it is 5 pixels or more, at 4 channels in
+    every channel and at 3 channels in channels 0 and 1. Everything else
+    (1 channel, a remainder under 5, the interior) is rounded once. Found by
+    probing cv2 5.0 (IPP 2026.0) at 1, 3 and 4 channels over width ratios
+    8x-100x; no data path resizes 2 channels."""
+    c = max(channels, 1)
+    f = (np.arange(dw) + 0.5) * (sw / dw) - 0.5
+    twice = np.zeros((dw, c), bool)
+    right = int((f >= sw - 1).sum())
+    for start, n in ((0, int((f < 0).sum())), (dw - right, right)):
+        blocks, rest = divmod(n, 16)
+        tail = start + 16 * blocks
+        if c == 4:
+            twice[start:tail] = True
+        if rest >= 5 and c in (3, 4):
+            twice[tail:start + n, :2 if c == 3 else 4] = True
+    return twice.reshape(-1)
+
+
 def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR) for a
     float32 [H, W] or [H, W, C] image: a horizontal pass, then a vertical
-    one, each tap pair `_lerp`ed with `_linear_taps`' weights. The same
-    size gives a copy. One gap to cv2 is known: when the width grows about
-    8x or more, cv2's IPP path computes the columns clamped to an edge
-    sample otherwise, up to 2^-24 apart in some rows."""
+    one, each tap pair `_lerp`ed with `_linear_taps`' weights, but the
+    vertical pair rounded twice in the clamped edge columns `_edge_runs`
+    names, as IPP's border loop rounds it. The same size gives a copy."""
     native.count(native.plain_calls, "resize_linear")
     img = np.asarray(img, np.float32)
     sh, sw = img.shape[:2]
@@ -238,7 +271,10 @@ def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:
     x0, x1, _, ax = _linear_taps(sw, width)
     rows = _lerp(img[:, x0], img[:, x1], ax.reshape((-1,) + tail))
     y0, y1, _, ay = _linear_taps(sh, height)
-    return _lerp(rows[y0], rows[y1], ay.reshape((-1, 1) + tail))
+    a, b, t = rows[y0], rows[y1], ay.reshape((-1, 1) + tail)
+    twice = _edge_runs(sw, width, img.shape[2] if img.ndim == 3 else 0).reshape(
+        (1, width) + img.shape[2:])
+    return np.where(twice, _lerp_twice(a, b, t), _lerp(a, b, t))
 
 
 _HSV_SHIFT = 12
@@ -313,3 +349,58 @@ def hue_shift(img: np.ndarray, shift: int) -> np.ndarray:
     hsv = rgb_to_hsv_u8((np.asarray(img, np.float32) * 255).astype(np.uint8))
     hsv[..., 0] = (hsv[..., 0].astype(np.int32) + int(shift)) % 180
     return hsv_to_rgb_u8(hsv).astype(np.float32) / 255.0
+
+
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_RGB2GRAY) for uint8 [..., 3]: OpenCV's
+    15-bit fixed point, (9798 R + 19235 G + 3735 B + 2^14) >> 15."""
+    native.count(native.plain_calls, "rgb_to_gray")
+    x = np.asarray(img).astype(np.int64)
+    return ((x[..., 0] * 9798 + x[..., 1] * 19235 + x[..., 2] * 3735 + (1 << 14)) >> 15).astype(
+        np.uint8)
+
+
+def _exact_taps(ssize: int, dsize: int):
+    """One axis of OpenCV's INTER_LINEAR_EXACT: per destination index the
+    first source index and the 8-bit fixed-point weight of the second,
+    position (d + 0.5) / (dsize / ssize) - 0.5 in double, weight 0 where it
+    is clamped to an edge sample (round half to even, as cvRound)."""
+    scale = 1.0 / (dsize / ssize)
+    f = scale * (np.arange(dsize) + 0.5) - 0.5
+    i = np.floor(f).astype(np.int64)
+    inside = (i >= 0) & (i < ssize - 1) & (ssize > 1)
+    m1 = np.where(inside, np.rint((f - i) * 256.0), 0).astype(np.int64)
+    ofs = np.where(inside, i, np.where((i >= 0) & (ssize > 1), ssize - 1, 0))
+    return ofs, np.minimum(ofs + 1, ssize - 1), m1
+
+
+def resize_linear_exact(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR_EXACT)
+    for uint8 [H, W] or [H, W, C]: the horizontal pass exact in integers
+    (weights of 8 bits), the vertical one rounded once, (sum + 2^15) >> 16.
+    When both sides halve exactly (and C is not 2) OpenCV takes INTER_AREA's
+    exact path, (a + b + c + d + 2) >> 2; the same size is a copy."""
+    native.count(native.plain_calls, "resize_linear_exact")
+    x = np.asarray(img)
+    sh, sw = x.shape[:2]
+    if (height, width) == (sh, sw):
+        return x.copy()
+    xi = x.astype(np.int64)
+    if (sh, sw) == (2 * height, 2 * width) and (x.ndim == 2 or x.shape[2] != 2):
+        s = xi[0::2, 0::2] + xi[0::2, 1::2] + xi[1::2, 0::2] + xi[1::2, 1::2]
+        return ((s + 2) >> 2).astype(np.uint8)
+    tail = (1,) * (x.ndim - 2)
+    x0, x1, mx = _exact_taps(sw, width)
+    mx = mx.reshape((-1,) + tail)
+    rows = xi[:, x0] * (256 - mx) + xi[:, x1] * mx
+    y0, y1, my = _exact_taps(sh, height)
+    my = my.reshape((-1, 1) + tail)
+    return ((rows[y0] * (256 - my) + rows[y1] * my + 32768) >> 16).astype(np.uint8)
+
+
+def gaussian_kernel(n: int, sigma: float) -> np.ndarray:
+    """cv2.getGaussianKernel(n, sigma, ktype=cv2.CV_32F) for sigma > 0:
+    exp(-x^2 / (2 sigma^2)) normalised in double, then float32."""
+    x = np.arange(n) - (n - 1) / 2
+    e = np.exp(-(x * x) / (2 * sigma * sigma))
+    return (e / e.sum()).astype(np.float32)

@@ -2,10 +2,13 @@
 data pipeline's fused float passes (fastio: the counterpart of
 mvsformerplusplus_tpu/data/native.py, under the same names), the JPEG
 decoder's entropy decoding (baseline and progressive) and reconstruction,
-the JPEG encoder's per-pixel and per-symbol work, the PNG row unfilter, and
-OpenCV's share of the data path (resample.cpp: the area, nearest and linear
-resizes and the 8-bit hue shift, each equal bit for bit to its numpy
-version in data/image.py).
+the JPEG encoder's per-pixel and per-symbol work, the PNG row unfilter, the
+TIFF LZW and PackBits and BMP RLE decoders (formats.cpp), OpenCV's share of
+the data path (resample.cpp: the area, nearest and linear resizes and the
+8-bit hue shift, each equal bit for bit to its numpy version in
+data/image.py), and OpenCV's ORB and Hamming kNN matcher with the
+primitives they run (orb.cpp: RGB -> gray, INTER_LINEAR_EXACT and the
+Gaussian blur, the first two also in data/image.py).
 
 The sources compile with the system C++ compiler ($CXX, else g++) into one
 shared library under <repo>/build/host/, named by a hash of the sources and
@@ -19,8 +22,8 @@ parallel.
 
 `calls` counts the calls of each entry point, each where it enters the
 library; `plain_calls` counts the calls of the numpy codec (jpeg.decode,
-jpeg.encode, io._unfilter) and of data/image.py's resizes and hue shift,
-the plain versions the tests hold the library to, and under
+jpeg.encode, io._unfilter) and of data/image.py's resizes, hue shift and
+gray conversion, the plain versions the tests hold the library to, and under
 "resize_area_enlarge" the area enlargements resize_area leaves to numpy
 (only the DINOv2 matcher enlarges). No data path calls a plain version.
 """
@@ -44,10 +47,11 @@ CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-ffp-contract
 calls: Dict[str, int] = {k: 0 for k in (
     "crop_normalize", "u8_to_f32", "stage_pyramid", "jpeg_decode_scan", "jpeg_reconstruct",
     "jpeg_encode", "png_unfilter", "jpeg_decode_progressive", "resize_area", "resize_nearest",
-    "resize_linear", "hue_shift")}
+    "resize_linear", "hue_shift", "rgb_to_gray", "resize_linear_exact", "blur", "fast9", "orb",
+    "hamming_knn2", "bmp_rle", "tiff_lzw", "tiff_packbits")}
 plain_calls: Dict[str, int] = {k: 0 for k in (
     "jpeg_decode", "jpeg_encode", "png_unfilter", "resize_area", "resize_nearest", "resize_linear",
-    "hue_shift", "resize_area_enlarge")}
+    "hue_shift", "resize_area_enlarge", "rgb_to_gray", "resize_linear_exact")}
 
 _lib = None
 _lock = threading.Lock()
@@ -78,6 +82,18 @@ _SIGNATURES = {
     "resize_nearest": (_i, [_u8p, _i64, _i64, _i64, _i64, _i64, _u8p]),
     "resize_linear_f32": (_i, [_f32p, _i64, _i64, _i64, _i64, _i64, _f32p]),
     "hue_shift_f32": (None, [_f32p, _i64, _i64, _i, _f32p]),
+    "orb_pattern": (None, [_i32p]),
+    "rgb_to_gray_u8": (None, [_u8p, _i64, _u8p]),
+    "resize_linear_exact_u8": (_i, [_u8p, _i64, _i64, _i64, _i64, _i64, _u8p]),
+    "blur_sep_u8": (_i, [_u8p, _i64, _i64, _f32p, _i, _u8p]),
+    "fast9_u8": (_i64, [_u8p, _i64, _i64, _i, _f32p, _i64]),
+    "orb_detect_compute": (_i64, [_u8p, _i64, _i64, _i, ctypes.c_double, _i, _i, _i,
+                                  ctypes.c_float, _i32p, _f32p, _f32p, _u8p, _i64]),
+    "hamming_knn2": (None, [_u8p, _i64, _u8p, _i64, _i32p, _i32p]),
+    "tiff_lzw_decode": (_i64, [_u8p, _i64, _u8p, _i64]),
+    "tiff_lzw_encode": (_i64, [_u8p, _i64, _u8p]),
+    "packbits_decode": (_i64, [_u8p, _i64, _u8p, _i64]),
+    "bmp_rle_decode": (_i, [_u8p, _i64, _i64, _i64, _i, _u8p]),
 }
 
 
@@ -303,6 +319,51 @@ def png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
+def tiff_lzw_decode(data: bytes, size: int, name="TIFF") -> np.ndarray:
+    """One TIFF LZW strip or tile -> its first `size` bytes (uint8; a short
+    stream leaves zeros, as libtiff's reader leaves them); ValueError for a
+    corrupt stream."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(size, np.uint8)
+    lib = load()
+    count(calls, "tiff_lzw")
+    n = lib.tiff_lzw_decode(_ptr(src, _u8p), len(src), _ptr(out, _u8p), size)
+    if n < 0:
+        raise ValueError(f"{name}: corrupt LZW data")
+    return out
+
+
+def tiff_lzw_encode(data: bytes) -> bytes:
+    """Bytes -> one TIFF LZW strip (data/synthetic.py's TIFF writer)."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(2 * len(src) + 8, np.uint8)
+    n = load().tiff_lzw_encode(_ptr(src, _u8p), len(src), _ptr(out, _u8p))
+    return out[:n].tobytes()
+
+
+def packbits_decode(data: bytes, size: int) -> np.ndarray:
+    """One TIFF PackBits strip or tile -> its first `size` bytes (uint8)."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(size, np.uint8)
+    lib = load()
+    count(calls, "tiff_packbits")
+    lib.packbits_decode(_ptr(src, _u8p), len(src), _ptr(out, _u8p), size)
+    return out
+
+
+def bmp_rle_decode(data: bytes, width: int, height: int, bits: int, name="BMP") -> np.ndarray:
+    """BMP RLE8 (bits 8) or RLE4 (4) pixel data -> palette indices uint8
+    [height, width], rows bottom-up as stored; ValueError when a run leaves
+    the image."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((height, width), np.uint8)
+    lib = load()
+    count(calls, "bmp_rle")
+    if lib.bmp_rle_decode(_ptr(src, _u8p), len(src), width, height, bits, _ptr(out, _u8p)):
+        raise ValueError(f"{name}: corrupt RLE{bits} data")
+    return out
+
+
 # ---------------------------------------------------------------- resample
 
 def _window(height: int, width: int, window):
@@ -400,3 +461,128 @@ def hue_shift(img: np.ndarray, shift: int) -> np.ndarray:
     count(calls, "hue_shift")
     lib.hue_shift_f32(_ptr(img, _f32p), img.shape[0], img.shape[1], int(shift), _ptr(out, _f32p))
     return out
+
+
+# --------------------------------------------------------------------- ORB
+
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_RGB2GRAY) for uint8 [H, W, 3]: OpenCV's
+    15-bit fixed point, image.rgb_to_gray's values."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"rgb_to_gray takes [H, W, 3], got {img.shape}")
+    out = np.empty(img.shape[:2], np.uint8)
+    lib = load()
+    count(calls, "rgb_to_gray")
+    lib.rgb_to_gray_u8(_ptr(img, _u8p), img.shape[0] * img.shape[1], _ptr(out, _u8p))
+    return out
+
+
+def resize_linear_exact(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR_EXACT)
+    for uint8 [H, W] or [H, W, C], image.resize_linear_exact's values."""
+    img = np.ascontiguousarray(img, np.uint8)
+    sh, sw, c = _channels_last(img)
+    out = np.empty((height, width) + img.shape[2:], np.uint8)
+    lib = load()
+    count(calls, "resize_linear_exact")
+    err = lib.resize_linear_exact_u8(_ptr(img, _u8p), sh, sw, c, height, width, _ptr(out, _u8p))
+    if err:
+        raise RuntimeError(f"resize_linear_exact: bad arguments (error {err})")
+    return out
+
+
+def blur_sep(img: np.ndarray, taps) -> np.ndarray:
+    """cv2.sepFilter2D(img, -1, taps, taps, borderType=cv2.BORDER_REFLECT_101)
+    on uint8 [H, W] with odd symmetric float32 `taps`: OpenCV's float path,
+    the one ORB's blur of each pyramid level takes (orb.cpp blur_sep)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    taps = np.ascontiguousarray(taps, np.float32)
+    if img.ndim != 2 or 0 in img.shape:
+        raise ValueError(f"blur_sep takes a non-empty [H, W] image, got {img.shape}")
+    if taps.ndim != 1 or len(taps) % 2 == 0:
+        raise ValueError(f"blur_sep takes an odd number of taps, got {taps.shape}")
+    out = np.empty_like(img)
+    lib = load()
+    count(calls, "blur")
+    err = lib.blur_sep_u8(_ptr(img, _u8p), img.shape[0], img.shape[1], _ptr(taps, _f32p),
+                          len(taps), _ptr(out, _u8p))
+    if err:
+        raise RuntimeError(f"blur_sep: bad arguments (error {err})")
+    return out
+
+
+def fast9(img: np.ndarray, threshold: int) -> np.ndarray:
+    """cv2.FastFeatureDetector_create(threshold, True).detect(img) for uint8
+    [H, W]: float32 [N, 3] rows (x, y, score) in cv2's order."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"fast9 takes [H, W], got {img.shape}")
+    lib = load()
+    count(calls, "fast9")
+    cap = 4096
+    while True:
+        out = np.empty((cap, 3), np.float32)
+        n = lib.fast9_u8(_ptr(img, _u8p), img.shape[0], img.shape[1], int(threshold),
+                         _ptr(out, _f32p), cap)
+        if n >= 0:
+            return out[:n]
+        cap = -n
+
+
+def orb_pattern() -> np.ndarray:
+    """The host library's rBRIEF table: int32 [256, 4], (x1, y1, x2, y2)."""
+    out = np.empty(1024, np.int32)
+    load().orb_pattern(_ptr(out, _i32p))
+    return out.reshape(256, 4)
+
+
+def orb_detect_compute(gray: np.ndarray, n_features: int, scale_factor: float, n_levels: int,
+                       edge_threshold: int, fast_threshold: int, harris_k: float, blur_taps,
+                       pattern=None):
+    """OpenCV's ORB detectAndCompute on uint8 [H, W] (data/orb.py holds its
+    parameters): (float32 [N, 6] keypoint rows (x, y, size, angle,
+    response, octave), uint8 [N, 32] descriptors), in cv2's order."""
+    gray = np.ascontiguousarray(gray, np.uint8)
+    if gray.ndim != 2 or 0 in gray.shape:
+        raise ValueError(f"ORB takes a non-empty [H, W] image, got {gray.shape}")
+    taps = np.ascontiguousarray(blur_taps, np.float32)
+    if taps.shape != (7,):
+        raise ValueError(f"ORB's blur takes 7 taps, got {taps.shape}")
+    pat = None if pattern is None else np.ascontiguousarray(pattern, np.int32).reshape(-1)
+    if pat is not None and pat.shape != (1024,):
+        raise ValueError(f"the rBRIEF table has 1024 values, got {pat.shape}")
+    lib = load()
+    count(calls, "orb")
+    cap = 2 * n_features + 64
+    while True:
+        kps = np.empty((cap, 6), np.float32)
+        desc = np.empty((cap, 32), np.uint8)
+        n = lib.orb_detect_compute(_ptr(gray, _u8p), gray.shape[0], gray.shape[1], int(n_features),
+                                   float(scale_factor), int(n_levels), int(edge_threshold),
+                                   int(fast_threshold), float(harris_k),
+                                   None if pat is None else _ptr(pat, _i32p), _ptr(taps, _f32p),
+                                   _ptr(kps, _f32p), _ptr(desc, _u8p), cap)
+        if n == -(1 << 40):
+            raise ValueError(f"ORB: bad arguments for a {gray.shape} image")
+        if n >= 0:
+            return kps[:n], desc[:n]
+        cap = -n
+
+
+def hamming_knn2(a: np.ndarray, b: np.ndarray):
+    """BFMatcher(NORM_HAMMING).knnMatch(a, b, k=2) for uint8 [Na, 32] and
+    [Nb, 32]: (int32 [Na, 2] train indices, int32 [Na, 2] distances), the
+    nearer first, the lower index first among equals, -1 where b has fewer
+    than two rows."""
+    a = np.ascontiguousarray(a, np.uint8)
+    b = np.ascontiguousarray(b, np.uint8)
+    if a.shape[1:] != (32,) or b.shape[1:] != (32,):
+        raise ValueError(f"hamming_knn2 takes [N, 32] descriptors, got {a.shape}, {b.shape}")
+    idx = np.empty((len(a), 2), np.int32)
+    dist = np.empty((len(a), 2), np.int32)
+    lib = load()
+    count(calls, "hamming_knn2")
+    lib.hamming_knn2(_ptr(a, _u8p), len(a), _ptr(b, _u8p), len(b), _ptr(idx, _i32p),
+                     _ptr(dist, _i32p))
+    return idx, dist

@@ -10,10 +10,16 @@ PNG, JPEG, PFM and cam writers.
   closed-form; a short training run on it can converge;
   `make_geometric_eval_scan` renders it into the MVSNet eval layout and
   `make_blended_scan` into the BlendedMVS training layout.
+- `make_colmap_scene` and `make_nerf_scene`: the scene as the scene
+  converters' inputs, a COLMAP sparse model (`write_colmap_model`) with its
+  source images in PNG, BMP, LZW TIFF or JPEG, and a NeRF transforms.json
+  scene.
 """
 from __future__ import annotations
 
+import json
 import shutil
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -325,3 +331,214 @@ def make_blended_scan(root: Path, scan: str = "scan1", n_views: int = 8, h: int 
     with open(Path(root) / "train.txt", "a") as f:
         f.write(f"{scan}\n")
     return scene
+
+
+# ------------------------------------------------------ converter scenes
+
+def _surface_points(cams, depths, n: int, rng) -> np.ndarray:
+    """n scene points seen by the views: random pixels of random views
+    lifted to their rendered depth, [n, 3] float64."""
+    h, w = depths[0].shape
+    view = rng.randint(0, len(cams), n)
+    u, v = rng.uniform(0, w - 1, n), rng.uniform(0, h - 1, n)
+    out = np.zeros((n, 3))
+    for k, (K, E) in enumerate(cams):
+        sel = view == k
+        z = depths[k][np.rint(v[sel]).astype(np.int64), np.rint(u[sel]).astype(np.int64)]
+        ray = np.linalg.inv(K.astype(np.float64)) @ np.stack([u[sel], v[sel], np.ones(sel.sum())])
+        R, t = E[:3, :3].astype(np.float64), E[:3, 3].astype(np.float64)
+        out[sel] = ((ray * z) - t[:, None]).T @ R
+    return out
+
+
+def _observations(X: np.ndarray, K: np.ndarray, E: np.ndarray, depth: np.ndarray):
+    """The points of X [N, 3] a view sees: the render's depth at the pixel
+    each projects to within 0.5% of its own. -> (index [M], uv [M, 2])."""
+    cam = X @ E[:3, :3].T.astype(np.float64) + E[:3, 3].astype(np.float64)
+    z = cam[:, 2]
+    uv = cam @ K.T.astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        uv = uv[:, :2] / uv[:, 2:]
+    h, w = depth.shape
+    px = np.rint(uv).astype(np.int64)
+    inside = (z > 0) & (px[:, 0] >= 0) & (px[:, 0] < w) & (px[:, 1] >= 0) & (px[:, 1] < h)
+    idx = np.nonzero(inside)[0]
+    d = depth[px[idx, 1], px[idx, 0]]
+    seen = idx[np.abs(d - z[idx]) < 0.005 * z[idx]]
+    return seen, uv[seen]
+
+
+def _rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """COLMAP's (w, x, y, z) unit quaternion of a rotation matrix (the
+    inverse of qvec2rotmat; COLMAP's rotmat2qvec)."""
+    R = np.asarray(R, np.float64).T
+    K = np.array([
+        [R[0, 0] - R[1, 1] - R[2, 2], 0, 0, 0],
+        [R[1, 0] + R[0, 1], R[1, 1] - R[0, 0] - R[2, 2], 0, 0],
+        [R[2, 0] + R[0, 2], R[2, 1] + R[1, 2], R[2, 2] - R[0, 0] - R[1, 1], 0],
+        [R[1, 2] - R[2, 1], R[2, 0] - R[0, 2], R[0, 1] - R[1, 0], R[0, 0] + R[1, 1] + R[2, 2]],
+    ]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+_COLMAP_MODEL_IDS = {"SIMPLE_PINHOLE": 0, "PINHOLE": 1, "SIMPLE_RADIAL": 2, "OPENCV": 4}
+
+
+def _colmap_params(model: str, K: np.ndarray):
+    f, cx, cy = float(K[0, 0]), float(K[0, 2]), float(K[1, 2])
+    return {"SIMPLE_PINHOLE": [f, cx, cy], "PINHOLE": [f, float(K[1, 1]), cx, cy],
+            "SIMPLE_RADIAL": [f, cx, cy, 0.0],
+            "OPENCV": [f, float(K[1, 1]), cx, cy, 0.0, 0.0, 0.0, 0.0]}[model]
+
+
+def write_colmap_model(model_dir: Path, cameras, images, points, binary: bool = False) -> None:
+    """A COLMAP sparse model: cameras [(id, model, w, h, params)], images
+    [(id, qvec, tvec, camera id, name, [(x, y, point id), ...])], points
+    [(id, xyz, [(image id, point2d index), ...])], as cameras/images/
+    points3D .bin or .txt."""
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    if binary:
+        with open(model_dir / "cameras.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(cameras)))
+            for cid, model, w, h, params in cameras:
+                f.write(struct.pack("<iiQQ", cid, _COLMAP_MODEL_IDS[model], w, h))
+                f.write(struct.pack(f"<{len(params)}d", *params))
+        with open(model_dir / "images.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(images)))
+            for iid, q, t, cid, name, obs in images:
+                f.write(struct.pack("<i4d3di", iid, *q, *t, cid) + name.encode() + b"\x00")
+                f.write(struct.pack("<Q", len(obs)))
+                for x, y, pid in obs:
+                    f.write(struct.pack("<ddq", x, y, pid))
+        with open(model_dir / "points3D.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(points)))
+            for pid, xyz, track in points:
+                f.write(struct.pack("<Q3d3Bd", pid, *xyz, 128, 128, 128, 0.5))
+                f.write(struct.pack("<Q", len(track)))
+                for iid, k in track:
+                    f.write(struct.pack("<ii", iid, k))
+        return
+    with open(model_dir / "cameras.txt", "w") as f:
+        f.write("# Camera list with one line of data per camera:\n")
+        for cid, model, w, h, params in cameras:
+            f.write(f"{cid} {model} {w} {h} " + " ".join(repr(p) for p in params) + "\n")
+    with open(model_dir / "images.txt", "w") as f:
+        f.write("# Image list with two lines of data per image:\n")
+        for iid, q, t, cid, name, obs in images:
+            f.write(f"{iid} " + " ".join(repr(float(v)) for v in (*q, *t)) + f" {cid} {name}\n")
+            f.write(" ".join(f"{x!r} {y!r} {pid}" for x, y, pid in obs) + "\n")
+    with open(model_dir / "points3D.txt", "w") as f:
+        f.write("# 3D point list with one line of data per point:\n")
+        for pid, xyz, track in points:
+            f.write(f"{pid} " + " ".join(repr(float(v)) for v in xyz) + " 128 128 128 0.5 "
+                    + " ".join(f"{iid} {k}" for iid, k in track) + "\n")
+
+
+def _write_source_image(path: Path, rgb: np.ndarray, fmt: str) -> str:
+    """rgb written as fmt (png, bmp, tif: LZW with the predictor, jpg, jpg6:
+    a JPEG whose EXIF orientation 6 turns the stored frame into rgb) ->
+    the file name."""
+    from .io import encode_bmp, encode_tiff, with_exif_orientation
+    from .jpeg import encode_native
+
+    name = path.name + "." + fmt.rstrip("6")
+    out = path.with_name(name)
+    if fmt == "png":
+        write_png(out, rgb, row_filter=4)
+    elif fmt == "bmp":
+        out.write_bytes(encode_bmp(rgb))
+    elif fmt == "tif":
+        out.write_bytes(encode_tiff(rgb))
+    elif fmt == "jpg":
+        write_jpeg(out, rgb, quality=95)
+    elif fmt == "jpg6":  # displayed = stored turned 90 degrees clockwise
+        stored = np.ascontiguousarray(rgb[:, ::-1].transpose(1, 0, 2))
+        out.write_bytes(with_exif_orientation(encode_native(stored, 95), 6))
+    else:
+        raise ValueError(f"unknown source format {fmt!r}")
+    return name
+
+
+def make_colmap_scene(root: Path, n_views: int = 6, h: int = 240, w: int = 320,
+                      n_points: int = 4000, seed: int = 0, model: str = "PINHOLE",
+                      binary: bool = False, formats=("png",), empty_view=None,
+                      scene: "GeometricScene" = None):
+    """A COLMAP project of the analytic scene, as colmap2mvsnet reads it:
+    root/images_col/<view>.<fmt> (formats cycled over the views, see
+    _write_source_image) and root/sparse/ (one camera of `model`, the
+    DTU-like rig's poses, n_points scene points each observed where a
+    view's render shows it, points seen by fewer than two views dropped;
+    `empty_view`'s features all unmatched, POINT3D_ID -1; the points are
+    pixels of the views lifted to their depth). Returns (scene, the views'
+    true depth maps)."""
+    scene = scene or GeometricScene(seed)
+    cams = geometric_cameras(n_views, h, w)
+    renders = [scene.render(K, E, h, w) for K, E in cams]
+    root = Path(root)
+    rng = np.random.RandomState(seed + 1)
+    (root / "images_col").mkdir(parents=True, exist_ok=True)
+    X = _surface_points(cams, [d for _, d in renders], n_points, rng)
+    seen = [_observations(X, K, E, d) for (K, E), (_, d) in zip(cams, renders)]
+    counts = np.zeros(len(X), np.int64)
+    for v, (idx, _) in enumerate(seen):
+        if v != empty_view:
+            counts[idx] += 1
+    keep = counts >= 2
+    pid = np.cumsum(keep)  # point ids 1..M in X's order
+    images, tracks = [], {int(pid[i]): [] for i in np.nonzero(keep)[0]}
+    for v, ((K, E), (idx, uv)) in enumerate(zip(cams, seen)):
+        obs = []
+        for k, (i, (x, y)) in enumerate(zip(idx, uv)):
+            if keep[i] and v != empty_view:
+                obs.append((float(x), float(y), int(pid[i])))
+                tracks[int(pid[i])].append((v + 1, k))
+            else:
+                obs.append((float(x), float(y), -1))
+        name = _write_source_image(root / "images_col" / f"{v:0>4}",
+                                   (renders[v][0] * 255).astype(np.uint8),
+                                   formats[v % len(formats)])
+        images.append((v + 1, _rotmat_to_qvec(E[:3, :3]), E[:3, 3].astype(np.float64), 1, name,
+                       obs))
+    points = [(int(pid[i]), X[i], tracks[int(pid[i])]) for i in np.nonzero(keep)[0]]
+    write_colmap_model(root / "sparse", [(1, model, w, h, _colmap_params(model, cams[0][0]))],
+                       images, points, binary)
+    return scene, [d for _, d in renders]
+
+
+def make_nerf_scene(root: Path, n_frames: int = 6, h: int = 240, w: int = 320, seed: int = 0,
+                    rgba=(), intrinsics: str = "angle", bare=(),
+                    scene: "GeometricScene" = None):
+    """A NeRF-format scene of the analytic scene, as nerf2mvsnet reads it:
+    root/train/r_<i>.png (RGBA for the frames in `rgba`, alpha 255 where a
+    quad is hit) and root/transforms.json (camera_angle_x, or fl_x/fl_y/
+    cx/cy with intrinsics="focal"; NeRF's camera-to-world matrices; the
+    frames in `bare` name their file without its extension). Returns
+    (scene, the frames' true depth maps)."""
+    scene = scene or GeometricScene(seed)
+    root = Path(root)
+    (root / "train").mkdir(parents=True, exist_ok=True)
+    cams = geometric_cameras(n_frames, h, w)
+    frames, depths = [], []
+    for i, (K, E) in enumerate(cams):
+        img, depth = scene.render(K, E, h, w)
+        rgb = (img * 255).astype(np.uint8)
+        if i in rgba:
+            rgb = np.concatenate([rgb, ((depth > 0) * 255).astype(np.uint8)[..., None]], axis=2)
+        write_png(root / "train" / f"r_{i}.png", rgb, row_filter=4)
+        c2w = np.linalg.inv(E.astype(np.float64))
+        c2w[:3, 1:3] *= -1  # OpenCV -> NeRF axes
+        frames.append({"file_path": f"./train/r_{i}" + ("" if i in bare else ".png"),
+                       "transform_matrix": c2w.tolist()})
+        depths.append(depth)
+    K = cams[0][0]
+    meta = ({"camera_angle_x": float(2 * np.arctan(0.5 * w / float(K[0, 0])))}
+            if intrinsics == "angle" else
+            {"fl_x": float(K[0, 0]), "fl_y": float(K[1, 1]), "cx": float(K[0, 2]),
+             "cy": float(K[1, 2])})
+    meta["frames"] = frames
+    (root / "transforms.json").write_text(json.dumps(meta, indent=1))
+    return scene, depths
+

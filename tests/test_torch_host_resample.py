@@ -174,17 +174,31 @@ def test_resize_linear_equals_cv2_at_odd_sizes(src, dst, channels):
 @pytest.mark.parametrize("src,dst", [((100, 64), (200, 640)), ((120, 160), (1152, 1536))],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_resize_linear_cv2_gap_is_confined_to_the_clamped_edge_columns(src, dst):
-    """At a width enlargement of 10x and 9.6x cv2 (IPP) differs from the
-    port only in the columns clamped to the first or last source sample,
-    there by at most 2^-24 (one float32 step in [0.5, 1), the top of the
-    images' range; 7% of those columns' values on cv2 5.0)."""
+    """At a width enlargement of 10x and 9.6x cv2 (IPP) rounds the vertical
+    tap pair twice in some of the columns clamped to the first or last
+    source sample (image._edge_runs); the port follows it, so the whole
+    image, edge columns included, is cv2's."""
     img = _image(src[0], *src, 3)
-    got = native.resize_linear(img, *dst)
     cv = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
-    f = (np.arange(dst[1]) + 0.5) * (src[1] / dst[1]) - 0.5
-    edge = (f < 0) | (f >= src[1] - 1)
-    np.testing.assert_array_equal(got[:, ~edge], cv[:, ~edge])
-    assert np.abs(got[:, edge].astype(np.float64) - cv[:, edge]).max() <= 2.0 ** -24
+    np.testing.assert_array_equal(native.resize_linear(img, *dst), cv)
+    np.testing.assert_array_equal(image.resize_linear(img, *dst), cv)
+
+
+# width ratios of 8x to 100x: clamped regions of 4 to 50 pixels, with and
+# without whole 16-pixel blocks and with remainders under and over 5
+# (38.4x: 19 clamped pixels, a block and a remainder of 3)
+@pytest.mark.parametrize("src,dst", [((40, 40), (30, 1536)), ((40, 40), (300, 1536)),
+                                     ((12, 10), (9, 80)), ((9, 10), (31, 150)),
+                                     ((7, 4), (12, 200)), ((6, 3), (9, 200)),
+                                     ((33, 17), (70, 999)), ((5, 2), (13, 200))],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("channels", [0, 1, 3, 4])
+def test_resize_linear_equals_cv2_at_wide_enlargements(src, dst, channels):
+    img = _image(channels + src[1], *src, channels)
+    cv = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
+    want = image.resize_linear(img, *dst)
+    np.testing.assert_array_equal(want.reshape(cv.shape), cv)
+    np.testing.assert_array_equal(native.resize_linear(img, *dst), want)
 
 
 @pytest.mark.parametrize("src,dst", [((19, 45), (74, 151)), ((93, 109), (124, 3)),

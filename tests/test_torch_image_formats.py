@@ -15,7 +15,8 @@ JPEG against np.asarray(PIL.Image.open(f)). Tolerance: none.
   alpha, RGB, RGBA), with and without tRNS, and Adam7-interlaced files at
   every depth, assembled here with struct and zlib;
 - what PIL refuses or the port does not read (lossless and
-  arithmetic-coded JPEG, BMP, TIFF) raises ValueError naming it;
+  arithmetic-coded JPEG, WebP, PNM, GIF) raises ValueError naming it (BMP
+  and TIFF are read since, tests/test_torch_imread.py);
 - the committed fixtures of chip_smoke.py's host_codec phase
   (tests/data/) decode natively and by numpy to the PIL pixels stored
   beside them.
@@ -290,10 +291,10 @@ def test_what_the_port_does_not_read_names_its_format(tmp_path):
     (tmp_path / "x.jpg").write_bytes(base[:i + 4] + b"\x0c" + base[i + 5:])
     with pytest.raises(ValueError, match="12-bit JPEG"):
         read_image(tmp_path / "x.jpg")
-    for fmt in ("BMP", "TIFF"):
-        Image.fromarray(img).save(tmp_path / f"x.{fmt.lower()}", fmt)
+    for fmt, ext in (("WebP", "webp"), ("PNM", "ppm"), ("GIF", "gif")):
+        Image.fromarray(img).save(tmp_path / f"x.{ext}")
         with pytest.raises(ValueError, match=fmt):
-            read_image(tmp_path / f"x.{fmt.lower()}")
+            read_image(tmp_path / f"x.{ext}")
 
 
 # ---------------------------------------------------------------- fixtures
