@@ -9,9 +9,10 @@ Phases, one JSON line each:
   build       nvcc builds of csrc/*.cu into build/kernels/ (all in parallel),
               and beside them g++'s build of the host library
               (csrc/host/*.cpp into build/host/, data/native.py), each
-              kernel's ptxas line (registers, spills) and the warp and
-              conv kernels' SASS instruction counts (cuobjdump; the conv's
-              with its tensor-core HMMA, ldmatrix LDSM and cp.async LDGSTS);
+              kernel's ptxas line (registers, spills) and the warp, conv
+              and flash forward kernels' SASS instruction counts
+              (cuobjdump; the conv's and the flash forward's with their
+              tensor-core HMMA, ldmatrix LDSM and cp.async LDGSTS);
   kernel      each hand-written kernel against its plain PyTorch version at
               every shape the paths give it (the DTU-eval forward, the train
               step, and the training CLI's train steps at 512 x 640 and
@@ -20,16 +21,17 @@ Phases, one JSON line each:
               their rounding budget, flash_attention.budget_tolerance), and
               the same check against a planted fault, which it must reject by
               2x or more, each checked call launching that kernel alone (by
-              the counters; a warp case records its variant); the f32 SIMT
-              flash and conv kernels, which only the fp32 model runs, at the
-              tiny flagship's shapes, and the warps' scalar kernels, which no
+              the counters; a warp case records its variant); the f32 flash
+              kernels (the forward on 3xTF32, the backward SIMT) and the f32
+              SIMT conv, which only the fp32 model runs, at the tiny
+              flagship's shapes, and the warps' scalar kernels, which no
               path runs, on misaligned train-shape views; the kernel's, the
               plain version's and one library call's device time (CUDA events
               around calls queued behind a device spin, so the host's time to
               issue them does not count; `wall_ms`: the kernel's calls
               without the spin, host included) and the least time the card
-              could take, and for the conv cases the SIMT kernel's time on
-              the same input (`simt_ms`);
+              could take, and for the conv and the f32 flash forward cases
+              the SIMT kernel's time on the same input (`simt_ms`);
   reference   the port on the card (kernels, fp32) against the port on the
               CPU (plain versions, fp32) on a small flagship: the eval
               forward, then one train step (per-stage losses, every
@@ -223,6 +225,7 @@ FT_CONFIG = REPO / "configs" / "mvsformerplusplus_ft.json"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
 FP32_FLOPS = 67e12
 # SFU exponentials: 132 SMs x 16 ex2 per clock x 1.98 GHz boost clock
 EXP_S = 132 * 16 * 1.98e9
@@ -841,11 +844,13 @@ F32_PADDED = (("dh24", (10, 321, 2, 24)), ("dh32", (2, 333, 3, 32)))
 
 
 def flash_f32_cases():
-    """The f32 SIMT forward at the dino_match path's shape (the fp32 ViT-B
-    on 35 x 46 patches and the class token, 12 blocks per image, 2 images),
-    at the scene_convert path's (34 x 46 patches, 2 x 12 per match call:
-    SCENE_DINO_RUNS), and at shapes no path runs: the tiny flagship's (the fp32 model of the
-    reference phases) and head dims 24 and 32."""
+    """The f32 forward at the dino_match path's shape (the fp32 ViT-B on 35
+    x 46 patches and the class token, 12 blocks per image, 2 images), at the
+    scene_convert path's (34 x 46 patches, 2 x 12 per match call:
+    SCENE_DINO_RUNS), and at shapes no path runs: the tiny flagship's (the
+    fp32 model of the reference phases), head dims 24 and 32, and q and k at
+    std 3 (logits about 9x wider than at std 1, where fp32 logits lose the
+    most)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     n = (DINO_MATCH["hw"][0] // 14) * (DINO_MATCH["hw"][1] // 14) + 1
     q, k, v = (torch.randn(1, n, 12, 64, generator=gen, device="cuda") for _ in range(3))
@@ -861,6 +866,17 @@ def flash_f32_cases():
                                            for name, shape in F32_PADDED)):
         q, k, v = (torch.randn(b, n, h, dh, generator=gen, device="cuda") for _ in range(3))
         yield part, {}, (q, k, v, sc, lse), (2,)
+    q, k = (3 * torch.randn(2, 500, 3, 64, generator=gen, device="cuda") for _ in range(2))
+    v = torch.randn(2, 500, 3, 64, generator=gen, device="cuda")
+    yield "std3", {}, (q, k, v, 64 ** -0.5, True), (2,)
+
+
+def flash_simt(kernel, q, k, v, scale, lse):
+    """The f32 forward's SIMT kernel (the only one before the 3xTF32
+    kernel) on the same values."""
+    from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd_f32_simt
+
+    return lambda: flash_attention_fwd_f32_simt(q, k, v, scale, lse)
 
 
 def flash_tolerance(q, k, v, scale, lse, want):
@@ -1176,9 +1192,11 @@ def warp_bwd_bound(g, coords, src_shape, out):
 
 
 def _product_rate(t):
-    """Peak rate of the products on t's type: bf16 tensor cores, or fp32
-    FMAs outside them (the f32 kernels use no TF32)."""
-    return BF16_FLOPS if t.dtype == torch.bfloat16 else FP32_FLOPS
+    """Peak rate of the products on t's type: the bf16 tensor cores, or for
+    f32 the faster of the two routes that keep fp32 accuracy: 3xTF32 (three
+    tf32 products for each, a third of the TF32 rate) or fp32 FMAs outside
+    the tensor cores."""
+    return BF16_FLOPS if t.dtype == torch.bfloat16 else max(TF32_FLOPS / 3, FP32_FLOPS)
 
 
 def flash_bound(q, k, v, scale, lse, out):
@@ -1257,7 +1275,7 @@ def kernel_table():
         "flash_attention_fwd_f32": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
                                     fa.flash_attention_fwd, fa.flash_attention_plain,
                                     flash_f32_cases, flash_fault, flash_library, flash_bound,
-                                    None, None),
+                                    None, flash_simt),
         "flash_attention_bwd": ("csrc/flash_attention_bwd.cu", f"{pallas}flash_attention.py:263",
                                 fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
                                 flash_bwd_cases, flash_bwd_fault, flash_bwd_library,
@@ -1354,9 +1372,10 @@ def read_counts(counters) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
-# the kernels only the fp32 model launches (the flash and conv SIMT kernels),
-# and the warps' scalar kernels: no model path may launch them (the
-# dino_match path's fp32 ViT runs the f32 flash forward, checked there)
+# the kernels only the fp32 model launches (the f32 flash kernels, the conv's
+# SIMT one), and the warps' scalar kernels: no model path may launch them
+# (the dino_match and scene_convert paths' fp32 ViT runs the f32 flash
+# forward, checked there)
 F32_ONLY = ("flash_attention_fwd_f32", "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
 CONV_SIMT = ("conv2d_same_f32", "conv2d_same_dx_f32")
 WARP_SCALAR = ("warp_bilinear_scalar", "warp_bilinear_bwd_scalar")
@@ -1918,14 +1937,14 @@ CASMVS_LAYERS = ("encoder", "decoder", "cascade.stage1", "cascade.stage2", "casc
                  "cascade.stage4")
 HAND_WRITTEN = ("warp_bilinear_vec_kernel", "warp_bilinear_bwd_vec_kernel",
                 "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel",
-                "flash_fwd_mma_kernel", "flash_bwd_mma_kernel", "flash_fwd_f32_kernel",
-                "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_mma_kernel",
-                "conv2d_same_kernel")
-# the hand-written kernels no path may run: the f32 flash ones, the conv's
-# SIMT one, the warps' scalar ones
-OFF_PATH_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel",
-                    "conv2d_same_kernel", "warp_bilinear_scalar_kernel",
-                    "warp_bilinear_bwd_scalar_kernel")
+                "flash_fwd_mma_kernel", "flash_bwd_mma_kernel", "flash_fwd_3xtf32_kernel",
+                "flash_fwd_f32_simt_kernel", "flash_bwd_dkv_f32_kernel",
+                "flash_bwd_dq_f32_kernel", "conv2d_mma_kernel", "conv2d_same_kernel")
+# the hand-written kernels no model path may run: the f32 flash ones, the
+# conv's SIMT one, the warps' scalar ones
+OFF_PATH_KERNELS = ("flash_fwd_3xtf32_kernel", "flash_fwd_f32_simt_kernel",
+                    "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_same_kernel",
+                    "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel")
 
 
 def check_kernel_names(prof, phase, want, absent=()) -> None:
@@ -3342,7 +3361,7 @@ def run_dino_match(counters, work: Path) -> dict:
         == 2 * DINO_MATCH["blocks"] and not any(
             n for k, n in launches.items() if k != "flash_attention_fwd_f32"),
         "trace_names_the_kernel": len(traces) == 1 and any(
-            "flash_fwd_f32_kernel" in n for n in names) and "dino_match" in names,
+            "flash_fwd_3xtf32_kernel" in n for n in names) and "dino_match" in names,
         "memory_stats": 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"]
         <= mem["bytes_limit"],
     }
@@ -3786,6 +3805,11 @@ def ptxas_by_kernel(log: str) -> dict:
 # the conv's counted opcodes: the tensor cores (HMMA), ldmatrix (LDSM),
 # cp.async (LDGSTS); LDG also counts LDGSTS, LDS also LDSM
 CONV_SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "LDG", "LDS", "STS", "STG", "FFMA", "IMAD")
+# the flash forward's: the tensor cores (HMMA; m16n8k8 tf32 is
+# HMMA.1688.F32.TF32), ldmatrix, cp.async, the exponentials (MUFU) and the
+# FP32 and integer pipes' ops that the 3xTF32 splits and the softmax add
+FLASH_SASS_OPS = ("HMMA", "HMMA.1688.F32.TF32", "LDSM", "LDGSTS", "LDS", "STG", "MUFU", "FFMA",
+                  "FADD", "FMUL", "FMNMX", "LOP3", "IADD3", "IMAD")
 
 
 def sass_counts(kernels, name: str, ops=("LDG", "STG", "RED", "ATOM", "IMAD", "FFMA")):
@@ -3839,11 +3863,18 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     host_build.result()
     host_build_s = time.perf_counter() - t0
+    flash_sass = sass_counts(kernels, "flash_attention", FLASH_SASS_OPS)
     emit({"phase": "build", "seconds": build_s, "host_library": str(native.lib_path().name),
           "host_build_s": host_build_s,
           "ptxas": {name: ptxas_by_kernel(log) for name, log in logs.items()},
           "sass": {**{name: sass_counts(kernels, name) for name in ("warp", "warp_bwd")},
-                   "conv2d": sass_counts(kernels, "conv2d", CONV_SASS_OPS)}})
+                   "conv2d": sass_counts(kernels, "conv2d", CONV_SASS_OPS),
+                   "flash_attention": flash_sass}})
+    tf32_mma = [counts["HMMA.1688.F32.TF32"] for name, counts in flash_sass.items()
+                if "flash_fwd_3xtf32_kernel" in name] if isinstance(flash_sass, dict) else []
+    if len(tf32_mma) != 4 or not all(tf32_mma):
+        raise SystemExit(f"the f32 flash forward's SASS at its 4 head dims has no tf32 "
+                         f"tensor-core op: {tf32_mma}")
 
     e2e_root = Path(tempfile.mkdtemp(prefix="chip_smoke_e2e_"))
     scene_root = Path(tempfile.mkdtemp(prefix="chip_smoke_scenes_"))

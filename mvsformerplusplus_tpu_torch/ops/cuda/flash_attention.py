@@ -16,9 +16,14 @@ which run on the SFUs, not the tensor cores. The wrappers dispatch by dtype:
   `flash_bwd_mma_kernel`: mma.sync m16n8k16, FA2's online softmax in
   registers, P packed to bf16 as the A operand of P·V; the fused backward
   computes the exponentials once and adds dQ with f32 atomics);
-- f32 runs the SIMT kernels (`flash_fwd_f32_kernel`,
-  `flash_bwd_dkv_f32_kernel`, `flash_bwd_dq_f32_kernel`: fp32 FMAs, one
-  thread per row), which the fp32 model takes: tensor cores would mean TF32.
+- f32, which the fp32 model takes, runs the forward on the tf32 tensor
+  cores at fp32 accuracy (`flash_fwd_3xtf32_kernel`: the bf16 kernel's
+  blocks and staging on mma.sync m16n8k8, each operand split into two tf32
+  parts and each product taken as three, small·big + big·small + big·big;
+  P is split too, never rounded to tf32 alone) and the backward on SIMT
+  kernels (`flash_bwd_dkv_f32_kernel`, `flash_bwd_dq_f32_kernel`: fp32
+  FMAs, one thread per row). The forward's earlier SIMT kernel stays as
+  `flash_attention_fwd_f32_simt`, a timing reference no path calls.
 
 The bf16 kernels round P (and in the backward dS) to bf16 before a product,
 as the TPU kernel does (`p.astype(v.dtype)`), so they are held to their fp32
@@ -202,14 +207,9 @@ def _c_fn(lib: str, name: str, n_ptrs: int):
     return fn
 
 
-def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float,
-                        return_lse: bool = False):
-    """Flash attention forward. q [B, N, H, Dh], k/v [B, M, H, Dh] (bf16|f32,
-    Dh <= 128) -> out [B, N, H, Dh] in q's dtype (and lse [B, H, N] f32).
-    CPU tensors take the plain version; CUDA tensors launch the bf16
-    tensor-core kernel or the f32 SIMT kernel at the padded head dim."""
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, scale, return_lse)
+def _fwd_launch(entry: str, q: Tensor, k: Tensor, v: Tensor, scale: float, return_lse: bool):
+    """One launch of the C entry point `entry` of csrc/flash_attention.cu on
+    CUDA tensors at the padded head dim: out (and lse)."""
     _check_qkv(q, k, v)
     b, n, h, dh = q.shape
     m = k.shape[1]
@@ -217,17 +217,44 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float,
     q, k, v = (_aligned(x, width) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device) if return_lse else None
-    mma = q.dtype == torch.bfloat16
-    fn = _c_fn("flash_attention", "flash_attention_fwd_mma" if mma else "flash_attention_fwd_f32",
-               5)
+    fn = _c_fn("flash_attention", entry, 5)
     check(fn(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse) if lse is not None else None,
-             b, n, m, h, width, float(scale), stream()), fn.__name__)
+             b, n, m, h, width, float(scale), stream()), entry)
+    out = _unpad(out, dh)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float,
+                        return_lse: bool = False):
+    """Flash attention forward. q [B, N, H, Dh], k/v [B, M, H, Dh] (bf16|f32,
+    Dh <= 128) -> out [B, N, H, Dh] in q's dtype (and lse [B, H, N] f32).
+    CPU tensors take the plain version; CUDA tensors launch the bf16
+    tensor-core kernel or the f32 3xTF32 one at the padded head dim."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, scale, return_lse)
+    mma = q.dtype == torch.bfloat16
+    res = _fwd_launch("flash_attention_fwd_mma" if mma else "flash_attention_fwd_f32",
+                      q, k, v, scale, return_lse)
     if mma:
         flash_attention_fwd.launches_mma += 1
     else:
         flash_attention_fwd.launches_f32 += 1
-    out = _unpad(out, dh)
-    return (out, lse) if return_lse else out
+    return res
+
+
+def flash_attention_fwd_f32_simt(q: Tensor, k: Tensor, v: Tensor, scale: float,
+                                 return_lse: bool = False):
+    """The f32 forward's earlier SIMT kernel (`flash_fwd_f32_simt_kernel`),
+    arguments and results as flash_attention_fwd's in f32: a timing
+    reference beside the 3xTF32 kernel, which no path calls. CPU tensors take
+    the plain version."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, scale, return_lse)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_fwd_f32_simt takes float32, got {q.dtype}")
+    res = _fwd_launch("flash_attention_fwd_f32_simt", q, k, v, scale, return_lse)
+    flash_attention_fwd_f32_simt.launches += 1
+    return res
 
 
 def _bwd_args(q, k, v, dout, lse, delta):
@@ -311,6 +338,7 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale):
 
 flash_attention_fwd.launches_mma = 0
 flash_attention_fwd.launches_f32 = 0
+flash_attention_fwd_f32_simt.launches = 0
 flash_attention_bwd.launches_mma = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0

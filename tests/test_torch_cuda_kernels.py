@@ -139,12 +139,15 @@ def test_flash_kernel_matches_plain(dev, dtype, dh, n, m):
 
 
 def _key_tile(dh, dtype):
-    """Keys per K/V tile of the forward kernel the dtype selects."""
-    return (128 if dh == 16 else 64) if dtype == torch.bfloat16 else 64
+    """Keys per K/V tile of the forward kernel the dtype selects (FwdTile,
+    F32Tile in csrc/flash_attention.cu)."""
+    if dtype == torch.bfloat16:
+        return 128 if dh == 16 else 64
+    return {16: 128, 32: 64, 64: 64, 128: 32}[dh]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("tail", [1, 7, 63])
 def test_flash_key_and_query_tails(dev, dtype, dh, tail):
     """Keys 1, 7 and 63 past a whole tile, queries as many past 64 rows."""
@@ -155,7 +158,7 @@ def test_flash_key_and_query_tails(dev, dtype, dh, tail):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 def test_flash_reads_no_key_past_m(dev, dtype, dh):
     """At B=1, k and v are the first m rows of larger tensors whose later
     rows hold NaN: a read past m would show as NaN, in the forward and in
@@ -178,6 +181,36 @@ def test_flash_reads_no_key_past_m(dev, dtype, dh):
     for got, w, b in zip(grads, want, budgets):
         assert bool(torch.isfinite(got).all())
         _flash_close(got, w, b)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_flash_f32_any_scale(dev, scale):
+    """The f32 kernel takes any scale, as the SIMT kernel did: a negative one
+    (q's sign flipped) and zero (uniform weights, keys past a whole tile
+    still masked)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, s, 2, 64, generator=g, device=dev) for s in (70, 135, 135))
+    got, lse = flash_attention.flash_attention_fwd(q, k, v, scale, return_lse=True)
+    want, want_lse = flash_attention.flash_attention_plain(q, k, v, scale, return_lse=True)
+    _close(got, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dh,n,m", [(64, 1611, 1611), (16, 200, 333), (128, 150, 140)])
+def test_flash_f32_simt_reference_matches_plain(dev, dh, n, m):
+    """The SIMT kernel kept as the f32 forward's timing reference computes
+    the same function, and the wrapper of the path does not choose it."""
+    g = torch.Generator(device=dev).manual_seed(dh + n)
+    q, k, v = (torch.randn(1, s, 3, dh, generator=g, device=dev) for s in (n, m, m))
+    simt = flash_attention.flash_attention_fwd_f32_simt
+    before = (simt.launches, flash_attention.flash_attention_fwd.launches_f32)
+    got, lse = simt(q, k, v, 0.3, return_lse=True)
+    flash_attention.flash_attention_fwd(q, k, v, 0.3)
+    assert (simt.launches, flash_attention.flash_attention_fwd.launches_f32) == (
+        before[0] + 1, before[1] + 1)
+    want, want_lse = flash_attention.flash_attention_plain(q, k, v, 0.3, return_lse=True)
+    _close(got, want)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
 
 def _camera(angle, tx, h, w):
@@ -460,7 +493,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         conv2d.conv2d_same(x, torch.randn(4, 4, 4, 8, device=dev))
     q = torch.randn(1, 8, 2, 32, device=dev)
     with pytest.raises(ValueError):
-        flash_attention.flash_attention_fwd(q, q, q, 0.2)
+        flash_attention.flash_attention_fwd(q, q[..., :16], q[..., :16], 0.2)
     with pytest.raises(TypeError):
         warp.warp_bilinear(x.double(), torch.zeros(1, 2, 8, 8, 2, device=dev))
     with pytest.raises(ValueError):
@@ -468,7 +501,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                                torch.zeros(1, 2, 8, 8, 2, device=dev), (1, 8, 8, 4))
     lse = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError):
-        flash_attention.flash_attention_bwd_dq(q, q, q, q, lse, lse, 0.2)
+        flash_attention.flash_attention_bwd_dq(q, q, q, q, lse[..., :4], lse, 0.2)
     qb = torch.randn(1, 8, 2, 16, device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         flash_attention.flash_attention_bwd_dkv(qb, qb, qb, qb, lse, lse, 0.2)
