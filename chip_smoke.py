@@ -25,13 +25,15 @@ Phases, one JSON line each:
               kernels (the forward on 3xTF32, the backward SIMT) and the f32
               SIMT conv, which only the fp32 model runs, at the tiny
               flagship's shapes, and the warps' scalar kernels, which no
-              path runs, on misaligned train-shape views; the kernel's, the
-              plain version's and one library call's device time (CUDA events
-              around calls queued behind a device spin, so the host's time to
-              issue them does not count; `wall_ms`: the kernel's calls
-              without the spin, host included) and the least time the card
-              could take, and for the conv and the f32 flash forward cases
-              the SIMT kernel's time on the same input (`simt_ms`);
+              path runs, on misaligned train-shape views and at channel
+              counts outside the vector widths (bf16 12 and 3, f32 6); the
+              kernel's, the plain version's and one library call's device
+              time (CUDA events around calls queued behind a device spin, so
+              the host's time to issue them does not count; `wall_ms`: the
+              kernel's calls without the spin, host included) and the least
+              time the card could take, and for the conv and the f32 flash
+              forward cases the SIMT kernel's time on the same input
+              (`simt_ms`);
   reference   the port on the card (kernels, fp32) against the port on the
               CPU (plain versions, fp32) on a small flagship: the eval
               forward, then one train step (per-stage losses, every
@@ -176,13 +178,15 @@ Phases, one JSON line each:
               image.py's numpy versions (equal): the area shrink at 0.55
               and 0.6133 of 1200 x 1600, the nearest shrink of a depth map,
               the hue shift of a 512 x 640 crop and the linear resize at the
-              eval scripts' three sizes; the committed files PIL wrote
-              (tests/data/, make_image_fixtures.py: progressive, CMYK and
-              YCCK JPEG, 16-bit, 4-bit and Adam7 PNG) decoded natively and
-              by numpy against PIL's stored pixels, and a 1152 x 1536
-              progressive JPEG's native decode (its pixels' SHA-256 PIL's)
-              timed against the baseline file of the same image and
-              quality; the host stages of one DTU training view; then the
+              eval scripts' three sizes; the committed files PIL (or
+              libjpeg-turbo) wrote (tests/data/, make_image_fixtures.py:
+              progressive, CMYK, YCCK, arithmetic-coded and lossless JPEG,
+              16-bit, 4-bit and Adam7 PNG decoded natively and by numpy,
+              PNM, GIF, WebP and JPEG 2000 natively) against PIL's stored
+              pixels, a 1152 x 1536 progressive JPEG's native decode (its
+              pixels' SHA-256 PIL's) timed against the baseline file of the
+              same image and quality, and the same photo as lossy WebP and
+              9/7 JPEG 2000 (SHA-256 of PIL's RGB) timed; the host stages of one DTU training view; then the
               input-pipeline bench (tools/bench_input_pipeline.py) at its
               defaults for 20 steps at train_step's measured ms per step,
               and its JSON, its resizes and hue shifts all native.
@@ -717,14 +721,25 @@ def _train640_stages(stages):
             yield stage, nd, c, hh, ww, stage_coords(cams, dv, stage, nd, hh, ww), nsrc
 
 
+# the widths outside VEC_CHANNELS the scalar kernels are held at, beside the
+# misaligned cases: (dtype, C) at the train crop's stage-1 and stage-4 geometry
+SCALAR_WIDTHS = ((torch.bfloat16, 12), (torch.bfloat16, 3), (torch.float32, 6))
+
+
 def warp_scalar_cases():
     """The scalar kernel, which no path runs (a C that is no multiple of the
     16-byte vector, or a source off a 16-byte boundary): the train crop's
-    stage-1 and stage-4 warps with the source one element off."""
+    stage-1 and stage-4 warps with the source one element off, then at
+    SCALAR_WIDTHS' channel counts."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     for stage, nd, c, hh, ww, coords, nsrc in _train640_stages((1, 4)):
         src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
         yield f"train640_stage{stage}_misaligned", {}, (misaligned(src), coords), ()
+        del src
+        for dtype, cw in SCALAR_WIDTHS:
+            src = torch.randn(nsrc, hh, ww, cw, generator=gen, device="cuda").to(dtype)
+            yield (f"train640_stage{stage}_{str(dtype)[6:]}_c{cw}", {}, (src, coords), ())
+            del src
 
 
 def warp_fault(kernel, src, coords):
@@ -761,11 +776,18 @@ def warp_bwd_cases():
 
 def warp_bwd_scalar_cases():
     """The backward's scalar kernel, which no path runs: the train crop's
-    stage-1 and stage-4 gradients with the cotangent one element off."""
+    stage-1 and stage-4 gradients with the cotangent one element off, then
+    at SCALAR_WIDTHS' channel counts (the cotangent is f32 whatever the
+    source: C 12, 6 and 3 take the float4, float2 and scalar reductions)."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     for stage, nd, c, hh, ww, coords, nsrc in _train640_stages((1, 4)):
         g = torch.randn(nsrc, nd, hh, ww, c, generator=gen, device="cuda")
         yield f"train640_stage{stage}_misaligned", {}, (misaligned(g), coords, (nsrc, hh, ww, c)), ()
+        del g
+        for _, cw in SCALAR_WIDTHS:
+            g = torch.randn(nsrc, nd, hh, ww, cw, generator=gen, device="cuda")
+            yield f"train640_stage{stage}_c{cw}", {}, (g, coords, (nsrc, hh, ww, cw)), ()
+            del g
 
 
 def warp_bwd_fault(kernel, g, coords, src_shape):
@@ -1936,15 +1958,17 @@ LAYERS = ("encoder", "vit", "decoder_vit", "decoder", "fmt", "cascade.stage1",
 CASMVS_LAYERS = ("encoder", "decoder", "cascade.stage1", "cascade.stage2", "cascade.stage3",
                  "cascade.stage4")
 HAND_WRITTEN = ("warp_bilinear_vec_kernel", "warp_bilinear_bwd_vec_kernel",
-                "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel",
-                "flash_fwd_mma_kernel", "flash_bwd_mma_kernel", "flash_fwd_3xtf32_kernel",
-                "flash_fwd_f32_simt_kernel", "flash_bwd_dkv_f32_kernel",
-                "flash_bwd_dq_f32_kernel", "conv2d_mma_kernel", "conv2d_same_kernel")
+                "warp_bilinear_scalar_kernel", "warp_bilinear_narrow_kernel",
+                "warp_bilinear_bwd_scalar_kernel", "flash_fwd_mma_kernel",
+                "flash_bwd_mma_kernel", "flash_fwd_3xtf32_kernel", "flash_fwd_f32_simt_kernel",
+                "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_mma_kernel",
+                "conv2d_same_kernel")
 # the hand-written kernels no model path may run: the f32 flash ones, the
 # conv's SIMT one, the warps' scalar ones
 OFF_PATH_KERNELS = ("flash_fwd_3xtf32_kernel", "flash_fwd_f32_simt_kernel",
                     "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_same_kernel",
-                    "warp_bilinear_scalar_kernel", "warp_bilinear_bwd_scalar_kernel")
+                    "warp_bilinear_scalar_kernel", "warp_bilinear_narrow_kernel",
+                    "warp_bilinear_bwd_scalar_kernel")
 
 
 def check_kernel_names(prof, phase, want, absent=()) -> None:
@@ -3574,10 +3598,18 @@ RESAMPLE = dict(area_scales=(0.55, 0.6133), train_hw=(1200, 1600), hue_crop=(512
                 linear=(((1200, 1600), (1152, 1536)), ((1080, 1920), (1024, 1920)),
                         ((4032, 6048), (1024, 1600))))
 # the files PIL wrote (tests/data/make_image_fixtures.py), each with PIL's
-# pixels beside it as .npy; the large progressive JPEG's pixels by SHA-256
+# pixels beside it as .npy; the large progressive JPEG's pixels by SHA-256;
+# then the arithmetic-coded and lossless JPEG files libjpeg-turbo wrote
+# (faults F4) and the PNM, GIF, WebP and JPEG 2000 files PIL wrote (F5),
+# the latter with PIL's convert("RGB") pixels (read_image_u8's)
 FIXTURES = REPO / "tests" / "data"
 F3_FIXTURES = ("progressive_420_q90.jpg", "cmyk_q90.jpg", "ycck_q90.jpg", "gray16.png",
                "rgb16_adam7.png", "gray4_adam7.png")
+F4_FIXTURES = ("arith_420_q85.jpg", "arith_444_dac_r3.jpg", "arith_progressive_q85.jpg",
+               "lossless_p1.jpg", "lossless_p7_pt2_r61.jpg", "lossless_gray_p4.jpg")
+F5_FIXTURES = ("p6_1000.ppm", "p2_100.pgm", "p4.pbm", "interlaced_trans.gif", "lossy_q75.webp",
+               "lossless.webp", "lossy_alpha.webp", "anim.webp", "irreversible_tiles.jp2",
+               "reversible_rlcp.j2k", "gray16.jp2")
 # each train_step path's measured ms per step, by family (run_train_step)
 STEP_MS: dict = {}
 
@@ -3676,8 +3708,9 @@ def host_resample(reps: int):
 
 
 def host_fixtures(reps: int):
-    """The committed files PIL wrote, each decoded natively and by numpy
-    against PIL's stored pixels, and the large progressive JPEG's native
+    """The committed files PIL (or libjpeg-turbo) wrote, each decoded
+    natively and (JPEG and PNG) by numpy against PIL's stored pixels, and
+    the large progressive JPEG's native
     decode (pixels hashed) against the baseline file of the same image and
     quality: ({name: ms}, {check: equal})."""
     import hashlib
@@ -3686,10 +3719,12 @@ def host_fixtures(reps: int):
     from mvsformerplusplus_tpu_torch.data import jpeg, native
 
     rows, checks = {}, {}
-    for name in F3_FIXTURES:
+    for name in F3_FIXTURES + F4_FIXTURES + F5_FIXTURES:
         path = FIXTURES / name
         want = np.load(FIXTURES / (name + ".npy"))
-        if name.endswith(".jpg"):
+        if name in F5_FIXTURES:  # no numpy twin: the host library's decoders only
+            sides = {"native": lambda: dio.read_image_u8(path)}
+        elif name.endswith(".jpg"):
             data = path.read_bytes()
             sides = {"native": lambda: jpeg.decode_native(data), "numpy": lambda: jpeg.decode(data)}
         else:
@@ -3712,6 +3747,13 @@ def host_fixtures(reps: int):
     _, base_ms = _best_ms(lambda: jpeg.decode_native(baseline), reps)
     rows[big] = {"native_progressive": prog_ms, "native_baseline": base_ms,
                  "progressive_bytes": len(data), "baseline_bytes": len(baseline)}
+    # the same photo as lossy WebP and 9/7 JPEG 2000 at the eval scans' size
+    for name, meta in json.loads((FIXTURES / "large_format_fixtures.json").read_text()).items():
+        pixels, ms = _best_ms(lambda: dio.read_image_u8(FIXTURES / name), reps)
+        digest = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+        checks[f"{name}_pil_pixels"] = list(pixels.shape) == meta["shape"] and \
+            digest == meta["sha256"]
+        rows[name] = {"native": ms, "bytes": (FIXTURES / name).stat().st_size}
     return rows, checks
 
 

@@ -1,6 +1,7 @@
-// The byte-level decoders of the BMP and TIFF readers in data/io.py: TIFF's
-// LZW and PackBits strips and tiles, and BMP's RLE8 and RLE4 pixel data;
-// and the LZW encoder of the TIFF writer in data/synthetic.py. The headers,
+// The byte-level decoders of the BMP, TIFF and GIF readers (data/io.py,
+// data/gif.py): TIFF's LZW and PackBits strips and tiles, BMP's RLE8 and
+// RLE4 pixel data and GIF's LZW frames; and the LZW encoder of the TIFF
+// writer in data/synthetic.py. The headers,
 // the Deflate streams (zlib), the predictor and the colour conversions stay
 // in numpy. Each call runs in the calling thread.
 
@@ -71,6 +72,71 @@ int64_t tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap
     for (int i = sp - 1; i >= 0 && out < cap; --i) dst[out++] = stack[i];
     old = cur;
     if (next + 1 >= (1 << width) && width < 12) ++width;
+  }
+  return out;
+}
+
+// GIF LZW: codes LSB first, min_code + 1 bits wide after each Clear
+// (1 << min_code), growing when the table's next entry reaches 1 << width,
+// up to 12 bits, where the table stops growing until the next Clear; End
+// (Clear + 1) or the end of the data ends the stream. Writes at most cap
+// indices; returns the count written, or -1 for a corrupt stream (a code
+// past the table, or a first code after Clear that is no literal).
+int64_t gif_lzw_decode(const uint8_t* src, int64_t n, int min_code, uint8_t* dst, int64_t cap) {
+  if (min_code < 1 || min_code > 11) return -1;
+  static thread_local uint16_t prefix[4096];
+  static thread_local uint8_t suffix[4096], first[4096];
+  uint8_t stack[4096];
+  const int clear = 1 << min_code, end = clear + 1;
+  for (int i = 0; i < clear; ++i) {
+    prefix[i] = 0xffff;
+    suffix[i] = first[i] = uint8_t(i);
+  }
+  int next = end + 1, width = min_code + 1, old = -1;
+  int64_t out = 0, byte = 0;
+  uint32_t acc = 0;
+  int have = 0;
+  while (out < cap) {
+    while (have < width && byte < n) {
+      acc |= uint32_t(src[byte++]) << have;
+      have += 8;
+    }
+    if (have < width) break;
+    const int code = int(acc & ((1u << width) - 1));
+    acc >>= width;
+    have -= width;
+    if (code == clear) {
+      next = end + 1;
+      width = min_code + 1;
+      old = -1;
+      continue;
+    }
+    if (code == end) break;
+    int cur;
+    if (old < 0) {
+      if (code >= clear) return -1;
+      cur = code;
+    } else if (code < next) {
+      cur = code;
+      if (next < 4096) {
+        prefix[next] = uint16_t(old);
+        suffix[next] = first[code];
+        first[next] = first[old];
+        ++next;
+      }
+    } else if (code == next && next < 4096) {
+      prefix[next] = uint16_t(old);
+      suffix[next] = first[old];
+      first[next] = first[old];
+      cur = next++;
+    } else {
+      return -1;
+    }
+    int sp = 0;
+    for (int c = cur; c != 0xffff; c = prefix[c]) stack[sp++] = suffix[c];
+    for (int i = sp - 1; i >= 0 && out < cap; --i) dst[out++] = stack[i];
+    old = cur;
+    if (next == (1 << width) && width < 12) ++width;
   }
   return out;
 }

@@ -8,7 +8,11 @@
 // interval) straight into the coefficient array, jpeg_decode_progressive one
 // scan of a progressive file (jdphuff.c's four kinds: DC first, DC
 // refinement, AC first with EOB runs, AC refinement with its correction
-// bits); jpeg_reconstruct dequantises, runs the islow IDCT (jidctint.c),
+// bits), jpeg_decode_arith one arithmetic-coded scan, sequential or
+// progressive (jdarith.c, with the DAC marker's conditioning), and
+// jpeg_decode_lossless / jpeg_undifference a lossless scan's differences
+// and its predictors (jdlhuff.c, jdlossls.c); jpeg_reconstruct dequantises,
+// runs the islow IDCT (jidctint.c),
 // crops, upsamples 4:2:2 / 4:2:0 chroma (fancy, jdsample.c) and converts
 // YCbCr to RGB (jdcolor.c), or YCCK to inverted CMYK as PIL reads Adobe
 // files.
@@ -292,6 +296,233 @@ int decode_progressive_interval(const BitReader& br, const int64_t* bases, const
         --eobrun;
       }
     }
+  }
+  return kOk;
+}
+
+// ------------------------------------------------------ arithmetic decode
+
+// Table D.3 of ITU-T T.81 as jaricom.c packs it: per state Qe << 16 |
+// Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; state 113 is the
+// fixed one-half estimate of sign and DC-refinement bits
+constexpr int64_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171,
+};
+
+// jdarith.c's arith_decode on one restart interval's destuffed bytes,
+// zeros past their end (libjpeg supplies zeros after a marker)
+struct ArithDecoder {
+  const uint8_t* b;
+  int64_t n, pos = 0, c = 0, a = 0;
+  int ct = -16;
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | (pos < n ? b[pos] : 0);
+        ++pos;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = int(qe & 0xFF), nm = int((qe >> 8) & 0xFF);
+    qe >>= 16;
+    a -= qe;
+    const int64_t temp = a << ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+      a = qe;
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+inline int64_t wrap16(int64_t v) { return int64_t(int16_t(uint16_t(v & 0xFFFF))); }
+
+// Figures F.23 and F.24: further magnitude-category bits from bin `top`
+// (m the category so far, a power of two), then the magnitude bits 14 bins
+// after the last category bin; |v| - 1 into *v, false past 15 bits
+inline bool arith_magnitude(ArithDecoder& d, uint8_t* stats, int top, int64_t m, int64_t* v) {
+  int st = top;
+  while (d.decode(stats + st)) {
+    if ((m <<= 1) == 0x8000) return false;
+    ++st;
+  }
+  *v = m;
+  st += 14;
+  while (m >>= 1)
+    if (d.decode(stats + st)) *v |= m;
+  return true;
+}
+
+// an AC coefficient's value (Figures F.21-F.24), its bins from st
+inline bool arith_ac_value(ArithDecoder& d, uint8_t* stats, uint8_t* fixed, int st, int k,
+                           int kx, int64_t* out) {
+  const int sign = d.decode(fixed);
+  st += 2;
+  int64_t v = 0;
+  if (d.decode(stats + st)) {
+    if (!d.decode(stats + st)) {
+      v = 1;
+    } else if (!arith_magnitude(d, stats, k <= kx ? 189 : 217, 2, &v)) {
+      return false;
+    }
+  }
+  *out = sign ? -(v + 1) : v + 1;
+  return true;
+}
+
+struct ArithScan {
+  int progressive, ss, se, ah, al;
+  const int32_t* tables;  // per slot DC, AC conditioning table
+  const int32_t *dc_l, *dc_u, *ac_k;
+};
+
+// One restart interval of an arithmetic-coded scan (jdarith.c's
+// decode_mcu, decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine),
+// statistics, DC predictions and contexts afresh
+int decode_arith_interval(const ArithScan& sc, ArithDecoder& d, const int64_t* bases,
+                          const int32_t* slots, int64_t nblocks, int nslots, int64_t* coefs,
+                          int64_t ncoefs) {
+  uint8_t dc_stats[4][64], ac_stats[4][256], fixed = 113;
+  std::memset(dc_stats, 0, sizeof dc_stats);
+  std::memset(ac_stats, 0, sizeof ac_stats);
+  int64_t last[4] = {0, 0, 0, 0};
+  int ctx[4] = {0, 0, 0, 0};
+  const int64_t p1 = int64_t(1) << sc.al;
+  for (int64_t b = 0; b < nblocks; ++b) {
+    const int ci = slots[b];
+    const int64_t base = bases[b];
+    if (ci < 0 || ci >= nslots || base < 0 || base + 64 > ncoefs) return kBadArgument;
+    int64_t* c = coefs + base;
+    const int td = sc.tables[2 * ci], ta = sc.tables[2 * ci + 1];
+    uint8_t* ac = ac_stats[ta];
+    if (!sc.progressive || (sc.ss == 0 && sc.ah == 0)) {  // DC
+      uint8_t* st = dc_stats[td];
+      if (d.decode(st + ctx[ci]) == 0) {
+        ctx[ci] = 0;
+      } else {
+        const int sign = d.decode(st + ctx[ci] + 1);
+        const int at = ctx[ci] + 2 + sign;
+        int64_t v = 0, m = 0;
+        if (d.decode(st + at)) {
+          if (!arith_magnitude(d, st, 20, 1, &v)) return kCorrupt;
+          m = int64_t(1) << (63 - __builtin_clzll(uint64_t(v)));
+        }
+        if (m < ((int64_t(1) << sc.dc_l[td]) >> 1))
+          ctx[ci] = 0;
+        else if (m > ((int64_t(1) << sc.dc_u[td]) >> 1))
+          ctx[ci] = 12 + 4 * sign;
+        else
+          ctx[ci] = 4 + 4 * sign;
+        last[ci] = (last[ci] + (sign ? -(v + 1) : v + 1)) & 0xFFFF;
+      }
+      c[0] = wrap16(last[ci] << sc.al);
+      if (sc.progressive) continue;
+      int k = 0;
+      while (k < 63) {
+        int st3 = 3 * k;
+        if (d.decode(ac + st3)) break;
+        for (;;) {
+          ++k;
+          if (d.decode(ac + st3 + 1)) break;
+          st3 += 3;
+          if (k >= 63) return kAcPastEnd;
+        }
+        int64_t v;
+        if (!arith_ac_value(d, ac, &fixed, st3, k, sc.ac_k[ta], &v)) return kCorrupt;
+        c[kZigzag[k]] = wrap16(v);
+      }
+    } else if (sc.ss == 0) {  // DC refinement
+      if (d.decode(&fixed)) c[0] |= p1;
+    } else if (sc.ah == 0) {  // AC first
+      for (int k = sc.ss; k <= sc.se; ++k) {
+        int st3 = 3 * (k - 1);
+        if (d.decode(ac + st3)) break;
+        while (d.decode(ac + st3 + 1) == 0) {
+          st3 += 3;
+          if (++k > sc.se) return kAcPastEnd;
+        }
+        int64_t v;
+        if (!arith_ac_value(d, ac, &fixed, st3, k, sc.ac_k[ta], &v)) return kCorrupt;
+        c[kZigzag[k]] = wrap16(v << sc.al);
+      }
+    } else {  // AC refinement
+      int kex = sc.se;
+      while (kex > 0 && !c[kZigzag[kex]]) --kex;
+      for (int k = sc.ss; k <= sc.se; ++k) {
+        int st3 = 3 * (k - 1);
+        if (k > kex && d.decode(ac + st3)) break;
+        for (;;) {
+          int64_t* coef = c + kZigzag[k];
+          if (*coef) {
+            if (d.decode(ac + st3 + 2)) *coef = wrap16(*coef + (*coef < 0 ? -p1 : p1));
+            break;
+          }
+          if (d.decode(ac + st3 + 1)) {
+            *coef = d.decode(&fixed) ? -p1 : p1;
+            break;
+          }
+          st3 += 3;
+          if (++k > sc.se) return kAcPastEnd;
+        }
+      }
+    }
+  }
+  return kOk;
+}
+
+// ---------------------------------------------------------------- lossless
+
+// One Huffman-coded lossless difference (jdlhuff.c) at bit *p: category 16
+// is 32768 with no value bits, a category past 16 is corrupt
+inline int read_difference(const BitReader& br, const Lookup& t, int64_t* p, int64_t* value) {
+  uint32_t w;
+  if (!br.peek(*p, &w)) return kCorrupt;
+  const int len = t.len[w];
+  if (!len) return kCorrupt;
+  const int s = t.sym[w];
+  *p += len;
+  if (s == 16) {
+    *value = 32768;
+  } else if (s > 16) {
+    return kCorrupt;
+  } else if (s) {
+    if (!br.peek(*p, &w)) return kCorrupt;
+    *value = extend(w >> (16 - s), s);
+    *p += s;
+  } else {
+    *value = 0;
   }
   return kOk;
 }
@@ -644,8 +875,10 @@ int jpeg_decode_progressive(const uint8_t* data, const int64_t* starts, const in
 
 // Coefficients -> pixels. Per component (comp[8 c ...]): flat offset of its
 // blocks, blocks across (bw) and down (bh), its sample width and height,
-// its horizontal and vertical upsampling ratios (1 or 2); qt: its 64
-// dequantisation factors (natural order). mode 0: one component, gray
+// its horizontal and vertical upsampling ratios (1 or 2), and 1 where it
+// holds a lossless file's samples ([bh, bw] of them, 0-255, upsampled by
+// replication) instead of coefficients; qt: its 64 dequantisation factors
+// (natural order). mode 0: one component, gray
 // [h, w]; 1: YCbCr -> RGB [h, w, 3]; 2: the three planes as they are; four
 // components [h, w, 4] as PIL reads them (libjpeg's CMYK, inverted): 3 the
 // planes as CMYK, 4 YCCK (jdcolor.c ycck_cmyk_convert: C, M, Y the
@@ -659,6 +892,17 @@ int jpeg_reconstruct(const int64_t* coefs, int64_t ncoefs, int nc, const int64_t
     const int64_t* cp = comp + 8 * ci;
     const int64_t offset = cp[0], bw = cp[1], bh = cp[2], cw = cp[3], ch = cp[4];
     const int64_t rx = cp[5], ry = cp[6];
+    if (cp[7]) {  // a lossless file's samples, upsampled by replication
+      if (offset < 0 || offset + bw * bh > ncoefs || cw > bw || ch > bh || cw * rx < w ||
+          ch * ry < h || rx < 1 || rx > 2 || ry < 1 || ry > 2)
+        return kBadArgument;
+      std::vector<uint8_t> cropped(h * w);
+      for (int64_t y = 0; y < h; ++y)
+        for (int64_t x = 0; x < w; ++x)
+          cropped[y * w + x] = uint8_t(coefs[offset + (y / ry) * bw + x / rx]);
+      planes[ci].swap(cropped);
+      continue;
+    }
     if (offset < 0 || offset + bw * bh * 64 > ncoefs || cw > bw * 8 || ch > bh * 8 ||
         cw * rx < w || ch * ry < h)
       return kBadArgument;
@@ -792,6 +1036,111 @@ int jpeg_encode_entropy(const uint8_t* rgb, int64_t h, int64_t w, const int32_t*
   bw.flush();
   if (bw.overflow) return kBadArgument;
   *n_out = bw.n;
+  return kOk;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// One arithmetic-coded scan, laid out as jpeg_decode_scan's arguments, with
+// per slot its DC and AC conditioning table numbers (0-3; tables), the DAC
+// marker's conditioning per table (dc_l, dc_u, ac_k) and the scan's
+// parameters (progressive, ss, se, ah, al), which the caller has checked.
+// Returns 0 or an Err (kCorrupt: a magnitude past 15 bits).
+int jpeg_decode_arith(const uint8_t* data, const int64_t* starts, const int64_t* lens,
+                      int64_t nseg, const int64_t* bases, const int32_t* slots, int64_t nblocks,
+                      int64_t step, int nslots, const int32_t* tables, const int32_t* dc_l,
+                      const int32_t* dc_u, const int32_t* ac_k, int progressive, int ss, int se,
+                      int ah, int al, int64_t* coefs, int64_t ncoefs) {
+  if (nslots < 1 || nslots > 4 || step < 1 || ss < 0 || se > 63 || ss > se || al < 0 ||
+      al > 13)
+    return kBadArgument;
+  for (int i = 0; i < 2 * nslots; ++i)
+    if (tables[i] < 0 || tables[i] > 3) return kBadArgument;
+  for (int t = 0; t < 4; ++t)
+    if (dc_l[t] < 0 || dc_l[t] > 15 || dc_u[t] < 0 || dc_u[t] > 15 || ac_k[t] < 0)
+      return kBadArgument;
+  const ArithScan sc{progressive, ss, se, ah, al, tables, dc_l, dc_u, ac_k};
+  for (int64_t i = 0; i < nseg; ++i) {
+    const int64_t first = i * step;
+    if (first >= nblocks) break;
+    ArithDecoder d{data + starts[i], lens[i]};
+    const int err = decode_arith_interval(sc, d, bases + first, slots + first,
+                                          std::min(step, nblocks - first), nslots, coefs, ncoefs);
+    if (err) return err;
+  }
+  return kOk;
+}
+
+// One lossless scan's Huffman-coded differences into diffs at each
+// sample's flat offset (bases, in scan order), laid out as
+// jpeg_decode_progressive's arguments (one DC table per slot). Returns 0
+// or an Err.
+int jpeg_decode_lossless(const uint8_t* data, const int64_t* starts, const int64_t* lens,
+                         int64_t nseg, const int64_t* bases, const int32_t* slots,
+                         int64_t nsamples, int64_t step, int nslots, const uint8_t* counts,
+                         const uint8_t* symbols, const int32_t* nsyms, int64_t* diffs,
+                         int64_t ndiffs) {
+  if (nslots < 1 || nslots > 4 || step < 1) return kBadArgument;
+  Lookup tables[4];
+  for (int s = 0; s < nslots; ++s) {
+    const int err = build_lookup(counts + 16 * s, symbols + kMaxSymbols * s, nsyms[s], &tables[s]);
+    if (err) return err;
+  }
+  for (int64_t i = 0; i < nseg; ++i) {
+    const int64_t first = i * step;
+    if (first >= nsamples) break;
+    const int64_t end = std::min(first + step, nsamples);
+    const BitReader br{data + starts[i], lens[i]};
+    int64_t p = 0;
+    for (int64_t j = first; j < end; ++j) {
+      const int ci = slots[j];
+      if (ci < 0 || ci >= nslots || bases[j] < 0 || bases[j] >= ndiffs) return kBadArgument;
+      const int err = read_difference(br, tables[ci], &p, &diffs[bases[j]]);
+      if (err) return err;
+    }
+  }
+  return kOk;
+}
+
+// jdlossls.c in place on one component's [rows, pitch] plane of differences:
+// the first row of the scan and of each restart interval (every
+// restart_rows rows; 0: none) predicted from the left and 1 << (7 - pt),
+// the first column from above, the rest by predictor psv (1-7), each sample
+// (difference + prediction) mod 2^16; then (sample << pt) mod 256.
+int jpeg_undifference(int64_t* plane, int64_t pitch, int64_t width, int64_t height, int psv,
+                      int pt, int64_t restart_rows) {
+  if (psv < 1 || psv > 7 || pt < 0 || pt > 7 || width > pitch || restart_rows < 0)
+    return kBadArgument;
+  for (int64_t y = 0; y < height; ++y) {
+    int64_t* row = plane + y * pitch;
+    if (y == 0 || (restart_rows && y % restart_rows == 0)) {
+      int64_t ra = int64_t(1) << (7 - pt);
+      for (int64_t x = 0; x < width; ++x) ra = row[x] = (row[x] + ra) & 0xFFFF;
+      continue;
+    }
+    const int64_t* prev = row - pitch;
+    int64_t rb = prev[0];
+    int64_t ra = row[0] = (row[0] + rb) & 0xFFFF;
+    for (int64_t x = 1; x < width; ++x) {
+      const int64_t rc = rb;
+      rb = prev[x];
+      int64_t pred;
+      switch (psv) {
+        case 1: pred = ra; break;
+        case 2: pred = rb; break;
+        case 3: pred = rc; break;
+        case 4: pred = ra + rb - rc; break;
+        case 5: pred = ra + ((rb - rc) >> 1); break;
+        case 6: pred = rb + ((ra - rc) >> 1); break;
+        default: pred = (ra + rb) >> 1; break;
+      }
+      ra = row[x] = (row[x] + pred) & 0xFFFF;
+    }
+  }
+  for (int64_t y = 0; y < height; ++y)
+    for (int64_t x = 0; x < width; ++x) plane[y * pitch + x] = (plane[y * pitch + x] << pt) & 0xFF;
   return kOk;
 }
 

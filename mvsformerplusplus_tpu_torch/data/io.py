@@ -10,11 +10,14 @@ changes neither). `read_image` reads PNG, JPEG (data/jpeg.py: baseline,
 extended and progressive, gray, YCbCr, CMYK and YCCK), BMP (palette, 24-
 and 32-bit, RLE) or baseline TIFF (8- and 16-bit, strips or tiles,
 uncompressed, LZW, Deflate or PackBits), chosen by the file's signature,
-and converts to RGB as PIL's `convert("RGB")` does; `imread_rgb` reads the
-same files as OpenCV's `imread` (EXIF orientation applied, its own 16-bit,
-CMYK and alpha rules). Other files (WebP, JPEG 2000, OpenEXR, PNM, 12-bit,
-lossless, hierarchical or arithmetic-coded JPEG, ...) raise ValueError
-naming the format. `write_png` writes 8-bit gray,
+and converts to RGB as PIL's `convert("RGB")` does; so it reads PNM
+(data/pnm.py), GIF (data/gif.py), WebP (data/webp.py) and JPEG 2000
+(data/jpeg2000.py), and JPEG's arithmetic-coded and lossless processes.
+`imread_rgb` reads the same files as OpenCV's `imread` (EXIF orientation
+applied, its own 16-bit, CMYK, alpha, PNM, GIF and JPEG 2000 rules). Other
+files (OpenEXR, Radiance HDR, AVIF, 12-bit or hierarchical JPEG, ...), and
+the variants PIL or OpenCV refuse, raise ValueError naming the format.
+`write_png` writes 8-bit gray,
 gray+alpha, RGB or RGBA PNG with unfiltered rows, or every row
 Paeth-filtered (row_filter=4).
 
@@ -35,8 +38,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import native
-from .jpeg import decode_native as decode_jpeg
+from . import gif, jpeg2000, native, pnm, webp
+from .jpeg import decode_native as decode_jpeg, frame_header
 
 
 def read_pfm(filename) -> Tuple[np.ndarray, float]:
@@ -354,7 +357,8 @@ def read_png(filename, plain: bool = False):
 
 
 def read_image_u8(filename) -> np.ndarray:
-    """PNG, JPEG, BMP or TIFF file -> uint8 [H, W, 3], converted to RGB as
+    """PNG, JPEG, BMP, TIFF, PNM, GIF (its first frame), WebP (its first
+    frame) or JPEG 2000 file -> uint8 [H, W, 3], converted to RGB as
     PIL's convert("RGB") does: gray replicated (16-bit gray saturated at
     255), alpha dropped, palette looked up, CMYK by PIL's cmyk2rgb, 16-bit
     RGB its high bytes. No orientation tag is applied; a TIFF whose
@@ -364,7 +368,8 @@ def read_image_u8(filename) -> np.ndarray:
 
 def imread_rgb(filename) -> np.ndarray:
     """cv2.cvtColor(cv2.imread(filename), cv2.COLOR_BGR2RGB) for PNG, JPEG,
-    BMP and TIFF: uint8 [H, W, 3] as OpenCV's IMREAD_COLOR gives it, which
+    BMP, TIFF, PNM, GIF, WebP and JPEG 2000: uint8 [H, W, 3] as OpenCV's
+    IMREAD_COLOR gives it, which
     differs from read_image_u8 (PIL) in that
     - the EXIF orientation (JPEG APP1, PNG eXIf; TIFF's tag, where cv2 reads
       only 1-4) turns or flips the image;
@@ -372,7 +377,9 @@ def imread_rgb(filename) -> np.ndarray:
       257 and rounded (RGB TIFF), not saturated;
     - CMYK JPEG takes OpenCV's K - (255 - C) K / 256;
     - 8-bit TIFF goes through libtiff's RGBA reader: unassociated alpha is
-      multiplied in, (v a + 127) / 255.
+      multiplied in, (v a + 127) / 255;
+    - PNM, GIF and JPEG 2000 follow OpenCV's own rules (see data/pnm.py,
+      data/gif.py, data/jpeg2000.py); lossless gray JPEG OpenCV refuses.
     Gray is replicated, alpha otherwise dropped, a palette looked up; other
     formats raise ValueError naming the format."""
     return _read_rgb(filename, cv2_rules=True)
@@ -383,6 +390,8 @@ def _read_rgb(filename, cv2_rules: bool) -> np.ndarray:
     data = Path(filename).read_bytes()
     kind = _sniff(data[:16])
     if kind == "JPEG":
+        if cv2_rules and frame_header(data, str(filename)) == (0xC3, 1):
+            raise ValueError(f"{filename}: lossless grayscale JPEG, which OpenCV does not read")
         pixels = decode_jpeg(data, str(filename))
         if pixels.ndim == 2:
             pixels = np.repeat(pixels[..., None], 3, axis=2)
@@ -391,6 +400,14 @@ def _read_rgb(filename, cv2_rules: bool) -> np.ndarray:
         return _orient(pixels, _exif_orientation(_jpeg_exif(data))) if cv2_rules else pixels
     if kind == "BMP":
         return _decode_bmp(data, filename)
+    if kind in ("PNM", "PFM"):
+        return pnm.decode(data, filename, cv2_rules)
+    if kind == "GIF":
+        return gif.decode(data, filename, cv2_rules)
+    if kind == "WebP":
+        return webp.decode(data, filename)
+    if kind == "JPEG 2000":
+        return jpeg2000.decode(data, filename, cv2_rules)
     if kind == "TIFF":
         tiff = _decode_tiff(data, filename)
         if tiff.orientation > (4 if cv2_rules else 1):
@@ -399,8 +416,8 @@ def _read_rgb(filename, cv2_rules: bool) -> np.ndarray:
                                 else "PIL applies or not by the file's compression"))
         return _orient(_tiff_rgb(tiff, cv2_rules), tiff.orientation)
     if kind != "PNG":
-        raise ValueError(f"{filename}: {kind} file; only PNG, JPEG, BMP and TIFF images can "
-                         "be read")
+        raise ValueError(f"{filename}: {kind} file; only PNG, JPEG, BMP, TIFF, PNM, GIF, WebP "
+                         "and JPEG 2000 images can be read")
     pixels, ctype, depth, palette, exif = _decode_png(filename, data)
     if ctype == 3:
         rgb = _lookup(pixels[..., 0], palette)
@@ -705,7 +722,7 @@ def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
 
 
 def read_image(filename) -> np.ndarray:
-    """PNG, JPEG, BMP or TIFF file -> float32 [H, W, 3] in [0, 1]
+    """An image file read_image_u8 reads -> float32 [H, W, 3] in [0, 1]
     (read_image_u8 / 255)."""
     return np.asarray(read_image_u8(filename), np.float32) / 255.0
 

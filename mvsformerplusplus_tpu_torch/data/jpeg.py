@@ -28,21 +28,27 @@ csrc/host/jpeg.cpp) with the same integer arithmetic: the same pixels and
 the same bytes as `decode` and `encode`, which stay as their plain
 versions.
 
-`decode` takes 8-bit Huffman files, baseline, extended-sequential and
-progressive (SOF0, SOF1, SOF2): grayscale, three components at 4:4:4,
-4:2:2 or 4:2:0 (YCbCr, or RGB), or four (Adobe CMYK or YCCK, returned as
-PIL reads them: libjpeg's CMYK inverted), with or without restart
-intervals, of any size. A lossless, hierarchical, arithmetic-coded or
-12-bit file, or any other sampling, raises ValueError naming what it is.
-A progressive file must hold every scan: libjpeg's block smoothing of a
-partly refined image does not arise.
+`decode` takes 8-bit files of the baseline, extended-sequential,
+progressive and lossless Huffman processes (SOF0-SOF3) and the sequential
+and progressive arithmetic-coded ones (SOF9, SOF10: jdarith.c's decoder,
+one Python call per binary decision, with the DAC marker's conditioning):
+grayscale, three components at 4:4:4, 4:2:2 or 4:2:0 (YCbCr, or RGB), or
+four (Adobe CMYK or YCCK, returned as PIL reads them: libjpeg's CMYK
+inverted), with or without restart intervals, of any size. A lossless
+file (jdlhuff.c, jdlossls.c) decodes its Huffman-coded differences, undoes
+predictors 1-7 and the point transform, and goes through the same colour
+conversion, its chroma upsampled by replication as libjpeg's upsampler
+does without DCT scaling. A hierarchical, arithmetic-coded lossless or
+12-bit file, or any other sampling, raises ValueError naming what it is,
+as PIL refuses them. A progressive file must hold every scan: libjpeg's
+block smoothing of a partly refined image does not arise.
 """
 from __future__ import annotations
 
 import functools
 import struct
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -56,9 +62,8 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 _ZZ = ZIGZAG.tolist()
 
-_SOF_KIND = {0xC3: "lossless", 0xC5: "hierarchical (differential)",
+_SOF_KIND = {0xC5: "hierarchical (differential)",
              0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
-             0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
              0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
              0xCE: "arithmetic-coded hierarchical progressive",
              0xCF: "arithmetic-coded hierarchical lossless"}
@@ -308,6 +313,274 @@ def _decode_progressive_segment(w, blocks, tables, ss, se, ah, al, c):
                 eobrun -= 1
 
 
+# ------------------------------------------------- arithmetic decoding
+
+# Table D.3 of ITU-T T.81 as libjpeg-turbo's jaricom.c packs it: per state
+# Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; state
+# 113 is the fixed one-half estimate of sign and DC-refinement bits
+ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171)
+
+
+def _wrap16(v: int) -> int:
+    """v as JCOEF (int16) holds it."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+class _ArithDecoder:
+    """jdarith.c's arith_decode on one restart interval's destuffed bytes
+    (zeros past its end, as libjpeg supplies them after a marker)."""
+
+    def __init__(self, segment):
+        self.data = segment.tolist() if hasattr(segment, "tolist") else list(segment)
+        self.pos = self.c = self.a = 0
+        self.ct = -16
+
+    def decode(self, st, i: int) -> int:
+        """One binary decision with the statistics bin st[i] (updated)."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                c = (c << 8) | (self.data[self.pos] if self.pos < len(self.data) else 0)
+                self.pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_magnitude(d, stats, st: int, m: int, top: int) -> int:
+    """Figures F.23 and F.24: the magnitude category's further bits from
+    bin `top` on (m the first category bit, already 1), then the magnitude
+    bits, each 14 bins after the last category bin; returns |v| - 1."""
+    st = top
+    while d.decode(stats, st):
+        m <<= 1
+        if m == 0x8000:
+            raise _OutOfRange
+        st += 1
+    v = m
+    st += 14
+    m >>= 1
+    while m:
+        if d.decode(stats, st):
+            v |= m
+        m >>= 1
+    return v
+
+
+def _arith_dc(d, stats, ctx: int, cond) -> Tuple[int, int]:
+    """Figure F.19 (Decode_DC_DIFF): (the DC difference, the component's
+    next conditioning context) from context `ctx`; cond (L, U) of its
+    table."""
+    if d.decode(stats, ctx) == 0:
+        return 0, 0
+    sign = d.decode(stats, ctx + 1)
+    st = ctx + 2 + sign
+    if d.decode(stats, st):
+        v = _arith_magnitude(d, stats, st, 1, 20)
+        m = v.bit_length() and 1 << (v.bit_length() - 1)
+    else:
+        v = m = 0
+    low, high = cond
+    ctx = 0 if m < (1 << low) >> 1 else (12 + 4 * sign if m > (1 << high) >> 1 else 4 + 4 * sign)
+    return (-(v + 1) if sign else v + 1), ctx
+
+
+def _arith_ac_value(d, stats, fixed, st: int, k: int, kx: int) -> int:
+    """Figures F.21-F.24 for an AC coefficient at band k whose bins start at
+    st (k <= kx takes the low magnitude bins): its value."""
+    sign = d.decode(fixed, 0)
+    st += 2
+    if not d.decode(stats, st):
+        v = 0
+    elif not d.decode(stats, st):
+        v = 1
+    else:
+        v = _arith_magnitude(d, stats, st, 2, 189 if k <= kx else 217)
+    return -(v + 1) if sign else v + 1
+
+
+def _decode_arith_segment(segment, blocks, tables, cond, params, c) -> None:
+    """One restart interval of an arithmetic-coded scan (jdarith.c) into
+    the flat coefficient list `c`: blocks [(slot, flat offset), ...],
+    tables per slot its (DC, AC) conditioning table numbers, cond the DAC
+    marker's (L, U) per DC table and Kx per AC table, params (progressive,
+    Ss, Se, Ah, Al). Statistics, DC predictions and contexts start afresh.
+    A magnitude past 15 bits or coefficients past Se raise ValueError."""
+    progressive, ss, se, ah, al = params
+    d = _ArithDecoder(segment)
+    dc_stats = {t: bytearray(64) for t, _ in tables}
+    ac_stats = {t: bytearray(256) for _, t in tables}
+    fixed = bytearray([113])
+    last = [0] * len(tables)
+    ctx = [0] * len(tables)
+    dc_cond, ac_k = cond
+    p1 = 1 << al
+    for slot, base in blocks:
+        td, ta = tables[slot]
+        if not progressive or (ss == 0 and ah == 0):  # DC (sequential or first)
+            diff, ctx[slot] = _arith_dc(d, dc_stats[td], ctx[slot], dc_cond[td])
+            last[slot] = (last[slot] + diff) & 0xFFFF
+            c[base] = _wrap16(last[slot] << al)
+            if progressive:
+                continue
+            stats, k = ac_stats[ta], 0
+            while k < 63:
+                st = 3 * k
+                if d.decode(stats, st):
+                    break
+                while True:
+                    k += 1
+                    if d.decode(stats, st + 1):
+                        break
+                    st += 3
+                    if k >= 63:
+                        raise ValueError("JPEG: AC coefficients run past the end of a block")
+                c[base + _ZZ[k]] = _wrap16(_arith_ac_value(d, stats, fixed, st, k, ac_k[ta]))
+        elif ss == 0:  # DC refinement
+            if d.decode(fixed, 0):
+                c[base] |= p1
+        elif ah == 0:  # AC first
+            stats, k = ac_stats[ta], ss
+            while k <= se:
+                st = 3 * (k - 1)
+                if d.decode(stats, st):
+                    break
+                while d.decode(stats, st + 1) == 0:
+                    st += 3
+                    k += 1
+                    if k > se:
+                        raise ValueError("JPEG: AC coefficients run past the end of a block")
+                v = _arith_ac_value(d, stats, fixed, st, k, ac_k[ta])
+                c[base + _ZZ[k]] = _wrap16(v << al)
+                k += 1
+        else:  # AC refinement
+            stats = ac_stats[ta]
+            kex = se
+            while kex > 0 and not c[base + _ZZ[kex]]:
+                kex -= 1
+            k = ss
+            while k <= se:
+                st = 3 * (k - 1)
+                if k > kex and d.decode(stats, st):
+                    break
+                while True:
+                    i = base + _ZZ[k]
+                    if c[i]:
+                        if d.decode(stats, st + 2):
+                            c[i] = _wrap16(c[i] + (-p1 if c[i] < 0 else p1))
+                        break
+                    if d.decode(stats, st + 1):
+                        c[i] = -p1 if d.decode(fixed, 0) else p1
+                        break
+                    st += 3
+                    k += 1
+                    if k > se:
+                        raise ValueError("JPEG: AC coefficients run past the end of a block")
+                k += 1
+
+
+# ------------------------------------------------------------- lossless
+
+def _decode_lossless_segment(w, samples, tables, out) -> None:
+    """One restart interval of a lossless scan (jdlhuff.c): per sample
+    [(slot, flat offset), ...] its Huffman-coded difference (category 16
+    is 32768 with no value bits) into out[offset]; tables per slot the code
+    lookup of its DC table."""
+    p = 0
+    for ci, pos in samples:
+        ln, s = tables[ci][(w[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+        p += ln
+        if s == 16:
+            out[pos] = 32768
+        elif s:
+            if s > 16:
+                raise IndexError
+            out[pos] = _extend(((w[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s), s)
+            p += s
+        else:
+            out[pos] = 0
+
+
+def undifference(plane: np.ndarray, width: int, height: int, psv: int, pt: int,
+                 restart_rows: int) -> None:
+    """jdlossls.c in place on one component's [rows, pitch] plane of
+    differences (int64): the first row of the scan and of each restart
+    interval (every restart_rows rows, 0 for none) predicted from its left
+    neighbour and 1 << (7 - pt), the first column from above, the rest by
+    predictor psv (1-7), each sample (difference + prediction) mod 2^16;
+    then the point transform, (sample << pt) mod 256."""
+    rows = plane[:height, :width].tolist()
+    for y, row in enumerate(rows):
+        if y == 0 or (restart_rows and y % restart_rows == 0):
+            ra = 1 << (7 - pt)
+            for x in range(width):
+                ra = row[x] = (row[x] + ra) & 0xFFFF
+            continue
+        prev = rows[y - 1]
+        rb = prev[0]
+        ra = row[0] = (row[0] + rb) & 0xFFFF
+        for x in range(1, width):
+            rc, rb = rb, prev[x]
+            if psv == 1:
+                pred = ra
+            elif psv == 2:
+                pred = rb
+            elif psv == 3:
+                pred = rc
+            elif psv == 4:
+                pred = ra + rb - rc
+            elif psv == 5:
+                pred = ra + ((rb - rc) >> 1)
+            elif psv == 6:
+                pred = rb + ((ra - rc) >> 1)
+            else:
+                pred = (ra + rb) >> 1
+            ra = row[x] = (row[x] + pred) & 0xFFFF
+    plane[:height, :width] = (np.array(rows, np.int64).reshape(height, width) << pt) & 0xFF
+
+
 def _split_scan(data: bytes, pos: int):
     """Entropy-coded data from `pos` -> (destuffed segments between restart
     markers, position of the marker that ends the scan)."""
@@ -453,6 +726,19 @@ def _next_marker(data: bytes, pos: int, name: str):
     return marker, pos + 2, data[pos + 2:pos + n], pos + n
 
 
+def frame_header(data: bytes, name: str = "<bytes>") -> Tuple[int, int]:
+    """(SOFn marker, component count) of a JPEG's frame header."""
+    pos = 2
+    while True:
+        marker, _, body, pos = _next_marker(data, pos, name)
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            if len(body) < 6:
+                raise ValueError(f"{name}: truncated JPEG frame header")
+            return marker, body[5]
+        if marker in (0xD9, 0xDA):
+            raise ValueError(f"{name}: JPEG without a frame header")
+
+
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """JPEG bytes -> uint8 [H, W] (grayscale), [H, W, 3] (RGB) or [H, W, 4]
     (CMYK), as np.asarray(PIL.Image.open(f)) gives them."""
@@ -467,6 +753,16 @@ def decode_native(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
+    """_decode_markers, a marker segment too short for its fields raising
+    ValueError as other corrupt data do."""
+    try:
+        return _decode_markers(data, name, use_native)
+    except (struct.error, IndexError) as e:
+        raise ValueError(f"{name}: corrupt JPEG (a marker segment shorter than its fields)") \
+            from e
+
+
+def _decode_markers(data: bytes, name: str, use_native: bool) -> np.ndarray:
     qt: Dict[int, np.ndarray] = {}
     ht: Dict[Tuple[int, int], Tuple[bytes, bytes]] = {}
     frame = None
@@ -474,7 +770,9 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
     adobe_transform = None
     comps: List[dict] = []
     coefs = None
-    progressive = False
+    process = None
+    # the DAC marker's conditioning: (L, U) per DC table, Kx per AC table
+    cond = ([(0, 1)] * 4, [5] * 4)
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     pos = 2
@@ -505,16 +803,28 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
                 i += 17 + total
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
+        elif marker == 0xCC:
+            dc, ac = list(cond[0]), list(cond[1])
+            for i in range(0, len(body) - 1, 2):
+                tc, tb, v = body[i] >> 4, body[i] & 15, body[i + 1]
+                if tb > 3 or (tc and not 1 <= v <= 63) or (not tc and (v & 15) > (v >> 4)):
+                    raise ValueError(f"{name}: invalid JPEG arithmetic conditioning (DAC)")
+                if tc:
+                    ac[tb] = v
+                else:
+                    dc[tb] = (v & 15, v >> 4)
+            cond = (dc, ac)
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe_transform = body[11]
         elif marker in _SOF_KIND:
             raise ValueError(f"{name}: {_SOF_KIND[marker]} JPEG (SOF{marker - 0xC0}) is not "
-                             "supported; baseline, extended or progressive (SOF0/SOF1/SOF2) "
-                             "Huffman files only")
-        elif marker in (0xC0, 0xC1, 0xC2):
+                             "supported; baseline, extended, progressive or lossless Huffman "
+                             "(SOF0-SOF3) or arithmetic-coded (SOF9, SOF10) files only")
+        elif marker in _PROCESS:
             if frame is not None:
                 raise ValueError(f"{name}: JPEG with a second frame header")
-            progressive = marker == 0xC2
+            process = _PROCESS[marker]
+            unit = 1 if process.lossless else 8  # samples across a data unit
             precision, h, w, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"{name}: {precision}-bit JPEG is not supported (8-bit only)")
@@ -526,6 +836,8 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
                                  "marker is not supported")
             comps = [dict(id=body[6 + 3 * c], h=body[7 + 3 * c] >> 4, v=body[7 + 3 * c] & 15,
                           tq=body[8 + 3 * c]) for c in range(nc)]
+            if any(not 1 <= c["h"] <= 4 or not 1 <= c["v"] <= 4 for c in comps):
+                raise ValueError(f"{name}: invalid JPEG sampling factors (1-4 each)")
             hmax = max(c["h"] for c in comps)
             vmax = max(c["v"] for c in comps)
             ratios = {(hmax // c["h"], vmax // c["v"]) for c in comps}
@@ -536,27 +848,41 @@ def _decode(data: bytes, name: str, use_native: bool) -> np.ndarray:
                 kind = "CMYK/YCCK JPEG sampling" if nc == 4 else "JPEG chroma sampling"
                 raise ValueError(f"{name}: {kind} {samp} is not supported "
                                  "(4:4:4, 4:2:2 or 4:2:0 only)")
-            mcux = -(-w // (8 * hmax))
-            mcuy = -(-h // (8 * vmax))
+            mcux = -(-w // (unit * hmax))
+            mcuy = -(-h // (unit * vmax))
             offset = 0
             for c in comps:
                 c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
                 c["w"] = -(-w * c["h"] // hmax)
                 c["h_px"] = -(-h * c["v"] // vmax)
                 c["offset"] = offset
-                offset += c["bw"] * c["bh"] * 64
+                offset += c["bw"] * c["bh"] * unit * unit
             frame = (h, w, hmax, vmax, mcux, mcuy)
             coefs = np.zeros(offset, np.int64)
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError(f"{name}: JPEG scan before its frame header")
             pos = _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
-                               use_native, progressive)
+                               use_native, process, cond)
     if frame is None:
         raise ValueError(f"{name}: JPEG without a frame header")
     if use_native:
-        return _reconstruct_native(frame, comps, qt, coefs, adobe_transform, name)
-    return _reconstruct(frame, comps, qt, coefs, adobe_transform, name)
+        return _reconstruct_native(frame, comps, qt, coefs, adobe_transform, name,
+                                   process.lossless)
+    return _reconstruct(frame, comps, qt, coefs, adobe_transform, name, process.lossless)
+
+
+class _Process(NamedTuple):
+    progressive: bool
+    arithmetic: bool
+    lossless: bool
+
+
+# the frame markers decoded: baseline, extended, progressive and lossless
+# Huffman, sequential and progressive arithmetic
+_PROCESS = {0xC0: _Process(False, False, False), 0xC1: _Process(False, False, False),
+            0xC2: _Process(True, False, False), 0xC3: _Process(False, False, True),
+            0xC9: _Process(False, True, False), 0xCA: _Process(True, True, False)}
 
 
 def _scan_tables(ht, scan, ss, ah, progressive, name) -> list:
@@ -578,9 +904,11 @@ def _scan_tables(ht, scan, ss, ah, progressive, name) -> list:
 
 
 def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
-                 use_native, progressive=False) -> int:
-    """Decode one scan into `coefs` (natural order per block); returns the
-    position of the marker that ends it."""
+                 use_native, process, cond) -> int:
+    """Decode one scan into `coefs` (natural order per block; a lossless
+    file's samples, row-major per component); returns the position of the
+    marker that ends it."""
+    progressive, arithmetic, lossless = process
     h, w, hmax, vmax, mcux, mcuy = frame
     ns = body[0]
     by_id = {c["id"]: c for c in comps}
@@ -592,20 +920,33 @@ def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
         scan.append((by_id[cid], tdta >> 4, tdta & 15))
     ss, se, ahal = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
     ah, al = ahal >> 4, ahal & 15
-    if not progressive and (ss, se, ahal) != (0, 63, 0):
+    if lossless:
+        if not 1 <= ss <= 7 or se != 0 or ah != 0 or al > 7:
+            raise ValueError(f"{name}: invalid lossless JPEG scan parameters (predictor {ss}, "
+                             f"Se={se} Ah={ah} Pt={al})")
+    elif not progressive and (ss, se, ahal) != (0, 63, 0):
         raise ValueError(f"{name}: progressive JPEG scan parameters in a sequential file")
     if progressive and ((se != 0) if ss == 0 else (ss > se or se > 63 or ns != 1)
                         or (ah != 0 and al != ah - 1) or al > 13):
         raise ValueError(f"{name}: invalid progressive JPEG scan parameters (Ss={ss} Se={se} "
                          f"Ah={ah} Al={al}, {ns} components)")
-    tables = _scan_tables(ht, scan, ss, ah, progressive, name)
+    if lossless:
+        if any((0, td) not in ht for _, td, _ in scan):
+            raise ValueError(f"{name}: JPEG scan uses an undefined Huffman table")
+        tables = [(ht[(0, td)],) for _, td, _ in scan]
+        for (t,) in tables:
+            _check_codes(*t)
+    elif not arithmetic:
+        tables = _scan_tables(ht, scan, ss, ah, progressive, name)
+    unit = 1 if lossless else 64  # coefficients or samples in a data unit
     if ns == 1:
         c = scan[0][0]
-        bw, bh = -(-c["w"] // 8), -(-c["h_px"] // 8)
+        bw, bh = (c["w"], c["h_px"]) if lossless else (-(-c["w"] // 8), -(-c["h_px"] // 8))
         yy, xx = np.meshgrid(np.arange(bh), np.arange(bw), indexing="ij")
-        bases = (c["offset"] + (yy * c["bw"] + xx) * 64).reshape(-1)
+        bases = (c["offset"] + (yy * c["bw"] + xx) * unit).reshape(-1)
         slots = np.zeros_like(bases)
         per_mcu = 1
+        mcus_per_row = bw
     else:
         parts, slot = [], []
         my, mx = np.meshgrid(np.arange(mcuy), np.arange(mcux), indexing="ij")
@@ -613,16 +954,54 @@ def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
             for v in range(c["v"]):
                 for u in range(c["h"]):
                     by, bx = my * c["v"] + v, mx * c["h"] + u
-                    parts.append(c["offset"] + (by * c["bw"] + bx) * 64)
+                    parts.append(c["offset"] + (by * c["bw"] + bx) * unit)
                     slot.append(k)
         bases = np.stack(parts, axis=-1).reshape(-1)
         slots = np.tile(np.array(slot), mcuy * mcux)
         per_mcu = len(slot)
+        mcus_per_row = mcux
     segments, end = _split_scan(data, start + len(body))
     step = restart * per_mcu if restart else len(bases)
     if len(segments) < -(-len(bases) // step):
         raise ValueError(f"{name}: JPEG scan has fewer restart intervals than its blocks need")
     segments = segments[:-(-len(bases) // step)]
+    if lossless:
+        if restart % mcus_per_row:
+            raise ValueError(f"{name}: lossless JPEG restart interval of {restart} MCUs, not a "
+                             f"whole number of {mcus_per_row}-MCU rows")
+        _decode_lossless_scan(segments, bases, slots, step, [t[0] for t in tables], coefs, name,
+                              use_native)
+        for c, _, _ in scan:
+            rows = restart // mcus_per_row * (c["v"] if ns > 1 else 1)
+            plane = coefs[c["offset"]:c["offset"] + c["bw"] * c["bh"]].reshape(c["bh"], c["bw"])
+            if use_native:
+                native.jpeg_undifference(plane, c["w"], c["h_px"], ss, al, rows)
+            else:
+                undifference(plane, c["w"], c["h_px"], ss, al, rows)
+        return end
+    if arithmetic:
+        tables = [(td, ta) for _, td, ta in scan]
+        if any(td > 3 or ta > 3 for td, ta in tables):
+            raise ValueError(f"{name}: JPEG scan uses an undefined arithmetic conditioning table")
+        params = (progressive, ss, se, ah, al)
+        if use_native:
+            err = native.jpeg_decode_arith(segments, bases, slots, step, tables, cond, params,
+                                           coefs)
+            if err == native.AC_PAST_END:
+                raise ValueError("JPEG: AC coefficients run past the end of a block")
+            if err:
+                raise ValueError(f"{name}: corrupt arithmetic-coded JPEG data")
+            return end
+        blocks = list(zip(slots.tolist(), bases.tolist()))
+        c = coefs.tolist()
+        try:
+            for i, seg in enumerate(segments):
+                _decode_arith_segment(seg, blocks[i * step:(i + 1) * step], tables, cond, params,
+                                      c)
+        except _OutOfRange as e:
+            raise ValueError(f"{name}: corrupt arithmetic-coded JPEG data") from e
+        coefs[:] = c
+        return end
     if use_native:
         if progressive:
             err = native.jpeg_decode_progressive(
@@ -660,16 +1039,40 @@ def _decode_scan(data, start, body, frame, comps, ht, restart, coefs, name,
     return end
 
 
-def _reconstruct_native(frame, comps, qt, coefs, adobe_transform, name) -> np.ndarray:
+def _decode_lossless_scan(segments, bases, slots, step, tables, diffs, name, use_native):
+    """The Huffman-coded differences of a lossless scan into `diffs` at each
+    sample's flat offset (bases, in scan order), `tables` per slot its DC
+    table's (counts, symbols)."""
+    if use_native:
+        err = native.jpeg_decode_lossless(segments, bases, slots, step, tables, diffs)
+        if err:
+            raise ValueError(f"{name}: corrupt or truncated JPEG entropy-coded data")
+        return
+    lookups = [_code_lookup(*t) for t in tables]
+    samples = list(zip(slots.tolist(), bases.tolist()))
+    out = diffs.tolist()
+    try:
+        for i, seg in enumerate(segments):
+            _decode_lossless_segment(_windows(seg), samples[i * step:(i + 1) * step], lookups,
+                                     out)
+    except (TypeError, IndexError) as e:
+        raise ValueError(f"{name}: corrupt or truncated JPEG entropy-coded data") from e
+    diffs[:] = out
+
+
+def _reconstruct_native(frame, comps, qt, coefs, adobe_transform, name,
+                        lossless=False) -> np.ndarray:
     """_reconstruct in the host library."""
     h, w, hmax, vmax, _, _ = frame
-    for c in comps:
-        if c["tq"] not in qt:
-            raise ValueError(f"{name}: JPEG component uses an undefined quantization table")
+    if not lossless:
+        for c in comps:
+            if c["tq"] not in qt:
+                raise ValueError(f"{name}: JPEG component uses an undefined quantization table")
     comp = np.array([[c["offset"], c["bw"], c["bh"], c["w"], c["h_px"], hmax // c["h"],
-                      vmax // c["v"], 0] for c in comps], np.int64)
-    return native.jpeg_reconstruct(coefs, comp, np.stack([qt[c["tq"]] for c in comps]), h, w,
-                                   _colour_mode(comps, adobe_transform))
+                      vmax // c["v"], int(lossless)] for c in comps], np.int64)
+    qts = np.zeros((len(comps), 64), np.int64) if lossless else np.stack(
+        [qt[c["tq"]] for c in comps])
+    return native.jpeg_reconstruct(coefs, comp, qts, h, w, _colour_mode(comps, adobe_transform))
 
 
 def _colour_mode(comps, adobe_transform) -> int:
@@ -686,18 +1089,28 @@ def _colour_mode(comps, adobe_transform) -> int:
     return 2 if adobe_transform == 0 or ids == (ord("R"), ord("G"), ord("B")) else 1
 
 
-def _reconstruct(frame, comps, qt, coefs, adobe_transform, name) -> np.ndarray:
+def _reconstruct(frame, comps, qt, coefs, adobe_transform, name, lossless=False) -> np.ndarray:
+    """The components' planes (a lossy file's dequantised IDCT, a lossless
+    file's samples), upsampled (fancy; a lossless file's by replication, as
+    libjpeg's upsampler without DCT scaling does), cropped and converted as
+    _colour_mode says."""
     h, w, hmax, vmax, _, _ = frame
     planes = []
     for c in comps:
+        ratio = (hmax // c["h"], vmax // c["v"])
+        n = c["bw"] * c["bh"]
+        if lossless:
+            plane = coefs[c["offset"]:c["offset"] + n].reshape(c["bh"], c["bw"])[
+                :c["h_px"], :c["w"]].astype(np.uint8)
+            plane = np.repeat(np.repeat(plane, ratio[1], axis=0), ratio[0], axis=1)
+            planes.append(plane[:h, :w])
+            continue
         if c["tq"] not in qt:
             raise ValueError(f"{name}: JPEG component uses an undefined quantization table")
-        n = c["bw"] * c["bh"]
         blk = coefs[c["offset"]:c["offset"] + n * 64].reshape(n, 64) * qt[c["tq"]]
         px = idct_islow(blk.reshape(n, 8, 8))
         plane = px.reshape(c["bh"], c["bw"], 8, 8).transpose(0, 2, 1, 3).reshape(
             c["bh"] * 8, c["bw"] * 8)[:c["h_px"], :c["w"]]
-        ratio = (hmax // c["h"], vmax // c["v"])
         if ratio == (2, 1):
             plane = upsample_h2v1(plane)
         elif ratio == (2, 2):

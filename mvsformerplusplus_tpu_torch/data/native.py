@@ -1,9 +1,12 @@
 """The port's host library (csrc/host/*.cpp) and its ctypes bindings: the
 data pipeline's fused float passes (fastio: the counterpart of
 mvsformerplusplus_tpu/data/native.py, under the same names), the JPEG
-decoder's entropy decoding (baseline and progressive) and reconstruction,
-the JPEG encoder's per-pixel and per-symbol work, the PNG row unfilter, the
-TIFF LZW and PackBits and BMP RLE decoders (formats.cpp), OpenCV's share of
+decoder's entropy decoding (baseline, progressive, arithmetic-coded and
+lossless) and reconstruction, the JPEG encoder's per-pixel and per-symbol
+work, the PNG row unfilter, the TIFF LZW and PackBits, BMP RLE and GIF LZW
+decoders (formats.cpp), the WebP decoders (webp.cpp: VP8L, VP8 with libwebp's
+upsampling, the ALPH plane), the JPEG 2000 tile decoder (jpeg2000.cpp:
+tiers 2 and 1, the wavelets, RCT / ICT), OpenCV's share of
 the data path (resample.cpp: the area, nearest and linear resizes and the
 8-bit hue shift, each equal bit for bit to its numpy version in
 data/image.py), and OpenCV's ORB and Hamming kNN matcher with the
@@ -48,7 +51,9 @@ calls: Dict[str, int] = {k: 0 for k in (
     "crop_normalize", "u8_to_f32", "stage_pyramid", "jpeg_decode_scan", "jpeg_reconstruct",
     "jpeg_encode", "png_unfilter", "jpeg_decode_progressive", "resize_area", "resize_nearest",
     "resize_linear", "hue_shift", "rgb_to_gray", "resize_linear_exact", "blur", "fast9", "orb",
-    "hamming_knn2", "bmp_rle", "tiff_lzw", "tiff_packbits")}
+    "hamming_knn2", "bmp_rle", "tiff_lzw", "tiff_packbits", "gif_lzw", "jpeg_decode_arith",
+    "jpeg_decode_lossless", "jpeg_undifference", "webp_lossless", "webp_lossy", "webp_alpha",
+    "j2k_tile")}
 plain_calls: Dict[str, int] = {k: 0 for k in (
     "jpeg_decode", "jpeg_encode", "png_unfilter", "resize_area", "resize_nearest", "resize_linear",
     "hue_shift", "resize_area_enlarge", "rgb_to_gray", "resize_linear_exact")}
@@ -60,6 +65,7 @@ _count_lock = threading.Lock()
 _f32p = ctypes.POINTER(ctypes.c_float)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_u32p = ctypes.POINTER(ctypes.c_uint32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i, _i64 = ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -94,6 +100,16 @@ _SIGNATURES = {
     "tiff_lzw_encode": (_i64, [_u8p, _i64, _u8p]),
     "packbits_decode": (_i64, [_u8p, _i64, _u8p, _i64]),
     "bmp_rle_decode": (_i, [_u8p, _i64, _i64, _i64, _i, _u8p]),
+    "gif_lzw_decode": (_i64, [_u8p, _i64, _i, _u8p, _i64]),
+    "jpeg_decode_arith": (_i, [_u8p, _i64p, _i64p, _i64, _i64p, _i32p, _i64, _i64, _i, _i32p,
+                               _i32p, _i32p, _i32p, _i, _i, _i, _i, _i, _i64p, _i64]),
+    "jpeg_decode_lossless": (_i, [_u8p, _i64p, _i64p, _i64, _i64p, _i32p, _i64, _i64, _i, _u8p,
+                                  _u8p, _i32p, _i64p, _i64]),
+    "jpeg_undifference": (_i, [_i64p, _i64, _i64, _i64, _i, _i, _i64]),
+    "webp_lossless_decode": (_i, [_u8p, _i64, _i, _i, _u32p]),
+    "webp_lossy_decode": (_i, [_u8p, _i64, _i, _i, _u8p]),
+    "webp_alpha_decode": (_i, [_u8p, _i64, _i, _i, _u8p]),
+    "j2k_decode_tile": (_i, [_i32p, _i64, _u8p, _i64, _u8p, _i64, _i32p, _i64]),
 }
 
 
@@ -264,12 +280,82 @@ def jpeg_decode_progressive(segments, bases: np.ndarray, slots: np.ndarray, step
                                        _ptr(coefs, _i64p), coefs.size)
 
 
+def _segments(segments):
+    """Restart intervals -> (their bytes joined, starts, lengths)."""
+    data = np.concatenate([np.asarray(s, np.uint8) for s in segments] + [np.zeros(1, np.uint8)])
+    lens = np.array([len(s) for s in segments], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    return data, starts, lens
+
+
+def jpeg_decode_arith(segments, bases: np.ndarray, slots: np.ndarray, step: int, tables, cond,
+                      params, coefs: np.ndarray) -> int:
+    """Decode one arithmetic-coded scan into coefs, laid out as
+    jpeg_decode_scan's arguments with `tables` per slot its (DC, AC)
+    conditioning table numbers, cond the DAC marker's ((L, U) per DC table,
+    Kx per AC table) and params (progressive, Ss, Se, Ah, Al). Returns 0 or
+    an error code."""
+    data, starts, lens = _segments(segments)
+    tbl = np.ascontiguousarray(np.array(tables, np.int32).reshape(-1))
+    dc_l = np.array([lu[0] for lu in cond[0]], np.int32)
+    dc_u = np.array([lu[1] for lu in cond[0]], np.int32)
+    ac_k = np.array(cond[1], np.int32)
+    bases = np.ascontiguousarray(bases, np.int64)
+    slots = np.ascontiguousarray(slots, np.int32)
+    lib = load()
+    count(calls, "jpeg_decode_arith")
+    return lib.jpeg_decode_arith(_ptr(data, _u8p), _ptr(starts, _i64p), _ptr(lens, _i64p),
+                                 len(segments), _ptr(bases, _i64p), _ptr(slots, _i32p),
+                                 len(bases), step, len(tables), _ptr(tbl, _i32p),
+                                 _ptr(dc_l, _i32p), _ptr(dc_u, _i32p), _ptr(ac_k, _i32p),
+                                 *map(int, params), _ptr(coefs, _i64p), coefs.size)
+
+
+def jpeg_decode_lossless(segments, bases: np.ndarray, slots: np.ndarray, step: int, tables,
+                         diffs: np.ndarray) -> int:
+    """Decode one lossless scan's Huffman-coded differences into diffs
+    (int64) at each sample's flat offset, laid out as
+    jpeg_decode_progressive's arguments (one DC table per slot). Returns 0
+    or an error code."""
+    data, starts, lens = _segments(segments)
+    n = len(tables)
+    counts = np.zeros((n, 16), np.uint8)
+    symbols = np.zeros((n, MAX_SYMBOLS), np.uint8)
+    nsyms = np.zeros(n, np.int32)
+    for s, (cnt, sym) in enumerate(tables):
+        counts[s] = np.frombuffer(cnt, np.uint8)
+        symbols[s, :len(sym)] = np.frombuffer(sym, np.uint8)
+        nsyms[s] = len(sym)
+    bases = np.ascontiguousarray(bases, np.int64)
+    slots = np.ascontiguousarray(slots, np.int32)
+    lib = load()
+    count(calls, "jpeg_decode_lossless")
+    return lib.jpeg_decode_lossless(_ptr(data, _u8p), _ptr(starts, _i64p), _ptr(lens, _i64p),
+                                    len(segments), _ptr(bases, _i64p), _ptr(slots, _i32p),
+                                    len(bases), step, n, _ptr(counts, _u8p), _ptr(symbols, _u8p),
+                                    _ptr(nsyms, _i32p), _ptr(diffs, _i64p), diffs.size)
+
+
+def jpeg_undifference(plane: np.ndarray, width: int, height: int, psv: int, pt: int,
+                      restart_rows: int) -> None:
+    """jpeg.undifference in the host library, in place on a C-contiguous
+    int64 [rows, pitch] view."""
+    if plane.dtype != np.int64 or not plane.flags.c_contiguous:
+        raise ValueError("jpeg_undifference takes a C-contiguous int64 plane")
+    lib = load()
+    count(calls, "jpeg_undifference")
+    if lib.jpeg_undifference(_ptr(plane, _i64p), plane.shape[1], width, height, psv, pt,
+                             restart_rows):
+        raise RuntimeError("jpeg_undifference: bad arguments")
+
+
 def jpeg_reconstruct(coefs: np.ndarray, comp: np.ndarray, qt: np.ndarray, h: int, w: int,
                      mode: int) -> np.ndarray:
     """Coefficients -> uint8 [h, w] (mode 0, one component), [h, w, 3]
     (mode 1 YCbCr -> RGB, mode 2 the planes as they are) or [h, w, 4] (PIL's
     inverted CMYK from mode 3 CMYK, mode 4 YCCK); comp [C, 8] per component
-    (offset, bw, bh, width, height, x ratio, y ratio, 0), qt [C, 64] its
+    (offset, bw, bh, width, height, x ratio, y ratio, 1 where it holds a
+    lossless file's [bh, bw] samples instead of blocks), qt [C, 64] its
     dequantisation factors in natural order."""
     comp = np.ascontiguousarray(comp, np.int64)
     qt = np.ascontiguousarray(qt, np.int64)
@@ -362,6 +448,109 @@ def bmp_rle_decode(data: bytes, width: int, height: int, bits: int, name="BMP") 
     if lib.bmp_rle_decode(_ptr(src, _u8p), len(src), width, height, bits, _ptr(out, _u8p)):
         raise ValueError(f"{name}: corrupt RLE{bits} data")
     return out
+
+
+def gif_lzw_decode(data: bytes, min_code: int, size: int, name="GIF") -> np.ndarray:
+    """One GIF frame's LZW data (its sub-blocks joined) -> its first `size`
+    palette indices (uint8); ValueError for a corrupt stream or one that
+    ends before `size` indices."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(size, np.uint8)
+    lib = load()
+    count(calls, "gif_lzw")
+    n = lib.gif_lzw_decode(_ptr(src, _u8p), len(src), min_code, _ptr(out, _u8p), size)
+    if n < 0:
+        raise ValueError(f"{name}: corrupt LZW data")
+    if n < size:
+        raise ValueError(f"{name}: truncated GIF image data ({n} of {size} pixels)")
+    return out
+
+
+# PIL refuses to open an image of more pixels (DecompressionBombError at
+# twice Image.MAX_IMAGE_PIXELS), and so do the readers of the formats added
+# with this library's GIF, WebP and JPEG 2000 decoders (and PNM)
+MAX_PIXELS = 2 * 89478485
+
+
+def check_pixels(width: int, height: int, name) -> None:
+    """ValueError where an image is larger than PIL opens."""
+    if width * height > MAX_PIXELS:
+        raise ValueError(f"{name}: image of {width} x {height} pixels, more than PIL opens "
+                         f"({MAX_PIXELS})")
+
+
+_WEBP_ERRORS = {1: "corrupt", 2: "truncated", 3: "unsupported (not a key frame, or a "
+                "VP8L version other than 0)"}
+
+
+def _webp_check(err: int, what: str, name) -> None:
+    if err == BAD_ARGUMENT:
+        raise RuntimeError(f"{what}: bad arguments")
+    if err:
+        raise ValueError(f"{name}: {_WEBP_ERRORS.get(err, 'corrupt')} WebP {what} data")
+
+
+def webp_lossless_decode(data: bytes, width: int, height: int, name="WebP") -> np.ndarray:
+    """A VP8L bitstream (its header included) -> uint8 [height, width, 4]
+    RGBA; ValueError for corrupt or truncated data."""
+    src = np.frombuffer(data, np.uint8)
+    argb = np.empty((height, width), np.uint32)
+    lib = load()
+    count(calls, "webp_lossless")
+    _webp_check(lib.webp_lossless_decode(_ptr(src, _u8p), len(src), width, height,
+                                         _ptr(argb, _u32p)), "lossless", name)
+    return np.ascontiguousarray(argb.view(np.uint8).reshape(height, width, 4)[..., [2, 1, 0, 3]])
+
+
+def webp_lossy_decode(data: bytes, width: int, height: int, name="WebP") -> np.ndarray:
+    """A VP8 key frame (from its frame tag) -> uint8 [height, width, 3] RGB."""
+    src = np.frombuffer(data, np.uint8)
+    rgb = np.empty((height, width, 3), np.uint8)
+    lib = load()
+    count(calls, "webp_lossy")
+    _webp_check(lib.webp_lossy_decode(_ptr(src, _u8p), len(src), width, height, _ptr(rgb, _u8p)),
+                "lossy", name)
+    return rgb
+
+
+def webp_alpha_decode(data: bytes, width: int, height: int, name="WebP") -> np.ndarray:
+    """An ALPH chunk's payload -> uint8 [height, width] alpha."""
+    src = np.frombuffer(data, np.uint8)
+    alpha = np.empty((height, width), np.uint8)
+    lib = load()
+    count(calls, "webp_alpha")
+    _webp_check(lib.webp_alpha_decode(_ptr(src, _u8p), len(src), width, height,
+                                      _ptr(alpha, _u8p)), "alpha", name)
+    return alpha
+
+
+_J2K_ERRORS = {1: "corrupt", 2: "truncated", 3: "unsupported"}
+
+
+def j2k_decode_tile(params: np.ndarray, data: bytes, headers, shapes, name="JPEG 2000"):
+    """One JPEG 2000 tile (csrc/host/jpeg2000.cpp j2k_decode_tile; params
+    as it lays them out, data its tile-part bodies joined, headers its PPT
+    or PPM packet headers or None) -> per component an int32 [h, w] plane
+    of the tile-component's samples."""
+    params = np.ascontiguousarray(params, np.int32)
+    src = np.frombuffer(data + b"\0", np.uint8)
+    hdr = np.frombuffer((headers or b"") + b"\0", np.uint8)
+    total = sum(h * w for h, w in shapes)
+    out = np.zeros(max(total, 1), np.int32)
+    lib = load()
+    count(calls, "j2k_tile")
+    err = lib.j2k_decode_tile(_ptr(params, _i32p), len(params), _ptr(src, _u8p), len(data),
+                              _ptr(hdr, _u8p), len(headers) if headers is not None else -1,
+                              _ptr(out, _i32p), total)
+    if err == BAD_ARGUMENT:
+        raise RuntimeError("j2k_decode_tile: bad arguments")
+    if err:
+        raise ValueError(f"{name}: {_J2K_ERRORS.get(err, 'corrupt')} JPEG 2000 tile data")
+    planes, at = [], 0
+    for h, w in shapes:
+        planes.append(out[at:at + h * w].reshape(h, w))
+        at += h * w
+    return planes
 
 
 # ---------------------------------------------------------------- resample

@@ -18,9 +18,14 @@ is instruction-bound, its time set by the element count. Design: sample-major,
 one thread per (sample, 16-byte channel vector), C a template parameter,
 16-byte loads of each corner and 16-byte stores or vector atomics (see each
 source's note). `variant` picks the vector kernels or the scalar ones (any
-C, any alignment, still by hand and 32-bit indexed) from the dtype, C and
-the pointer's alignment; each wrapper counts its launches per variant
-(`.launches_vec`, `.launches_scalar`) and in all (`.launches`).
+C, any alignment, 32-bit indexed within a batch: the forward below 16
+channels a thread per sample with C a template parameter, its outputs
+staged for 16-byte stores; else, and in the backward, a block's samples'
+corners worked out once into shared memory, then the block's [samples x C]
+tile swept channel-fastest, so reads coalesce) from the dtype, C and the
+pointer's alignment; each wrapper counts
+its launches per variant (`.launches_vec`, `.launches_scalar`) and in all
+(`.launches`).
 """
 from __future__ import annotations
 
@@ -84,6 +89,10 @@ def warp_bilinear_bwd_plain(g: Tensor, coords: Tensor, src_shape) -> Tensor:
 VEC_CHANNELS = {torch.bfloat16: (8, 16, 32, 64), torch.float32: (4, 8, 16, 32, 64)}
 
 
+# samples per block of the scalar kernels (SCALAR_TILE, csrc/warp_corners.cuh)
+SCALAR_TILE = 256
+
+
 def variant(t: Tensor, c: int) -> str:
     """'vec' where the vector kernels take t (the warp's source, or the
     backward's cotangent) at C = c channels: c built for t's dtype and t
@@ -105,7 +114,7 @@ def _launch_args(t: Tensor, coords: Tensor, h: int, w: int, c: int):
     if coords.data_ptr() % 8:
         coords = coords.clone()
     nsamp = coords.numel() // (2 * t.shape[0])
-    if max(nsamp, h * w) * c >= 2 ** 31:
+    if max(nsamp, h * w, SCALAR_TILE) * c >= 2 ** 31:
         raise ValueError(f"warp kernels index in 32 bits: {nsamp} samples or {h} x {w} pixels "
                          f"of {c} channels is too many")
     return coords, nsamp

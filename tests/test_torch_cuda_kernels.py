@@ -311,6 +311,21 @@ def test_warp_misaligned_source_takes_the_scalar_kernel(dev, dtype, c):
     assert _check_warp(src, coords) == "vec"
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [2, 5, 6, 12, 15, 17, 24, 48])
+def test_warp_scalar_widths_match_plain(dev, dtype, c):
+    """Channel counts outside VEC_CHANNELS run the scalar variant (below 16
+    channels its thread-per-sample kernel, from 17 on its channel-fastest
+    one): samples past every border, 3 x 5 x 17 x 29 of them (no multiple of
+    its 256-sample tile), aligned and off a 16-byte boundary."""
+    b, h, w = 3, 21, 37
+    g = torch.Generator(device=dev).manual_seed(400 + c)
+    coords = _border_coords(g, b, 5, 17, 29, h, w)
+    src = torch.randn(b, h, w, c, generator=g, device=dev).to(dtype)
+    assert _check_warp(src, coords) == "scalar"
+    assert _check_warp(_misaligned(src), coords) == "scalar"
+
+
 def _fails(got, want):
     rtol, atol = tolerance(want)
     return not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -345,6 +360,20 @@ def test_warp_bwd_kernel_matches_plain(dev, c):
     cot[:, :, 5] = 0.0  # whole zero vectors skip the atomics
     kind = _check_warp_bwd(cot, coords, (b, h, w, c))
     assert kind == ("scalar" if c in (1, 3) else "vec")
+
+
+@pytest.mark.parametrize("c", [2, 5, 6, 12, 24, 48])
+def test_warp_bwd_scalar_widths_match_plain(dev, c):
+    """The backward's scalar kernel at channel counts outside VEC_CHANNELS
+    (float4 reductions where 4 divides C, float2 where 2 does, else
+    scalar), aligned and off a 16-byte boundary, zero vectors included."""
+    b, h, w, d = 3, 21, 37, 5
+    g = torch.Generator(device=dev).manual_seed(500 + c)
+    coords = _border_coords(g, b, d, 17, 29, h, w)
+    cot = torch.randn(b, d, 17, 29, c, generator=g, device=dev)
+    cot[:, :, 5] = 0.0
+    assert _check_warp_bwd(cot, coords, (b, h, w, c)) == "scalar"
+    assert _check_warp_bwd(_misaligned(cot), coords, (b, h, w, c)) == "scalar"
 
 
 @pytest.mark.parametrize("c", [8, 64])

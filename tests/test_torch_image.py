@@ -124,14 +124,15 @@ def test_write_png_reads_back_in_pil(tmp_path, channels):
 
 def test_unsupported_files_name_their_format(tmp_path):
     """Progressive, 16-bit and interlaced files are read (tests/
-    test_torch_image_formats.py); what stays refused names itself: an
-    arithmetic-coded progressive JPEG, a 16-bit palette PNG and an unknown
-    interlace method, none of them a file PIL reads."""
+    test_torch_image_formats.py), arithmetic-coded progressive JPEG too
+    since (tests/test_torch_image_formats_more.py); what stays refused names
+    itself: a hierarchical progressive JPEG, a 16-bit palette PNG and an
+    unknown interlace method, none of them a file PIL reads."""
     arr = _texture(np.random.RandomState(0), 16, 16, 3)
     Image.fromarray(arr).save(tmp_path / "x.jpg", quality=90, progressive=True)
     data = (tmp_path / "x.jpg").read_bytes()
     i = data.index(b"\xff\xc2")
-    (tmp_path / "x.jpg").write_bytes(data[:i + 1] + b"\xca" + data[i + 2:])  # SOF10
+    (tmp_path / "x.jpg").write_bytes(data[:i + 1] + b"\xc6" + data[i + 2:])  # SOF6
     with pytest.raises(ValueError, match="progressive JPEG"):
         read_image(tmp_path / "x.jpg")
 

@@ -14,9 +14,11 @@ JPEG against np.asarray(PIL.Image.open(f)). Tolerance: none.
 - PNG at bit depths 1, 2 and 4 (gray and palette) and 16 (gray, gray +
   alpha, RGB, RGBA), with and without tRNS, and Adam7-interlaced files at
   every depth, assembled here with struct and zlib;
-- what PIL refuses or the port does not read (lossless and
-  arithmetic-coded JPEG, WebP, PNM, GIF) raises ValueError naming it (BMP
-  and TIFF are read since, tests/test_torch_imread.py);
+- what PIL refuses (hierarchical, arithmetic-coded lossless and 12-bit
+  JPEG, PAM, a GIF without an image, a WebP inter frame, JPEG 2000
+  precincts OpenJPEG rejects) raises ValueError naming it (BMP and TIFF
+  are read since, tests/test_torch_imread.py; lossless and arithmetic-
+  coded JPEG, WebP, PNM, GIF and JPEG 2000, tests/test_torch_image_formats_more.py);
 - the committed fixtures of chip_smoke.py's host_codec phase
   (tests/data/) decode natively and by numpy to the PIL pixels stored
   beside them.
@@ -278,23 +280,47 @@ def test_png_written_by_pil_at_16_bits_and_interlaced(tmp_path):
 
 # ---------------------------------------------------------- still refused
 
+def _refused_by_pil(path) -> bool:
+    try:
+        Image.open(path).load()
+    except Exception:
+        return True
+    return False
+
+
 def test_what_the_port_does_not_read_names_its_format(tmp_path):
+    """What PIL refuses raises naming it: hierarchical, arithmetic-coded
+    lossless and 12-bit JPEG; a PNM of the PAM kind; a GIF with no image; a
+    WebP frame that is no key frame; JPEG 2000 with precincts OpenJPEG
+    rejects. (Lossless and arithmetic-coded JPEG, WebP, PNM, GIF and JPEG
+    2000 files PIL reads are read since, tests/test_torch_image_formats_more.py.)"""
     img = _texture(0, 16, 16)
     base = _pil_jpeg(img, quality=90)
-    for sof, kind in ((0xC3, "lossless"), (0xC9, "arithmetic-coded"),
-                      (0xC5, "hierarchical")):
+    for sof, kind in ((0xCB, "arithmetic-coded lossless"), (0xC5, "hierarchical")):
         i = base.index(b"\xff\xc0")
         (tmp_path / "x.jpg").write_bytes(base[:i + 1] + bytes([sof]) + base[i + 2:])
+        assert _refused_by_pil(tmp_path / "x.jpg")
         with pytest.raises(ValueError, match=kind):
             read_image(tmp_path / "x.jpg")
     i = base.index(b"\xff\xc0")
     (tmp_path / "x.jpg").write_bytes(base[:i + 4] + b"\x0c" + base[i + 5:])
     with pytest.raises(ValueError, match="12-bit JPEG"):
         read_image(tmp_path / "x.jpg")
-    for fmt, ext in (("WebP", "webp"), ("PNM", "ppm"), ("GIF", "gif")):
-        Image.fromarray(img).save(tmp_path / f"x.{ext}")
+    webp = io.BytesIO()
+    Image.fromarray(img).save(webp, "WEBP", quality=80)
+    inter = bytearray(webp.getvalue())
+    inter[inter.index(b"VP8 ") + 8] |= 1  # an inter frame
+    j2k = io.BytesIO()  # 16 x 16 precincts over 6 resolutions reach exponent 0
+    Image.fromarray(_texture(0, 37, 53)).save(j2k, "JPEG2000", precinct_size=(16, 16))
+    files = {"PNM": b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n"
+                    + bytes(6),
+             "GIF": b"GIF89a" + struct.pack("<HHBBB", 16, 16, 0x80, 0, 0) + bytes(6) + b"\x3b",
+             "WebP": bytes(inter), "JPEG 2000": j2k.getvalue()}
+    for fmt, data in files.items():
+        (tmp_path / "x.img").write_bytes(data)
+        assert _refused_by_pil(tmp_path / "x.img"), fmt
         with pytest.raises(ValueError, match=fmt):
-            read_image(tmp_path / f"x.{ext}")
+            read_image(tmp_path / "x.img")
 
 
 # ---------------------------------------------------------------- fixtures

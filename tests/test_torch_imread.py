@@ -15,6 +15,7 @@ read_image_u8, imread_rgb) against PIL and OpenCV. Tolerance: none.
 - what neither reads, or the port does not, raises ValueError naming the
   format.
 """
+import io
 import struct
 import zlib
 
@@ -397,14 +398,30 @@ def test_gray_jpeg_equals_cv2(tmp_path):
 
 # -------------------------------------------------------------- refused
 
+def _webp_inter_frame(img) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", quality=80)
+    data = bytearray(buf.getvalue())
+    data[data.index(b"VP8 ") + 8] |= 1  # the frame tag's inter-frame bit
+    return bytes(data)
+
+
 def _refused_files(tmp_path):
+    """WebP, JPEG 2000, PNM and GIF are read since
+    (tests/test_torch_image_formats_more.py): their entries are variants
+    PIL and cv2 refuse (or cv2 misreads), which the port refuses naming
+    the format."""
     img = _texture(16, 16, 16)
     pil = lambda fmt, **kw: (lambda p: Image.fromarray(img).save(p, fmt, **kw))  # noqa: E731
     return {
-        "WebP": ("x.webp", pil("WEBP")),
-        "JPEG 2000": ("x.jp2", pil("JPEG2000")),
-        "PNM": ("x.ppm", pil("PPM")),
-        "GIF": ("x.gif", pil("GIF")),
+        "WebP": ("x.webp", lambda p: p.write_bytes(_webp_inter_frame(img))),
+        "JPEG 2000": ("x.jp2", lambda p: Image.fromarray(_texture(16, 37, 53)).save(
+            p, "JPEG2000", precinct_size=(16, 16))),  # 6 resolutions reach exponent 0
+        "PNM": ("x.pam", lambda p: p.write_bytes(
+            b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 4\nMAXVAL 255\nTUPLTYPE RGB_ALPHA\nENDHDR\n"
+            + bytes(8))),
+        "GIF": ("x.gif", lambda p: p.write_bytes(
+            b"GIF89a" + struct.pack("<HHBBB", 16, 16, 0x80, 0, 0) + bytes(6) + b"\x3b")),
         "Radiance HDR": ("x.hdr", lambda p: cv2.imwrite(str(p), img.astype(np.float32) / 255)),
         "OpenEXR": ("x.exr", lambda p: p.write_bytes(b"\x76\x2f\x31\x01" + bytes(64))),
         "16-bit BMP": ("x.bmp", lambda p: p.write_bytes(_bmp(4, 4, 16, bytes(32)))),

@@ -86,12 +86,22 @@ def test_read_image_takes_jpeg_as_pil_converts_it(tmp_path):
                                       np.asarray(want, np.float32) / 255.0)
 
 
+def _pil_refuses(data: bytes) -> bool:
+    try:
+        Image.open(io.BytesIO(data)).load()
+    except Exception:
+        return True
+    return False
+
+
 @pytest.mark.parametrize("kind,kw", [("progressive", dict(progressive=True)),
                                      ("CMYK", dict(mode="CMYK"))])
 def test_unsupported_jpeg_raises_naming_it(kind, kw):
-    """Progressive and CMYK files are read (tests/test_torch_image_formats.py);
-    their variants the decoder still refuses name themselves: arithmetic-
-    coded progressive (SOF10) and a CMYK file sampled 4:1:1."""
+    """Progressive and CMYK files are read (tests/test_torch_image_formats.py),
+    arithmetic-coded progressive ones too since (SOF10,
+    tests/test_torch_image_formats_more.py); the variants the decoder still
+    refuses, as PIL does, name themselves: hierarchical progressive (SOF6)
+    and a CMYK file sampled 4:1:1."""
     img = Image.fromarray(_texture(0, 24, 24))
     if kw.pop("mode", None):
         img = img.convert("CMYK")
@@ -100,7 +110,8 @@ def test_unsupported_jpeg_raises_naming_it(kind, kw):
     data = bytearray(buf.getvalue())
     sof = data.index(b"\xff\xc2" if kind == "progressive" else b"\xff\xc0")
     if kind == "progressive":
-        data[sof + 1] = 0xCA
+        data[sof + 1] = 0xC6
+        assert _pil_refuses(bytes(data))
     else:
         data[sof + 11] = 0x41  # the first component 4 x 1
     for decode in (jpeg.decode, jpeg.decode_native):

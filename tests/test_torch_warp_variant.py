@@ -30,6 +30,16 @@ def test_other_widths_take_the_scalar_kernels(dtype, c):
     assert warp.variant(torch.zeros(2, 5, 7, c, dtype=dtype), c) == "scalar"
 
 
+@pytest.mark.parametrize("dtype,c", [(BF16, 3), (BF16, 12), (BF16, 24), (BF16, 48),
+                                     (F32, 2), (F32, 6), (F32, 12), (F32, 24), (F32, 48)])
+def test_widths_between_the_vector_widths_take_the_scalar_kernels(dtype, c):
+    """A user config's feature widths that no vector case builds (12, 24, 48;
+    f32 2 and 6; bf16 3) take the scalar kernels, aligned or not."""
+    t = torch.zeros(2, 5, 7, c, dtype=dtype)
+    assert t.data_ptr() % 16 == 0
+    assert warp.variant(t, c) == "scalar"
+
+
 @pytest.mark.parametrize("dtype,c", [(BF16, 8), (BF16, 64), (F32, 4), (F32, 64)])
 def test_a_view_off_a_16_byte_boundary_takes_the_scalar_kernels(dtype, c):
     """A contiguous view whose storage offset breaks 16-byte alignment is
@@ -64,6 +74,17 @@ def test_vec_channels_are_the_widths_the_kernels_build():
         "float": list(warp.VEC_CHANNELS[F32])}
 
 
+def test_the_narrow_kernel_is_built_for_every_width_below_narrow_c():
+    """The scalar forward's thread-per-sample kernel takes C as a template
+    parameter: csrc/warp.cu instantiates it once for each C below NARROW_C,
+    so every narrow width reaches it and none falls to the channel-fastest
+    kernel."""
+    text = (CSRC / "warp.cu").read_text()
+    narrow = int(re.search(r"constexpr int NARROW_C = (\d+);", text).group(1))
+    built = [int(c) for c in re.findall(r"^\s*WARP_NARROW_CASE\((\d+)\)\s*$", text, flags=re.M)]
+    assert built == list(range(1, narrow))
+
+
 @pytest.mark.parametrize("aligned", [True, False])
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(aligned):
     """On CPU tensors both wrappers return their plain version's result,
@@ -82,3 +103,20 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(aligned):
     assert torch.equal(warp.warp_bilinear_bwd(cot, coords, (b, h, w, c)),
                        warp.warp_bilinear_bwd_plain(cot, coords, (b, h, w, c)))
     assert [getattr(fn, a) for fn, a in counters] == before
+
+
+def test_scalar_tile_is_the_kernels_tile():
+    """SCALAR_TILE, which bounds the 32-bit element index of a tile in the
+    wrapper's check, is the scalar kernels' samples per block
+    (csrc/warp_corners.cuh)."""
+    text = (CSRC / "warp_corners.cuh").read_text()
+    assert re.search(r"constexpr int SCALAR_TILE = (\d+);", text).group(1) == str(
+        warp.SCALAR_TILE)
+
+
+def test_the_32_bit_check_covers_a_whole_tile():
+    """A channel count so wide that one tile's elements overflow 32 bits
+    raises before any launch, whatever the sample count."""
+    src = torch.zeros(1, 1, 1, 1)
+    with pytest.raises(ValueError, match="32 bits"):
+        warp._launch_args(src, torch.zeros(1, 1, 2), 1, 1, 2 ** 31 // warp.SCALAR_TILE)
