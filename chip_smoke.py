@@ -22,18 +22,17 @@ Phases, one JSON line each:
               the same check against a planted fault, which it must reject by
               2x or more, each checked call launching that kernel alone (by
               the counters; a warp case records its variant); the f32 flash
-              kernels (the forward on 3xTF32, the backward SIMT) and the f32
-              SIMT conv, which only the fp32 model runs, at the tiny
-              flagship's shapes, and the warps' scalar kernels, which no
-              path runs, on misaligned train-shape views and at channel
-              counts outside the vector widths (bf16 12 and 3, f32 6); the
-              kernel's, the plain version's and one library call's device
-              time (CUDA events around calls queued behind a device spin, so
-              the host's time to issue them does not count; `wall_ms`: the
-              kernel's calls without the spin, host included) and the least
-              time the card could take, and for the conv and the f32 flash
-              forward cases the SIMT kernel's time on the same input
-              (`simt_ms`);
+              kernels and the f32 conv (3xTF32 on the tf32 tensor cores),
+              which only the fp32 model runs, at the fp32 train step's
+              shapes (train_step_fp32), the tiny flagship's and, for the
+              backward, head dims 64 and 128, and the warps' scalar
+              kernels, which no path runs, on misaligned train-shape views
+              and at channel counts outside the vector widths (bf16 12 and
+              3, f32 6); the kernel's, the plain version's and one library
+              call's device time (CUDA events around calls queued behind a
+              device spin, so the host's time to issue them does not count;
+              `wall_ms`: the kernel's calls without the spin, host
+              included) and the least time the card could take;
   reference   the port on the card (kernels, fp32) against the port on the
               CPU (plain versions, fp32) on a small flagship: the eval
               forward, then one train step (per-stage losses, every
@@ -59,6 +58,14 @@ Phases, one JSON line each:
               gradient norm and which parameters moved;
   profile_train  the same trace over three more train steps (the same
               check of the flash, conv and warp kernels' names);
+  train_step_fp32
+              the same train step with the model in fp32, as train/cli.py
+              builds it under arch.bf16 false (build_model(dtype=float32,
+              train=True)), TF32 off for torch's own matmuls and convs:
+              launches per step, ms per step, peak memory and a traced
+              window's idle share; the loss finite, the f32 flash forward
+              and backward and the tf32 conv and dx launched, and no bf16
+              flash or conv kernel;
   train_cli   the training command line (python -m mvsformerplusplus_tpu_torch.train)
               in process with configs/mvsformerplusplus.json at full width on
               a geometric DTU-format scan it writes (5 views x 7 lights at
@@ -190,17 +197,20 @@ Phases, one JSON line each:
               input-pipeline bench (tools/bench_input_pipeline.py) at its
               defaults for 20 steps at train_step's measured ms per step,
               and its JSON, its resizes and hue shifts all native.
-Each path (main_path, train_step, train_cli, eval_cli, casmvs_main_path,
-casmvs_train_step, variants_main_path, variants_train_step, casmvs_cli,
-blended_cli, dist_step, train_cli_mesh, eval_queue, e2e_casmvs, e2e_flagship,
-dino_match, scene_convert) is run with every kernel's launch count set to 0 just before it
-and read just after, the counts of the processes it starts reported back by
-each (ops.cuda.launch_counts) and added; the kernel phase's cases must add
-up to those counts (so the f32 flash and conv kernels and the warps' scalar
-kernels, whose cases belong to no path, must not launch there, nor any flash
-kernel on a CasMVSNet path). The host library's and the numpy codec's call
-counts are set to 0 with them: on eval_cli, casmvs_cli, blended_cli,
-eval_queue and e2e_protocol every JPEG decode must be a native one (as many
+Each path (main_path, train_step, train_step_fp32, train_cli, eval_cli,
+casmvs_main_path, casmvs_train_step, variants_main_path, variants_train_step,
+casmvs_cli, blended_cli, dist_step, train_cli_mesh, eval_queue, e2e_casmvs,
+e2e_flagship, dino_match, scene_convert) is run with every kernel's launch
+count set to 0 just before it and read just after, the counts of the
+processes it starts reported back by each (ops.cuda.launch_counts) and
+added; the kernel phase's cases must add
+up to those counts (so the f32 flash and conv kernels, whose cases belong to
+train_step_fp32, dino_match and scene_convert, and the warps' scalar
+kernels, whose cases belong to no path, must not launch on the bf16 paths,
+nor any flash kernel on a CasMVSNet path). The host library's and the numpy
+codec's call counts are set to 0 with them: on eval_cli, casmvs_cli,
+blended_cli, eval_queue and e2e_protocol every JPEG decode must be a native
+one (as many
 as DecodedImages' misses and fusion's reads) and no plain version (the
 numpy codec, data/image.py's resizes and hue shift) may run.
 Then the eval CLI's metric line, the {"kernels": [...]} line and, last,
@@ -354,6 +364,9 @@ def nbytes(*ts) -> int:
 # FMT smoothing conv.
 
 TRAIN = dict(b=2, v=5, h=512, w=640, dfull=192)
+# the train_step_fp32 phase: one step of the same flagship in fp32 (runs of
+# the train crop's shapes per step)
+FP32_STEP = {"train_step_fp32": 1}
 # the casmvs_train_step phase: CasMVSNet at its config's micro-batch at 512 rows
 CAS_TRAIN = dict(b=4, v=5, h=512, w=640, dfull=192)
 TRAIN_NDEPTHS = (32, 16, 8, 4)
@@ -656,8 +669,9 @@ def warp_cases():
     """The four stage warps (source views batched) at each shape config
     (twice per train step where whole stages are rematerialised);
     the train crop's stage 3 is the TPU's narrow-row banded_warp_rows shape,
-    the 512 x 768 crop's stage 3 the depth-folded blend's (row 12); then
-    fusion's samples (fusion_warp_cases)."""
+    the 512 x 768 crop's stage 3 the depth-folded blend's (row 12); the
+    fp32 train step's, its sources f32; then fusion's samples
+    (fusion_warp_cases)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     for cfg in shape_configs():
         imgs, cams, dv = _config_batch(cfg.bhw, cfg.seed)
@@ -668,6 +682,10 @@ def warp_cases():
             src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
             yield (f"{cfg.name}_stage{stage}", _times(cfg.runs, replays), (src, coords),
                    warp_tpu_rows(stage, nd, c, ww, cfg.views < 4 or cfg.parts > 1))
+    for stage, nd, c, hh, ww, coords, nsrc in _train640_stages((1, 2, 3, 4)):
+        src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda")  # the fp32 step's
+        yield f"train640_fp32_stage{stage}", dict(FP32_STEP), (src, coords), warp_tpu_rows(
+            stage, nd, c, ww)
     yield from fusion_warp_cases()
 
 
@@ -749,7 +767,9 @@ def warp_fault(kernel, src, coords):
 
 def warp_bwd_cases():
     """The image gradient at the four stages of each train crop: the f32
-    cotangent of the warped volume [8, D, H, W, C]. The TPU computes it with
+    cotangent of the warped volume [8, D, H, W, C], whatever the model's
+    dtype (so the train crop's cases are the fp32 step's too). The TPU
+    computes it with
     the banded transposes (rows 6 and 7) at every stage; row 11, the
     y-grouped blend's VJP, is its transpose where the pallas mode ran rows
     10 and 12, and no model path reaches it. Under view or depth sharding
@@ -770,7 +790,8 @@ def warp_bwd_cases():
                 rows = (7,) if ww % 128 == 0 and ww >= 384 else (6,)
             if c <= 16 and ww % 128 == 0:
                 rows += (11,)  # the transpose of the pallas mode's blend there
-            yield (f"{cfg.name}_stage{stage}", _times(cfg.runs, 1), (g, coords, (nsrc, hh, ww, c)),
+            runs = _plus(cfg.runs, FP32_STEP) if cfg.name == "train640" else cfg.runs
+            yield (f"{cfg.name}_stage{stage}", _times(runs, 1), (g, coords, (nsrc, hh, ww, c)),
                    rows)
 
 
@@ -866,14 +887,26 @@ F32_PADDED = (("dh24", (10, 321, 2, 24)), ("dh32", (2, 333, 3, 32)))
 
 
 def flash_f32_cases():
-    """The f32 forward at the dino_match path's shape (the fp32 ViT-B on 35
-    x 46 patches and the class token, 12 blocks per image, 2 images), at the
+    """The f32 forward at the fp32 train step's shapes (the frozen ViT-B's
+    12 blocks on the 10 views, no lse; the CTA's 6 blocks and their 6
+    replays, with lse), at the dino_match path's (the fp32 ViT-B on 35 x 46
+    patches and the class token, 12 blocks per image, 2 images), at the
     scene_convert path's (34 x 46 patches, 2 x 12 per match call:
     SCENE_DINO_RUNS), and at shapes no path runs: the tiny flagship's (the
     fp32 model of the reference phases), head dims 24 and 32, and q and k at
     std 3 (logits about 9x wider than at std 1, where fp32 logits lose the
     most)."""
+    from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
+
     gen = torch.Generator(device="cuda").manual_seed(7)
+    n_vit, n_cta = _tokens(TRAIN["h"], TRAIN["w"])
+    q, k, v = (torch.randn(TRAIN["b"] * TRAIN["v"], n_vit, 12, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    yield "train640_vit", _times(FP32_STEP, 12), (q, k, v, 64 ** -0.5, False), (2,)
+    q, k, v = (torch.randn(TRAIN["b"], n_cta, 4, 16, generator=gen, device="cuda")
+               for _ in range(3))
+    yield ("train640_cta", _times(FP32_STEP, 12),
+           (q, k, v, entropy_inv_scale(16, n_cta, 12185), True), (2,))
     n = (DINO_MATCH["hw"][0] // 14) * (DINO_MATCH["hw"][1] // 14) + 1
     q, k, v = (torch.randn(1, n, 12, 64, generator=gen, device="cuda") for _ in range(3))
     yield "dino_match_vit", {"dino_match": 2 * DINO_MATCH["blocks"]}, (q, k, v, 64 ** -0.5,
@@ -891,14 +924,6 @@ def flash_f32_cases():
     q, k = (3 * torch.randn(2, 500, 3, 64, generator=gen, device="cuda") for _ in range(2))
     v = torch.randn(2, 500, 3, 64, generator=gen, device="cuda")
     yield "std3", {}, (q, k, v, 64 ** -0.5, True), (2,)
-
-
-def flash_simt(kernel, q, k, v, scale, lse):
-    """The f32 forward's SIMT kernel (the only one before the 3xTF32
-    kernel) on the same values."""
-    from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd_f32_simt
-
-    return lambda: flash_attention_fwd_f32_simt(q, k, v, scale, lse)
 
 
 def flash_tolerance(q, k, v, scale, lse, want):
@@ -956,18 +981,25 @@ def flash_bwd_fault(kernel, q, k, v, dout, lse, delta, scale):
 
 
 def flash_bwd_f32_cases():
-    """The f32 SIMT backward at the tiny flagship's two flash shapes (the
-    CTA's, which the fp32 model of reference_train runs, and the ViT's) and
-    at head dims 24 and 32 (F32_PADDED); no path runs it."""
+    """The fused 3xTF32 backward at the fp32 train step's CTA (6 a step, q
+    and k at std 1.5 as flash_bwd_cases draws them), then at shapes no path
+    runs: the tiny flagship's two flash shapes (the CTA's, which the fp32
+    model of reference_train runs, and the ViT's), head dims 24 and 32
+    (F32_PADDED), and head dims 64 and 128."""
+    from mvsformerplusplus_tpu_torch.ops.attention import entropy_inv_scale
     from mvsformerplusplus_tpu_torch.ops.cuda.flash_attention import (attention_delta,
                                                                       flash_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(8)
+    n = _tokens(TRAIN["h"], TRAIN["w"])[1]
+    yield ("train640_cta", _times(FP32_STEP, 6),
+           _bwd_args(gen, (TRAIN["b"], n, 4, 16), entropy_inv_scale(16, n, 12185), torch.float32),
+           (8,))
     for part, (b, n, h, dh), scale in zip(("vit", "cta"), (TINY_VIT, TINY_CTA), _tiny_scales()):
         q, k, v, dout = (torch.randn(b, n, h, dh, generator=gen, device="cuda") for _ in range(4))
         out, lse = flash_attention_plain(q, k, v, scale, return_lse=True)
         yield f"tiny_{part}", {}, (q, k, v, dout, lse, attention_delta(out, dout), scale), (8,)
-    for name, shape in F32_PADDED:
+    for name, shape in F32_PADDED + tuple((f"dh{dh}", (2, 1000, 3, dh)) for dh in (64, 128)):
         yield name, {}, _bwd_args(gen, shape, shape[3] ** -0.5, torch.float32), (8,)
 
 
@@ -1057,9 +1089,15 @@ IN_FPN_CONV = [(2, 128, 160, 3, 7, 8), (2, 128, 160, 8, 5, 8), (2, 64, 80, 16, 3
 
 
 def conv_f32_cases():
-    """The SIMT kernel at the tiny flagship's conv shapes and at the IN
-    FPN's; no path runs it (the fp32 models of the reference phases do)."""
+    """The tf32 kernel at the fp32 train step's 38 convs, then at shapes no
+    path runs: the tiny flagship's convs and the IN FPN's (the fp32 models
+    of the reference phases)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
+    b, h, w = TRAIN["b"], TRAIN["h"], TRAIN["w"]
+    for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b, "flagship"):
+        x = torch.randn(bb, h // div, w // div, ci, generator=gen, device="cuda")
+        kern = torch.randn(k, k, ci, co, generator=gen, device="cuda") * (k * k * ci) ** -0.5
+        yield f"train640_{conv}", _times(FP32_STEP, count), (x, kern), (3,)
     for model, (b, h, w, ci, k, co) in _f32_convs():
         x = torch.randn(b, h, w, ci, generator=gen, device="cuda")
         kern = torch.randn(k, k, ci, co, generator=gen, device="cuda") * (k * k * ci) ** -0.5
@@ -1098,23 +1136,22 @@ def conv_dx_cases():
 
 
 def conv_dx_f32_cases():
-    """The SIMT kernel's dx at the tiny flagship's convs whose input needs a
-    gradient (not the 7x7 on the images, not a visibility net's first conv),
-    and at the IN FPN's; no path runs it."""
+    """The tf32 kernel's dx at the fp32 train step's 33 (conv_dx_cases'
+    convs), then at the tiny flagship's convs whose input needs a gradient
+    (not the 7x7 on the images, not a visibility net's first conv) and at
+    the IN FPN's, which no path runs."""
     gen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, w = TRAIN["b"], TRAIN["h"], TRAIN["w"]
+    for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b, "flagship"):
+        g = torch.randn(bb, h // div, w // div, co, generator=gen, device="cuda")
+        kern = torch.randn(k, k, ci, co, generator=gen, device="cuda") * (k * k * co) ** -0.5
+        yield f"train640_{conv}", _times(FP32_STEP, count), (g, kern), (9,)
     for model, (b, h, w, ci, k, co) in _f32_convs():
         if k == 7 or ci == 1:
             continue
         g = torch.randn(b, h, w, co, generator=gen, device="cuda")
         kern = torch.randn(k, k, ci, co, generator=gen, device="cuda") * (k * k * co) ** -0.5
         yield f"{model}_{k}x{k}_{ci}to{co}_{h}x{w}", {}, (g, kern), (9,)
-
-
-def conv_simt(kernel, x, kern):
-    """The conv's SIMT kernel (the only one before the tensor-core kernel)
-    on the same values: a copy of x off a 16-byte boundary takes it."""
-    xm = misaligned(x)
-    return lambda: kernel(xm, kern)
 
 
 def conv_dx_fault(kernel, g, kern):
@@ -1265,10 +1302,8 @@ def _tuple(x):
 
 def kernel_table():
     """name -> (source, TPU kernel it replaces, kernel, plain, cases, fault,
-    library, bound, tolerance, earlier): `tolerance(*args, want)` gives the
-    element-wise tolerance of each output, or None for ops.cuda.tolerance;
-    `earlier(kernel, *args)`, where given, a call of the kernel the path ran
-    before this one on the same values, timed beside it (`simt_ms`)."""
+    library, bound, tolerance): `tolerance(*args, want)` gives the
+    element-wise tolerance of each output, or None for ops.cuda.tolerance."""
     from mvsformerplusplus_tpu_torch.ops.cuda import conv2d, flash_attention as fa, warp
 
     pallas = "mvsformerplusplus_tpu/ops/pallas/"
@@ -1277,55 +1312,49 @@ def kernel_table():
                           f"{pallas}warp_band.py:511; {pallas}warp_blend.py:132; "
                           f"{pallas}warp_blend.py:153",
                           warp.warp_bilinear, warp.warp_bilinear_plain, warp_cases, warp_fault,
-                          warp_library, warp_bound, None, None),
+                          warp_library, warp_bound, None),
         "warp_bilinear_bwd": ("csrc/warp_bwd.cu",
                               f"{pallas}warp_band.py:231; {pallas}warp_band.py:478; "
                               f"{pallas}warp_blend.py:217",
                               warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
                               warp_bwd_cases, warp_bwd_fault, warp_bwd_library, warp_bwd_bound,
-                              None, None),
+                              None),
         "warp_bilinear_scalar": ("csrc/warp.cu", f"{pallas}warp_band.py:395",
                                  warp.warp_bilinear, warp.warp_bilinear_plain, warp_scalar_cases,
-                                 warp_fault, warp_library, warp_bound, None, None),
+                                 warp_fault, warp_library, warp_bound, None),
         "warp_bilinear_bwd_scalar": ("csrc/warp_bwd.cu", f"{pallas}warp_band.py:231",
                                      warp.warp_bilinear_bwd, warp.warp_bilinear_bwd_plain,
                                      warp_bwd_scalar_cases, warp_bwd_fault, warp_bwd_library,
-                                     warp_bwd_bound, None, None),
+                                     warp_bwd_bound, None),
         "flash_attention_fwd": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
                                 fa.flash_attention_fwd, fa.flash_attention_plain, flash_cases,
-                                flash_fault, flash_library, flash_bound, flash_tolerance, None),
+                                flash_fault, flash_library, flash_bound, flash_tolerance),
         "flash_attention_fwd_f32": ("csrc/flash_attention.cu", f"{pallas}flash_attention.py:131",
                                     fa.flash_attention_fwd, fa.flash_attention_plain,
                                     flash_f32_cases, flash_fault, flash_library, flash_bound,
-                                    None, flash_simt),
+                                    None),
         "flash_attention_bwd": ("csrc/flash_attention_bwd.cu", f"{pallas}flash_attention.py:263",
                                 fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
                                 flash_bwd_cases, flash_bwd_fault, flash_bwd_library,
-                                _flash_bwd_bound(5), flash_bwd_tolerance, None),
-        "flash_attention_bwd_dkv_f32": ("csrc/flash_attention_bwd.cu",
-                                        f"{pallas}flash_attention.py:263",
-                                        fa.flash_attention_bwd_dkv,
-                                        fa.flash_attention_bwd_dkv_plain, flash_bwd_f32_cases,
-                                        flash_bwd_fault, flash_bwd_library, _flash_bwd_bound(4),
-                                        None, None),
-        "flash_attention_bwd_dq_f32": ("csrc/flash_attention_bwd.cu",
-                                       f"{pallas}flash_attention.py:263",
-                                       fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain,
-                                       flash_bwd_f32_cases, flash_bwd_fault, flash_bwd_library,
-                                       _flash_bwd_bound(3), None, None),
+                                _flash_bwd_bound(5), flash_bwd_tolerance),
+        "flash_attention_bwd_f32": ("csrc/flash_attention_bwd.cu",
+                                    f"{pallas}flash_attention.py:263",
+                                    fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
+                                    flash_bwd_f32_cases, flash_bwd_fault, flash_bwd_library,
+                                    _flash_bwd_bound(5), None),
         "conv2d_same": ("csrc/conv2d.cu", f"{pallas}conv2d.py:176",
                         conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_cases, conv_fault,
-                        conv_library, conv_bound, None, conv_simt),
+                        conv_library, conv_bound, None),
         "conv2d_same_dx": ("csrc/conv2d.cu", f"{pallas}conv2d.py:224",
                            conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, conv_dx_cases,
-                           conv_dx_fault, conv_dx_library, conv_dx_bound, None, conv_simt),
+                           conv_dx_fault, conv_dx_library, conv_dx_bound, None),
         "conv2d_same_f32": ("csrc/conv2d.cu", f"{pallas}conv2d.py:176",
                             conv2d.conv2d_same, conv2d.conv2d_same_plain, conv_f32_cases,
-                            conv_fault, conv_library, conv_bound, None, None),
+                            conv_fault, conv_library, conv_bound, None),
         "conv2d_same_dx_f32": ("csrc/conv2d.cu", f"{pallas}conv2d.py:224",
                                conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain,
                                conv_dx_f32_cases, conv_dx_fault, conv_dx_library, conv_dx_bound,
-                               None, None),
+                               None),
     }
 
 
@@ -1342,12 +1371,11 @@ def launch_counters():
             "flash_attention_fwd": (fa.flash_attention_fwd, "launches_mma"),
             "flash_attention_fwd_f32": (fa.flash_attention_fwd, "launches_f32"),
             "flash_attention_bwd": (fa.flash_attention_bwd, "launches_mma"),
-            "flash_attention_bwd_dkv_f32": (fa.flash_attention_bwd_dkv, "launches"),
-            "flash_attention_bwd_dq_f32": (fa.flash_attention_bwd_dq, "launches"),
+            "flash_attention_bwd_f32": (fa.flash_attention_bwd, "launches_f32"),
             "conv2d_same": (conv2d.conv2d_same, "launches_mma"),
             "conv2d_same_dx": (conv2d.conv2d_same_dx, "launches_mma"),
-            "conv2d_same_f32": (conv2d.conv2d_same, "launches_simt"),
-            "conv2d_same_dx_f32": (conv2d.conv2d_same_dx, "launches_simt")}
+            "conv2d_same_f32": (conv2d.conv2d_same, "launches_tf32"),
+            "conv2d_same_dx_f32": (conv2d.conv2d_same_dx, "launches_tf32")}
 
 
 def zero_counts(counters) -> None:
@@ -1395,13 +1423,13 @@ def read_counts(counters) -> dict:
 
 
 # the kernels only the fp32 model launches (the f32 flash kernels, the conv's
-# SIMT one), and the warps' scalar kernels: no model path may launch them
-# (the dino_match and scene_convert paths' fp32 ViT runs the f32 flash
-# forward, checked there)
-F32_ONLY = ("flash_attention_fwd_f32", "flash_attention_bwd_dkv_f32", "flash_attention_bwd_dq_f32")
-CONV_SIMT = ("conv2d_same_f32", "conv2d_same_dx_f32")
+# tf32 one), and the warps' scalar kernels: no bf16 model path may launch
+# them (the fp32 paths, train_step_fp32, dino_match and scene_convert, check
+# their own)
+F32_ONLY = ("flash_attention_fwd_f32", "flash_attention_bwd_f32")
+CONV_TF32 = ("conv2d_same_f32", "conv2d_same_dx_f32")
 WARP_SCALAR = ("warp_bilinear_scalar", "warp_bilinear_bwd_scalar")
-OFF_PATH = F32_ONLY + CONV_SIMT + WARP_SCALAR
+OFF_PATH = F32_ONLY + CONV_TF32 + WARP_SCALAR
 
 
 def err_over_tol(got, want, tol=None) -> float:
@@ -1422,7 +1450,7 @@ def err_over_tol(got, want, tol=None) -> float:
     return ratio
 
 
-# each kernel's (source, TPU kernel, library, earlier, kernel-phase rows)
+# each kernel's (source, TPU kernel, library, kernel-phase rows)
 KERNEL_ROWS: dict = {}
 
 
@@ -1430,7 +1458,7 @@ def kernel_summary(name) -> dict:
     """A kernel's entry of the kernels line from its kernel-phase rows, each
     case's time x its launches per path run; built again after the paths
     ran, as scene_convert counts its case's launches in its own run."""
-    src, replaces, library, earlier, rows = KERNEL_ROWS[name]
+    src, replaces, library, rows = KERNEL_ROWS[name]
     paths = sorted({p for r in rows for p in r["launches_by_path"]})
 
     def total(key, path=None):
@@ -1445,7 +1473,6 @@ def kernel_summary(name) -> dict:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{k: total(k) for k in ("ms", "plain_ms", "bound_ms")},
         "library_ms": total("library_ms") if library is not None else None,
-        **({"simt_ms": total("simt_ms")} if earlier is not None else {}),
         "bound_by": max(rows, key=lambda r: r["bound_ms"] * sum(
             r["launches_by_path"].values()))["bound_by"],
         "times": ("summed over the runs of the paths it serves (a forward, a train step, "
@@ -1457,8 +1484,7 @@ def kernel_summary(name) -> dict:
                       if p in r["launches_by_path"]} for p in paths},
         "by_path": {p: {k: (total(k, p) if library is not None or k != "library_ms"
                             else None)
-                        for k in ("ms", "plain_ms", "bound_ms", "library_ms")
-                        + (("simt_ms",) if earlier is not None else ())}
+                        for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
                     for p in paths},
     }
 
@@ -1473,8 +1499,8 @@ def run_kernel_phase(counters):
     eval forward, one train step, the CLI's whole run): the case's time x
     its launches there."""
     results, all_rows = {}, []
-    for name, (src, replaces, kernel, plain, cases, fault, library, bound, tolerance,
-               earlier) in kernel_table().items():
+    for name, (src, replaces, kernel, plain, cases, fault, library, bound,
+               tolerance) in kernel_table().items():
         rows = []
         for case, launches, args, tpu_rows in cases():
             want = plain(*args)
@@ -1501,8 +1527,6 @@ def run_kernel_phase(counters):
             row["wall_ms"] = time_ms(lambda: kernel(*args))
             row["plain_ms"] = device_ms(lambda: plain(*args), iters=2)
             row["library_ms"] = device_ms(library(*args)) if library is not None else None
-            if earlier is not None:
-                row["simt_ms"] = device_ms(earlier(kernel, *args))
             emit(row)
             if launched != [name]:
                 raise SystemExit(f"{name}[{case}] launched {launched}, not {name} alone")
@@ -1516,7 +1540,7 @@ def run_kernel_phase(counters):
             del args
             torch.cuda.empty_cache()
         all_rows += rows
-        KERNEL_ROWS[name] = (src, replaces, library, earlier, rows)
+        KERNEL_ROWS[name] = (src, replaces, library, rows)
         results[name] = kernel_summary(name)
     emit(tpu_row_summary(all_rows))
     return results
@@ -1687,8 +1711,8 @@ def run_reference_train_phase(family="flagship"):
 
 
 def run_variant_modules_phase():
-    """FPNEncoder(norm="IN") at the flagship's widths (IN_FPN: the conv
-    kernel's fp32 SIMT variant) and a CostRegNet2D (torch's 3D convs) in
+    """FPNEncoder(norm="IN") at the flagship's widths (IN_FPN: the conv's
+    tf32 kernel) and a CostRegNet2D (torch's 3D convs) in
     train mode, fp32, on the card against the CPU: the outputs, and the
     gradients of every parameter and of the volume under a seeded random
     cotangent, each within 1e-3 of its tensor's largest entry + 1e-6 (the
@@ -1771,7 +1795,7 @@ def path_kernels_launched(launches, spec) -> bool:
 
 def none_launched(launches, kernels) -> bool:
     """No kernel of `kernels` launched in a path's run: with F32_ONLY, every
-    flash launch went through the tensor-core kernels; with CONV_SIMT, every
+    flash launch went through the bf16 tensor-core kernels; with CONV_TF32, every
     conv and conv-dx launch; with WARP_SCALAR, every warp and warp-backward
     launch through the vector ones (that those did launch is checked by
     every_*kernel_launched)."""
@@ -1804,7 +1828,7 @@ def run_main_path(counters, family="flagship", iters=3):
             "confidence_in_0_1": bool(((conf >= 0) & (conf <= 1 + 1e-5)).all()),
             "every_forward_kernel_launched": all(launches[k] > 0 for k in spec["forward"]),
             "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-            "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+            "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
             "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
             "absent_kernels_not_launched": none_launched(launches, spec["absent"]),
         }
@@ -1859,20 +1883,34 @@ class SeededLoader:
             self.mark(self.steps)
 
 
-def run_train_step(counters, family="flagship", iters=6):
+# the fp32 step's kernels: by counter (launched, and the bf16 tensor-core
+# ones not) and by name in its trace
+FP32_STEP_KERNELS = F32_ONLY + CONV_TF32 + ("warp_bilinear", "warp_bilinear_bwd")
+BF16_ONLY = ("flash_attention_fwd", "flash_attention_bwd", "conv2d_same", "conv2d_same_dx")
+FP32_STEP_NAMES = ("flash_fwd_3xtf32_kernel", "flash_bwd_3xtf32_kernel", "conv2d_tf32_kernel",
+                   "warp_bilinear_vec_kernel", "warp_bilinear_bwd_vec_kernel")
+
+
+def run_train_step(counters, family="flagship", iters=6, dtype=torch.bfloat16):
     """The full-width train step through build_model(train=True) and the
     port's Trainer, in one epoch of 1 + `iters` steps: the first, counted
     and logged (its log read synchronises the host), then `iters` timed
     steps that log nothing, between CUDA events the loader records, with no
-    host synchronisation inside the window."""
+    host synchronisation inside the window. With dtype float32 (the
+    flagship only: train_step_fp32) the model is the one train/cli.py
+    builds under arch.bf16 false; the f32 flash and tf32 conv kernels must
+    launch and no bf16 tensor-core one, and a traced window of 2 more steps
+    gives the device's idle share."""
     from mvsformerplusplus_tpu_torch.config import build_model, load_config
     from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
     from mvsformerplusplus_tpu_torch.train.trainer import Trainer
 
     spec = family_spec(family)
+    fp32 = dtype == torch.float32
+    phase = PHASE_PREFIX[family] + ("train_step_fp32" if fp32 else "train_step")
     dims = spec["train"]
     cfg = load_config(spec["config"], spec["overrides"])
-    model = build_model(cfg, dtype=torch.bfloat16, train=True)
+    model = build_model(cfg, dtype=dtype, train=True)
     remat = (model.cascade.stage1.remat_cost_reg, model.cascade.remat_whole_stage)
     opt, sched = make_optimizer(model, lr=1e-3, vit_lr=3e-5, weight_decay=0.01, min_lr_frac=0.01,
                                 warmup_steps=500, total_steps=10000, freeze_vit=True)
@@ -1915,12 +1953,19 @@ def run_train_step(counters, family="flagship", iters=6):
         "vit_unchanged": not any(n.startswith("vit.") for n in moved),
         "only_trainable_params_moved": moved <= trainable,
         "batch_norm_stats_moved": stats_moved == len(stats0),
-        "every_kernel_launched": path_kernels_launched(launches, spec),
-        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         "absent_kernels_not_launched": none_launched(launches, spec["absent"]),
     }
+    if fp32:
+        checks["tf32_off_in_torch"] = not (torch.backends.cuda.matmul.allow_tf32
+                                           or torch.backends.cudnn.allow_tf32)
+        checks["every_f32_kernel_launched"] = all(launches[k] > 0 for k in FP32_STEP_KERNELS)
+        checks["no_bf16_kernel_launched"] = none_launched(launches, BF16_ONLY)
+        checks["params_fp32"] = all(p.dtype == torch.float32 for p in model.parameters())
+    else:
+        checks["every_kernel_launched"] = path_kernels_launched(launches, spec)
+        checks["flash_through_mma_kernels"] = none_launched(launches, F32_ONLY)
+        checks["conv_through_mma_kernel"] = none_launched(launches, CONV_TF32)
     if spec["overrides"]:
         heads = {f"cascade.stage{i}.cost_reg.{reg.final_name()}.weight" for i, reg in (
             (i, getattr(model.cascade, f"stage{i}").cost_reg) for i in (3, 4))}
@@ -1932,10 +1977,9 @@ def run_train_step(counters, family="flagship", iters=6):
         checks["swiglu_in_vit_decoder_and_fmt_moved"] = (
             any(n.startswith("decoder_vit.") for n in swiglu)
             and any(n.startswith("fmt.") for n in swiglu) and swiglu <= moved)
-    row = {"phase": PHASE_PREFIX[family] + "train_step",
-           "config": str(spec["config"].relative_to(REPO)),
+    row = {"phase": phase, "config": str(spec["config"].relative_to(REPO)),
            "shape": [dims["b"], dims["v"], dims["h"], dims["w"], 3],
-           "depths": dims["dfull"], "dtype": "bfloat16", "remat_granularity": "cost_reg",
+           "depths": dims["dfull"], "dtype": str(dtype)[6:], "remat_granularity": "cost_reg",
            "launches_per_step": launches, "checks": checks, "ms_per_step": ms, "iters": iters,
            "first_step_ms": window[0].elapsed_time(window[1]), "peak_mem_gb": peak_gb,
            "params": {"trainable": len(trainable), "moved": len(moved),
@@ -1944,11 +1988,21 @@ def run_train_step(counters, family="flagship", iters=6):
                       "vit": sum(n.startswith("vit.") for n in params0)},
            "bn_stats": {"tensors": len(stats0), "moved": stats_moved},
            "logs": logs}
+    if fp32:
+        from mvsformerplusplus_tpu_torch.train.step import train_step
+
+        prof = profile_run(lambda: train_step(model, opt, sched, loader.batch), 2)
+        last = prof.pop("result")
+        checks["traced_losses_finite"] = all(bool(torch.isfinite(v).all())
+                                             for k, v in last.items()
+                                             if k == "loss" or k.startswith("stage"))
+        check_kernel_names(prof, phase, FP32_STEP_NAMES, off=BF16_KERNELS + WARP_SCALAR_NAMES)
+        row["profile"] = prof
     emit(row)
-    STEP_MS[family] = ms
+    STEP_MS[phase] = ms
     if not all(checks.values()):
         raise SystemExit(f"{row['phase']} checks failed: {checks}")
-    if spec["profile"]:
+    if spec["profile"] and not fp32:
         emit(profile_train(model, opt, sched, loader.batch, family))
     return launches
 
@@ -1960,26 +2014,26 @@ CASMVS_LAYERS = ("encoder", "decoder", "cascade.stage1", "cascade.stage2", "casc
 HAND_WRITTEN = ("warp_bilinear_vec_kernel", "warp_bilinear_bwd_vec_kernel",
                 "warp_bilinear_scalar_kernel", "warp_bilinear_narrow_kernel",
                 "warp_bilinear_bwd_scalar_kernel", "flash_fwd_mma_kernel",
-                "flash_bwd_mma_kernel", "flash_fwd_3xtf32_kernel", "flash_fwd_f32_simt_kernel",
-                "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_mma_kernel",
-                "conv2d_same_kernel")
-# the hand-written kernels no model path may run: the f32 flash ones, the
-# conv's SIMT one, the warps' scalar ones
-OFF_PATH_KERNELS = ("flash_fwd_3xtf32_kernel", "flash_fwd_f32_simt_kernel",
-                    "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel", "conv2d_same_kernel",
-                    "warp_bilinear_scalar_kernel", "warp_bilinear_narrow_kernel",
-                    "warp_bilinear_bwd_scalar_kernel")
+                "flash_bwd_mma_kernel", "flash_fwd_3xtf32_kernel", "flash_bwd_3xtf32_kernel",
+                "conv2d_mma_kernel", "conv2d_tf32_kernel")
+# the hand-written kernels no bf16 model path may run: the f32 flash ones,
+# the conv's tf32 one, the warps' scalar ones; and the bf16 tensor-core
+# kernels, which the fp32 step may not run
+WARP_SCALAR_NAMES = ("warp_bilinear_scalar_kernel", "warp_bilinear_narrow_kernel",
+                     "warp_bilinear_bwd_scalar_kernel")
+OFF_PATH_KERNELS = ("flash_fwd_3xtf32_kernel", "flash_bwd_3xtf32_kernel",
+                    "conv2d_tf32_kernel") + WARP_SCALAR_NAMES
+BF16_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_mma_kernel", "conv2d_mma_kernel")
 
 
-def check_kernel_names(prof, phase, want, absent=()) -> None:
+def check_kernel_names(prof, phase, want, absent=(), off=OFF_PATH_KERNELS) -> None:
     """By name in the trace: the flash, conv and warp kernels that ran are
-    the mma and vector ones named, and no off-path one (nor one `absent`
-    from the model)."""
+    the ones named (`want`: on a bf16 path the mma and vector ones), and no
+    `off` one (off a bf16 path) nor one `absent` from the model."""
     ours = prof["hand_written_ms_per_call"]
-    if not (all(ours[k] > 0 for k in want)
-            and not any(ours[k] for k in OFF_PATH_KERNELS + tuple(absent))):
-        raise SystemExit(f"{phase}: flash, conv or warp kernels in the trace are not the mma "
-                         f"and vector ones: {ours}")
+    if not (all(ours[k] > 0 for k in want) and not any(ours[k] for k in off + tuple(absent))):
+        raise SystemExit(f"{phase}: flash, conv or warp kernels in the trace are not the "
+                         f"{', '.join(want)}: {ours}")
 
 
 def layer_ms(model, inputs, layers=LAYERS) -> dict:
@@ -2215,7 +2269,7 @@ def run_train_cli(counters, work: Path):
         == len(logged) and [r["mode"] for r in scalars].count("val") == len(val_stats),
         "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
     }
     row = {"phase": "train_cli", "config": str(CONFIG.relative_to(REPO)),
@@ -2403,7 +2457,7 @@ def run_eval_cli(counters, work: Path):
         "every_forward_kernel_launched": all(
             launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd", "conv2d_same")),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         **host_checks(host, sum(r["decodes"] + r["fusion_decodes"] for r in runs.values())),
     }
@@ -2527,7 +2581,7 @@ def run_casmvs_cli(counters, work: Path):
         "ply": (out / "scan1.ply").exists(),
         "every_kernel_launched": path_kernels_launched(launches, spec),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         "no_flash_kernel": none_launched(launches, FLASH),
         **host_checks(host, stats["decodes"] + stats["fusion_decodes"], png=True),
@@ -2628,7 +2682,7 @@ def run_blended_cli(counters, work: Path):
                                                   for n, _ in decodes.values()),
         "every_kernel_launched": path_kernels_launched(launches, family_spec("flagship")),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         **host_checks(host, sum(n for n, _ in decodes.values())),
     }
@@ -2837,7 +2891,7 @@ def run_dist_step(counters):
     checks.update({
         "every_kernel_launched": path_kernels_launched(launches, family_spec("flagship")),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR)})
     row = {"phase": "dist_step", "config": str(CONFIG.relative_to(REPO)),
            "global_shape": [TRAIN["b"], TRAIN["v"], TRAIN["h"], TRAIN["w"], 3],
@@ -2908,7 +2962,7 @@ def run_train_cli_mesh(counters, work: Path):
         == {f"{h}x{w}": n for (h, w), n in steps.items() if n},
         "every_kernel_launched": all(n > 0 for k, n in launches.items() if k not in OFF_PATH),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
     }
     row = {"phase": "train_cli_mesh", "config": str(CONFIG.relative_to(REPO)),
@@ -3016,7 +3070,7 @@ def run_eval_queue(counters, work: Path):
         "every_forward_kernel_launched": all(
             launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd", "conv2d_same")),
         "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
         "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
         **host_checks(host, sum(r["stats"]["decodes"] + r["stats"]["fusion_decodes"]
                                 for r in workers)),
@@ -3196,7 +3250,7 @@ def run_e2e_protocol(counters, root: Path, renderer) -> dict:
             "tb_records": tb["crc_ok"] and tb["files"] == 1 and tb["events"] == tb["expected"],
             "every_kernel_launched": path_kernels_launched(launches, spec),
             "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-            "conv_through_mma_kernel": none_launched(launches, CONV_SIMT),
+            "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
             "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
             **host_checks(host, sum(res[f]["image_decodes"] for f in filters), png=True),
         }
@@ -3844,14 +3898,22 @@ def ptxas_by_kernel(log: str) -> dict:
     return out
 
 
-# the conv's counted opcodes: the tensor cores (HMMA), ldmatrix (LDSM),
-# cp.async (LDGSTS); LDG also counts LDGSTS, LDS also LDSM
-CONV_SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "LDG", "LDS", "STS", "STG", "FFMA", "IMAD")
-# the flash forward's: the tensor cores (HMMA; m16n8k8 tf32 is
-# HMMA.1688.F32.TF32), ldmatrix, cp.async, the exponentials (MUFU) and the
-# FP32 and integer pipes' ops that the 3xTF32 splits and the softmax add
+# the conv's counted opcodes: the tensor cores (HMMA; the tf32 kernel's
+# m16n8k8 is HMMA.1688.F32.TF32), ldmatrix (LDSM), cp.async (LDGSTS); LDG
+# also counts LDGSTS, LDS also LDSM
+CONV_SASS_OPS = ("HMMA", "HMMA.1688.F32.TF32", "LDSM", "LDGSTS", "LDG", "LDS", "STS", "STG",
+                 "FFMA", "IMAD")
+# the flash kernels': the tensor cores (HMMA; m16n8k8 tf32 is
+# HMMA.1688.F32.TF32), ldmatrix, cp.async, the exponentials (MUFU), the dQ
+# atomics (RED) and the FP32 and integer pipes' ops that the 3xTF32 splits
+# and the softmax add
 FLASH_SASS_OPS = ("HMMA", "HMMA.1688.F32.TF32", "LDSM", "LDGSTS", "LDS", "STG", "MUFU", "FFMA",
-                  "FADD", "FMUL", "FMNMX", "LOP3", "IADD3", "IMAD")
+                  "FADD", "FMUL", "FMNMX", "LOP3", "IADD3", "IMAD", "RED")
+# the tf32 kernels the build must show on the tensor cores: (source, kernel,
+# instantiations)
+TF32_SASS = (("flash_attention", "flash_fwd_3xtf32_kernel", 4),
+             ("flash_attention_bwd", "flash_bwd_3xtf32_kernel", 4),
+             ("conv2d", "conv2d_tf32_kernel", 33))
 
 
 def sass_counts(kernels, name: str, ops=("LDG", "STG", "RED", "ATOM", "IMAD", "FFMA")):
@@ -3905,18 +3967,25 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     host_build.result()
     host_build_s = time.perf_counter() - t0
-    flash_sass = sass_counts(kernels, "flash_attention", FLASH_SASS_OPS)
+    sass = {**{name: sass_counts(kernels, name) for name in ("warp", "warp_bwd")},
+            "conv2d": sass_counts(kernels, "conv2d", CONV_SASS_OPS),
+            **{name: sass_counts(kernels, name, FLASH_SASS_OPS)
+               for name in ("flash_attention", "flash_attention_bwd")}}
+    ptxas = {name: ptxas_by_kernel(log) for name, log in logs.items()}
     emit({"phase": "build", "seconds": build_s, "host_library": str(native.lib_path().name),
-          "host_build_s": host_build_s,
-          "ptxas": {name: ptxas_by_kernel(log) for name, log in logs.items()},
-          "sass": {**{name: sass_counts(kernels, name) for name in ("warp", "warp_bwd")},
-                   "conv2d": sass_counts(kernels, "conv2d", CONV_SASS_OPS),
-                   "flash_attention": flash_sass}})
-    tf32_mma = [counts["HMMA.1688.F32.TF32"] for name, counts in flash_sass.items()
-                if "flash_fwd_3xtf32_kernel" in name] if isinstance(flash_sass, dict) else []
-    if len(tf32_mma) != 4 or not all(tf32_mma):
-        raise SystemExit(f"the f32 flash forward's SASS at its 4 head dims has no tf32 "
-                         f"tensor-core op: {tf32_mma}")
+          "host_build_s": host_build_s, "ptxas": ptxas, "sass": sass})
+    for src, kernel, count in TF32_SASS:
+        tf32_mma = ([c["HMMA.1688.F32.TF32"] for name, c in sass[src].items() if kernel in name]
+                    if isinstance(sass[src], dict) else [])
+        if len(tf32_mma) != count or not all(tf32_mma):
+            raise SystemExit(f"{kernel}'s SASS at its {count} instantiations has no tf32 "
+                             f"tensor-core op: {tf32_mma}")
+    # the f32 flash backward at head dims 16 (the CTA) and 64, where this run built it
+    spills = [v for k, v in ptxas.get("flash_attention_bwd", {}).items()
+              if "flash_bwd_3xtf32_kernelILi16E" in k or "flash_bwd_3xtf32_kernelILi64E" in k]
+    if "flash_attention_bwd" in ptxas and (len(spills) != 2 or not all(
+            "0 bytes spill stores, 0 bytes spill loads" in v for v in spills)):
+        raise SystemExit(f"the f32 flash backward spills at head dim 16 or 64: {spills}")
 
     e2e_root = Path(tempfile.mkdtemp(prefix="chip_smoke_e2e_"))
     scene_root = Path(tempfile.mkdtemp(prefix="chip_smoke_scenes_"))
@@ -3951,6 +4020,8 @@ def run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root,
         work = Path(tmp)
         for path, run in (("main_path", lambda: run_main_path(counters)),
                           ("train_step", lambda: run_train_step(counters)),
+                          ("train_step_fp32",
+                           lambda: run_train_step(counters, dtype=torch.float32)),
                           ("train_cli", lambda: run_train_cli(counters, work)),
                           ("eval_cli", lambda: run_eval_cli(counters, work)),
                           ("casmvs_main_path", lambda: run_main_path(counters, "casmvs")),
@@ -3972,7 +4043,7 @@ def run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root,
         by_path["scene_convert"] = run_scene_convert(counters, work, scene_root,
                                                      scene_renderer)
     results = {name: kernel_summary(name) for name in results}
-    run_host_codec(host_build_s, STEP_MS["flagship"])
+    run_host_codec(host_build_s, STEP_MS["train_step"])
     by_path["eval_cli"], eval_row = by_path["eval_cli"]
     for name, res in results.items():
         res["launches_by_path"] = {path: by_path[path][name] for path in by_path}

@@ -6,8 +6,7 @@
 // off), as the TPU kernel pads the head dim to its 128 lanes.
 //
 // Replaces mvsformerplusplus_tpu/ops/pallas/flash_attention.py _flash_fwd
-// (_fwd_kernel / _fwd_kernel_nolse). Two kernels, chosen by type, and one kept
-// for comparison:
+// (_fwd_kernel / _fwd_kernel_nolse). Two kernels, chosen by type:
 //
 // flash_fwd_mma_kernel (bf16), FA2 on mma.sync. A block of 4 warps owns 64
 // query rows of one (b, h), 16 per warp; the warp keeps its Q fragments in
@@ -68,18 +67,12 @@
 // At DH <= 64 a warp keeps its Q fragments split (big and small, DH / 2
 // registers each); at DH=128 raw, split per k step and tile. The softmax is
 // the bf16 kernel's (base 2, scale * log2e in one FFMA per logit, quad
-// shuffles); a negative scale flips q's sign bit, as the SIMT kernel took
-// any scale. What bounds it on the H100: the 3 x 4 * N * M * DH tf32 flops
-// at the TF32 rate (a third of it, 165 TFLOPS, for the products' count),
-// where mma.sync reaches part of the peak; and the issue of the splits,
+// shuffles); a negative scale flips q's sign bit, so any scale runs. What
+// bounds it on the H100: the 3 x 4 * N * M * DH tf32 flops at the TF32 rate
+// (a third of it, 165 TFLOPS, for the products' count), where mma.sync
+// reaches part of the peak; and the issue of the splits,
 // 4 integer and FP32 instructions per K and V element each warp reads (the
 // 4 warps of a block split the same tile), about as many as the mma.
-//
-// flash_fwd_f32_simt_kernel (f32): the SIMT kernel the f32 path ran before
-// the tensor-core one (fp32 FMAs, one thread per query row, 64-key K/V tiles
-// in static shared memory, 32 at DH=128, where its q and accumulator rows
-// spill). No wrapper of a path launches it: it stays as chip_smoke.py's
-// timing reference (`flash_attention_fwd_f32_simt`, the `simt_ms` column).
 #include "flash_mma.cuh"
 
 using flash::bf16;
@@ -445,93 +438,6 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-// ------------------------------------------------------------------ f32 SIMT
-
-constexpr int F32_BN = 128;  // query rows per block, one per thread
-constexpr int F32_CH = 16;   // keys per online-softmax update
-constexpr float NEG = -1e30f;
-
-template <int DH>
-__global__ void __launch_bounds__(F32_BN)
-flash_fwd_f32_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int n, int m, int h, float scale) {
-  constexpr int F32_BM = DH >= 128 ? 32 : 64;  // keys per shared-memory tile
-  __shared__ __align__(16) float ks[F32_BM][DH];
-  __shared__ __align__(16) float vs[F32_BM][DH];
-  const int bh = blockIdx.y;
-  const int b = bh / h, hh = bh % h;
-  const int row = blockIdx.x * F32_BN + threadIdx.x;
-  const bool active = row < n;
-  const int64_t rs = (int64_t)h * DH;
-  const float* qb = q + (int64_t)b * n * rs + hh * DH;
-  const float* kb = k + (int64_t)b * m * rs + hh * DH;
-  const float* vb = v + (int64_t)b * m * rs + hh * DH;
-
-  float qr[DH], acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qr[d] = active ? qb[row * rs + d] * scale : 0.f;
-    acc[d] = 0.f;
-  }
-  float mx = NEG, l = 0.f;
-
-  for (int t0 = 0; t0 < m; t0 += F32_BM) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < F32_BM * DH; idx += F32_BN) {
-      const int j = idx / DH, d = idx % DH;
-      const int key = t0 + j;
-      ks[j][d] = key < m ? kb[key * rs + d] : 0.f;
-      vs[j][d] = key < m ? vb[key * rs + d] : 0.f;
-    }
-    __syncthreads();
-    const int tn = min(F32_BM, m - t0);
-    for (int c0 = 0; c0 < tn; c0 += F32_CH) {
-      float s[F32_CH];
-      float cmax = NEG;
-#pragma unroll
-      for (int j = 0; j < F32_CH; ++j) {
-        const float4* kr = reinterpret_cast<const float4*>(ks[c0 + j]);
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 kk = kr[d4];
-          dot += qr[4 * d4] * kk.x + qr[4 * d4 + 1] * kk.y + qr[4 * d4 + 2] * kk.z +
-                 qr[4 * d4 + 3] * kk.w;
-        }
-        s[j] = (c0 + j < tn) ? dot : NEG;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      const float mnew = fmaxf(mx, cmax);
-      const float alpha = __expf(mx - mnew);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < F32_CH; ++j) {
-        const float p = __expf(s[j] - mnew);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(vs[c0 + j]);
-#pragma unroll
-        for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4] += p * vv.x;
-          acc[4 * d4 + 1] += p * vv.y;
-          acc[4 * d4 + 2] += p * vv.z;
-          acc[4 * d4 + 3] += p * vv.w;
-        }
-      }
-      mx = mnew;
-    }
-  }
-  if (!active) return;
-  const float inv = 1.f / l;
-  float* ob = out + (int64_t)b * n * rs + hh * DH + row * rs;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) ob[d] = acc[d] * inv;
-  if (lse != nullptr) lse[(int64_t)bh * n + row] = mx + logf(l);
-}
-
 template <int DH>
 static int launch_fwd_mma(const void* q, const void* k, const void* v, void* out, void* lse,
                           int b, int n, int m, int h, float scale, cudaStream_t st) {
@@ -564,16 +470,6 @@ static int launch_fwd_f32(const void* q, const void* k, const void* v, void* out
   return (int)cudaGetLastError();
 }
 
-template <int DH>
-static int launch_fwd_f32_simt(const void* q, const void* k, const void* v, void* out, void* lse,
-                               int b, int n, int m, int h, float scale, cudaStream_t st) {
-  const dim3 grid((n + F32_BN - 1) / F32_BN, b * h);
-  flash_fwd_f32_simt_kernel<DH><<<grid, F32_BN, 0, st>>>((const float*)q, (const float*)k,
-                                                         (const float*)v, (float*)out,
-                                                         (float*)lse, n, m, h, scale);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int flash_attention_fwd_mma(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int b, int n, int m, int h, int dh, float scale,
                                        void* stream) {
@@ -600,21 +496,6 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
     case 32: return launch_fwd_f32<32>(q, k, v, out, lse, b, n, m, h, scale, st);
     case 64: return launch_fwd_f32<64>(q, k, v, out, lse, b, n, m, h, scale, st);
     case 128: return launch_fwd_f32<128>(q, k, v, out, lse, b, n, m, h, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int flash_attention_fwd_f32_simt(const void* q, const void* k, const void* v,
-                                            void* out, void* lse, int b, int n, int m, int h,
-                                            int dh, float scale, void* stream) {
-  if (m < 1) return (int)cudaErrorInvalidValue;
-  if (b * n == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 16: return launch_fwd_f32_simt<16>(q, k, v, out, lse, b, n, m, h, scale, st);
-    case 32: return launch_fwd_f32_simt<32>(q, k, v, out, lse, b, n, m, h, scale, st);
-    case 64: return launch_fwd_f32_simt<64>(q, k, v, out, lse, b, n, m, h, scale, st);
-    case 128: return launch_fwd_f32_simt<128>(q, k, v, out, lse, b, n, m, h, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -35,15 +35,45 @@
 // wrapper scales it and casts. dK is scaled once at the end. Keys past M are
 // zero rows whose P is masked to 0 and which are not stored.
 //
-// flash_bwd_dkv_f32_kernel / flash_bwd_dq_f32_kernel (f32): fp32 FMAs, the
-// split of the TPU kernels. The dK/dV kernel gives each thread one key row (k,
-// v and the dk/dv accumulators in registers) and streams 32-query tiles of
-// scaled q, dout, lse and delta through shared memory (read as broadcasts);
-// the dQ kernel gives each thread one query row and streams 64-key K/V
-// tiles (32 at DH=128, to stay in the 48 KB of static shared memory). At
-// DH=128 their per-thread rows spill to local memory. They serve the fp32
-// model (tests, the card-vs-CPU reference), where tensor cores would mean
-// TF32.
+// flash_bwd_3xtf32_kernel (f32), the same fused FA2 backward on the tf32
+// tensor cores at fp32 accuracy (mma.sync m16n8k8, 3xTF32 as in
+// flash_attention.cu's f32 forward: each operand split into big = tf32(x)
+// and small = tf32(x - big) by flash::split_tf32, each product summed as
+// small*big + big*small + big*big). It serves the fp32 model: the CTA's
+// train shape (B=2, 5120 queries and keys, 4 heads of 16) and any head dim
+// of 16, 32, 64 or 128. A block of 4 warps owns 64 key rows of one (b, h),
+// 16 per warp, and streams query tiles (32 rows at DH=16, else 16) of q and
+// dout through cp.async, with lse * log2e and delta; each tile is split once,
+// block-wide, into big and small parts in shared memory (the 4 warps read
+// the same tile), and the next tile's copy runs under this tile's products.
+// Per tile each warp computes S^T = K.Q^T and dP^T = V.dO^T (the cross terms
+// in accumulators apart from big*big, added once per tile), then P^T =
+// ex2(S^T scale log2e - lse log2e) once per logit and dS^T = P^T (dP^T -
+// delta), and dV += P^T.dO, dK += dS^T.Q with P and dS split too (never
+// rounded to one tf32, which would keep 11 bits of them). The accumulators
+// give a thread the queries 2t and 2t + 1 of each 8, which dV and dK take as
+// their k slots t and t + 4, reading dO's and q's rows in that order with
+// 32-bit shared loads (rows DH + 4 floats apart: the 32 lanes hit 32 banks),
+// so P and dS go from the accumulators to the A operands with no shuffle.
+// The tensor cores add into their accumulators rounding towards zero, and dK
+// and dV sum over all N queries (640 k8 steps for the CTA): each tile's
+// products go into accumulators of their own, folded into the running sums
+// with round-to-nearest FADDs (the running sums in registers at DH <= 32, in
+// thread-private shared memory at 64 and 128, where registers run out). dQ
+// needs dS with the queries as rows: each warp writes its dS^T rows' split
+// parts to shared memory, and after a barrier the block computes dQ_tile =
+// dS.K (3xTF32; the 4 warps split the tile's queries and head dim) and adds
+// it, times the scale, with 8-byte float2 atomics into an f32 dq the wrapper
+// zeroes (a second pass over the keys per query tile would rebuild S and
+// the exponentials, which this design computes once). At DH <= 32 K and V
+// fragments stay split in registers and K split in shared memory (one pass
+// per block); at 64 and 128 they are read from shared memory per tile
+// (ldmatrix) and split there; at 128 the block takes 193 KB of shared
+// memory, one block per SM. What
+// bounds it on the H100: the five products, 3 x 10 * N * M * DH tf32 flops
+// (165 TFLOPS for the products' count), and the split and softmax
+// instructions beside the mma; the N * M exponentials on the SFUs take a
+// quarter of that time at DH=16.
 #include "flash_mma.cuh"
 
 using flash::bf16;
@@ -250,158 +280,349 @@ flash_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------ f32 SIMT
-
-constexpr int F32_BK = 128;  // dK/dV: key rows per block, one per thread
-constexpr int F32_BQ = 32;   // dK/dV: query rows per shared-memory tile
-constexpr int F32_BN = 128;  // dQ: query rows per block, one per thread
+// ------------------------------------------------------------------ f32 3xTF32
 
 template <int DH>
-__global__ void __launch_bounds__(F32_BK)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int n, int m, int h,
-                         float scale) {
-  __shared__ __align__(16) float qs[F32_BQ][DH];
-  __shared__ __align__(16) float dos[F32_BQ][DH];
-  __shared__ float lse_s[F32_BQ], delta_s[F32_BQ];
-  const int bh = blockIdx.y;
-  const int b = bh / h, hh = bh % h;
-  const int key = blockIdx.x * F32_BK + threadIdx.x;
-  const bool active = key < m;
-  const int64_t rs = (int64_t)h * DH;
-  const float* qb = q + (int64_t)b * n * rs + hh * DH;
-  const float* dob = dout + (int64_t)b * n * rs + hh * DH;
-  const int64_t koff = (int64_t)b * m * rs + hh * DH + key * rs;
-  const float* lseb = lse + (int64_t)bh * n;
-  const float* deltab = delta + (int64_t)bh * n;
+struct BwdF32 {
+  static constexpr int BQ = DH == 16 ? 32 : 16;  // query rows per tile
+  static constexpr int LD = DH + 4;              // padded q, dout and v row, floats
+  static constexpr int LDK = DH + 8;             // padded k row (dQ's B loads), floats
+  static constexpr int LDS = BQ + 8;             // padded dS^T row, floats
+  static constexpr bool KV_REGS = DH <= 32;      // K, V fragments kept split in registers
+  static constexpr bool KSPLIT = DH <= 32;       // K kept split in shared memory for dQ
+  static constexpr bool RUN_SMEM = DH >= 64;     // running dK, dV in shared memory
+  // dynamic shared memory (floats): K (and its small parts), V, the raw q
+  // and dout stage, their big and small parts, dS^T's big and small parts,
+  // the two-stage lse and delta rows, then the running sums
+  static constexpr int FLOATS = MMA_BKV * LDK * (KSPLIT ? 2 : 1) + MMA_BKV * LD + 6 * BQ * LD +
+                                2 * MMA_BKV * LDS + 4 * BQ + (RUN_SMEM ? MMA_THREADS * DH : 0);
+  static constexpr int SMEM = FLOATS * (int)sizeof(float);
+};
 
-  float kr[DH], vr[DH], dkr[DH], dvr[DH];
+__device__ __forceinline__ void split4(const uint32_t (&x)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
 #pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    kr[d] = active ? k[koff + d] : 0.f;
-    vr[d] = active ? v[koff + d] : 0.f;
-    dkr[d] = 0.f;
-    dvr[d] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < n; t0 += F32_BQ) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < F32_BQ * DH; idx += F32_BK) {
-      const int i = idx / DH, d = idx % DH;
-      const int row = t0 + i;
-      const bool in = row < n;
-      qs[i][d] = in ? qb[row * rs + d] * scale : 0.f;
-      dos[i][d] = in ? dob[row * rs + d] : 0.f;
-    }
-    for (int i = threadIdx.x; i < F32_BQ; i += F32_BK) {
-      const int row = t0 + i;
-      lse_s[i] = row < n ? lseb[row] : 0.f;
-      delta_s[i] = row < n ? deltab[row] : 0.f;
-    }
-    __syncthreads();
-    const int tq = min(F32_BQ, n - t0);
-    for (int i = 0; i < tq; ++i) {
-      const float4* qr4 = reinterpret_cast<const float4*>(qs[i]);
-      const float4* do4 = reinterpret_cast<const float4*>(dos[i]);
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 qq = qr4[d4], oo = do4[d4];
-        s += qq.x * kr[4 * d4] + qq.y * kr[4 * d4 + 1] + qq.z * kr[4 * d4 + 2] +
-             qq.w * kr[4 * d4 + 3];
-        dp += oo.x * vr[4 * d4] + oo.y * vr[4 * d4 + 1] + oo.z * vr[4 * d4 + 2] +
-              oo.w * vr[4 * d4 + 3];
-      }
-      const float p = __expf(s - lse_s[i]);
-      const float ds = p * (dp - delta_s[i]);
-#pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 qq = qr4[d4], oo = do4[d4];
-        dvr[4 * d4] += p * oo.x;
-        dvr[4 * d4 + 1] += p * oo.y;
-        dvr[4 * d4 + 2] += p * oo.z;
-        dvr[4 * d4 + 3] += p * oo.w;
-        dkr[4 * d4] += ds * qq.x;
-        dkr[4 * d4 + 1] += ds * qq.y;
-        dkr[4 * d4 + 2] += ds * qq.z;
-        dkr[4 * d4 + 3] += ds * qq.w;
-      }
-    }
-  }
-  if (!active) return;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    dk[koff + d] = dkr[d];
-    dv[koff + d] = dvr[d];
-  }
+  for (int i = 0; i < 4; ++i) flash::split_tf32(x[i], big[i], small[i]);
 }
 
+__device__ __forceinline__ void split_f(float x, uint32_t& big, uint32_t& small) {
+  flash::split_tf32(__float_as_uint(x), big, small);
+}
+
+// x in place of its big part, its small part to sm[i]
+__device__ __forceinline__ void split_in_place(float* x, float* sm, int i) {
+  uint32_t b, s;
+  split_f(x[i], b, s);
+  x[i] = __uint_as_float(b);
+  sm[i] = __uint_as_float(s);
+}
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
 template <int DH>
-__global__ void __launch_bounds__(F32_BN)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, int n, int m, int h, float scale) {
-  constexpr int F32_BM = DH >= 128 ? 32 : 64;  // key rows per shared-memory tile
-  __shared__ __align__(16) float ks[F32_BM][DH];
-  __shared__ __align__(16) float vs[F32_BM][DH];
-  const int bh = blockIdx.y;
-  const int b = bh / h, hh = bh % h;
-  const int row = blockIdx.x * F32_BN + threadIdx.x;
-  const bool active = row < n;
+                        float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                        int n, int m, int h, float scale, float scale_log2) {
+  using Cfg = BwdF32<DH>;
+  constexpr int BQ = Cfg::BQ, LD = Cfg::LD, LDK = Cfg::LDK, LDS = Cfg::LDS;
+  constexpr int KT = DH / 8;  // k8 steps over the head dim
+  constexpr int NQ = BQ / 8;  // n-tiles of S^T (queries) = k8 steps of dV and dK
+  constexpr int DT = DH / 8;  // n-tiles of dK, dV and dQ (head dim)
+  // dQ = dS.K: BQ/16 m-tiles of queries, each split over WPM warps by head dim
+  constexpr int MQ = BQ / 16, WPM = 4 / MQ, DW = DT / WPM;
+  static_assert(MQ * WPM == 4 && DW * WPM == DT && NQ % 2 == 0, "work split");
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  float* const ks = reinterpret_cast<float*>(bwd_smem);     // [MMA_BKV * LDK], KSPLIT: big
+  float* const kss = ks + MMA_BKV * LDK;                     // [MMA_BKV * LDK] small (KSPLIT)
+  float* const vs = kss + (Cfg::KSPLIT ? MMA_BKV * LDK : 0);  // [MMA_BKV * LD]
+  float* const qraw = vs + MMA_BKV * LD;                      // [BQ * LD] cp.async targets
+  float* const doraw = qraw + BQ * LD;                        // [BQ * LD]
+  float* const qb = doraw + BQ * LD;                          // [BQ * LD] split q, dout
+  float* const qsm = qb + BQ * LD;
+  float* const dob = qsm + BQ * LD;
+  float* const dosm = dob + BQ * LD;
+  float* const dsb = dosm + BQ * LD;                          // [MMA_BKV * LDS] split dS^T
+  float* const dss = dsb + MMA_BKV * LDS;
+  float* const lse_s = dss + MMA_BKV * LDS;                   // [2][BQ]
+  float* const delta_s = lse_s + 2 * BQ;                      // [2][BQ]
+  float* const run = delta_s + 2 * BQ;  // [DH][MMA_THREADS]: thread tid's sums at i * 128 + tid
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y, b = bh / h, hh = bh % h;
+  const int k0 = blockIdx.x * MMA_BKV;
   const int64_t rs = (int64_t)h * DH;
-  const int64_t qoff = (int64_t)b * n * rs + hh * DH + row * rs;
-  const float* kb = k + (int64_t)b * m * rs + hh * DH;
-  const float* vb = v + (int64_t)b * m * rs + hh * DH;
+  const int64_t qoff = (int64_t)b * n * rs + hh * DH;
+  const int64_t koff = (int64_t)b * m * rs + hh * DH;
+  const float* lseb = lse + (int64_t)bh * n;
+  const float* deltab = delta + (int64_t)bh * n;
+  const int tiles = (n + BQ - 1) / BQ;
 
-  float qr[DH], dor[DH], dqr[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    qr[d] = active ? q[qoff + d] * scale : 0.f;
-    dor[d] = active ? dout[qoff + d] : 0.f;
-    dqr[d] = 0.f;
-  }
-  const float l = active ? lse[(int64_t)bh * n + row] : 0.f;
-  const float dl = active ? delta[(int64_t)bh * n + row] : 0.f;
+  auto load_tile = [&](int t) {
+    flash::load_rows_async<BQ, DH>(qraw, LD, q + qoff, rs, t * BQ, n, tid, MMA_THREADS);
+    flash::load_rows_async<BQ, DH>(doraw, LD, dout + qoff, rs, t * BQ, n, tid, MMA_THREADS);
+    const int st = t & 1;
+    for (int i = tid; i < BQ; i += MMA_THREADS) {
+      const int row = t * BQ + i;
+      lse_s[st * BQ + i] = row < n ? lseb[row] * flash::LOG2E : INFINITY;
+      delta_s[st * BQ + i] = row < n ? deltab[row] : 0.f;
+    }
+  };
 
-  for (int t0 = 0; t0 < m; t0 += F32_BM) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < F32_BM * DH; idx += F32_BN) {
-      const int j = idx / DH, d = idx % DH;
-      const int key = t0 + j;
-      ks[j][d] = key < m ? kb[key * rs + d] : 0.f;
-      vs[j][d] = key < m ? vb[key * rs + d] : 0.f;
+  flash::load_rows_async<MMA_BKV, DH>(ks, LDK, k + koff, rs, k0, m, tid, MMA_THREADS);
+  flash::load_rows_async<MMA_BKV, DH>(vs, LD, v + koff, rs, k0, m, tid, MMA_THREADS);
+  load_tile(0);
+  flash::cp_async_commit();
+
+  // K and V A fragments of this warp's 16 keys, split (KV_REGS)
+  constexpr int KR = Cfg::KV_REGS ? KT : 1;
+  uint32_t kbg[KR][4], ksm[KR][4], vbg[KR][4], vsm[KR][4];
+  // running dK and dV in registers (else in run[])
+  constexpr int RR = Cfg::RUN_SMEM ? 1 : DT;
+  float dka[RR][4], dva[RR][4];
+#pragma unroll
+  for (int d = 0; d < RR; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+  if constexpr (Cfg::RUN_SMEM) {
+#pragma unroll
+    for (int i = 0; i < DH; ++i) run[i * MMA_THREADS + tid] = 0.f;
+  }
+  const int key0 = k0 + warp * 16 + g;  // this thread's rows key0, key0 + 8
+  const bool tail = k0 + MMA_BKV > m;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t & 1;
+    flash::cp_async_wait<0>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if constexpr (Cfg::KSPLIT) {
+      if (t == 0)
+        for (int i = tid; i < MMA_BKV * DH; i += MMA_THREADS)
+          split_in_place(ks, kss, (i / DH) * LDK + i % DH);
     }
-    __syncthreads();
-    const int tn = min(F32_BM, m - t0);
-    for (int j = 0; j < tn; ++j) {
-      const float4* kr4 = reinterpret_cast<const float4*>(ks[j]);
-      const float4* vr4 = reinterpret_cast<const float4*>(vs[j]);
-      float s = 0.f, dp = 0.f;
+    // q and dout split once for the 4 warps: big and small parts
+    for (int i = tid; i < BQ * DH; i += MMA_THREADS) {
+      const int j = (i / DH) * LD + i % DH;
+      uint32_t b0, s0;
+      split_f(qraw[j], b0, s0);
+      qb[j] = __uint_as_float(b0);
+      qsm[j] = __uint_as_float(s0);
+      split_f(doraw[j], b0, s0);
+      dob[j] = __uint_as_float(b0);
+      dosm[j] = __uint_as_float(s0);
+    }
+    __syncthreads();  // the split tile (and K) ready; the raw stage is free
+    if (t + 1 < tiles) load_tile(t + 1);
+    flash::cp_async_commit();
+    if constexpr (Cfg::KV_REGS) {
+      if (t == 0) {
 #pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 kk = kr4[d4], vv = vr4[d4];
-        s += qr[4 * d4] * kk.x + qr[4 * d4 + 1] * kk.y + qr[4 * d4 + 2] * kk.z +
-             qr[4 * d4 + 3] * kk.w;
-        dp += dor[4 * d4] * vv.x + dor[4 * d4 + 1] * vv.y + dor[4 * d4 + 2] * vv.z +
-              dor[4 * d4 + 3] * vv.w;
+        for (int kt = 0; kt < KT; ++kt) {
+          const int off = flash::a_off_f32(lane, warp * 16, kt * 8, LDK);
+          flash::ldmatrix_x4(kbg[kt], ks + off);
+          flash::ldmatrix_x4(ksm[kt], kss + off);
+          uint32_t f[4];
+          flash::ldmatrix_x4(f, vs + flash::a_off_f32(lane, warp * 16, kt * 8, LD));
+          split4(f, vbg[kt], vsm[kt]);
+        }
       }
-      const float ds = __expf(s - l) * (dp - dl);
+    }
+
+    // S^T = K.Q^T and dP^T = V.dO^T: big*big in s and dp, the cross terms in
+    // sx and dpx, added once the tile's products are done
+    float s[NQ][4], sx[NQ][4], dp[NQ][4], dpx[NQ][4];
 #pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 kk = kr4[d4];
-        dqr[4 * d4] += ds * kk.x;
-        dqr[4 * d4 + 1] += ds * kk.y;
-        dqr[4 * d4 + 2] += ds * kk.z;
-        dqr[4 * d4 + 3] += ds * kk.w;
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sx[j][e] = dp[j][e] = dpx[j][e] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      uint32_t ab[4], as[4], vb[4], vl[4];
+      if constexpr (Cfg::KV_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ab[i] = kbg[kt][i];
+          as[i] = ksm[kt][i];
+          vb[i] = vbg[kt][i];
+          vl[i] = vsm[kt][i];
+        }
+      } else {
+        uint32_t f[4];
+        flash::ldmatrix_x4(f, ks + flash::a_off_f32(lane, warp * 16, kt * 8, LDK));
+        split4(f, ab, as);
+        flash::ldmatrix_x4(f, vs + flash::a_off_f32(lane, warp * 16, kt * 8, LD));
+        split4(f, vb, vl);
+      }
+#pragma unroll
+      for (int j2 = 0; j2 < NQ / 2; ++j2) {
+        // Q[n0 + g][k0 + t], Q[n0 + g][k0 + t + 4], the same at n0 + 8 + g
+        const int off = flash::b_off_f32(lane, j2 * 16, kt * 8, LD);
+        uint32_t fb[4], fs[4];
+        flash::ldmatrix_x4(fb, qb + off);
+        flash::ldmatrix_x4(fs, qsm + off);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          flash::mma_tf32(sx[2 * j2 + e], as, fb[2 * e], fb[2 * e + 1]);
+          flash::mma_tf32(sx[2 * j2 + e], ab, fs[2 * e], fs[2 * e + 1]);
+          flash::mma_tf32(s[2 * j2 + e], ab, fb[2 * e], fb[2 * e + 1]);
+        }
+        flash::ldmatrix_x4(fb, dob + off);
+        flash::ldmatrix_x4(fs, dosm + off);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          flash::mma_tf32(dpx[2 * j2 + e], vl, fb[2 * e], fb[2 * e + 1]);
+          flash::mma_tf32(dpx[2 * j2 + e], vb, fs[2 * e], fs[2 * e + 1]);
+          flash::mma_tf32(dp[2 * j2 + e], vb, fb[2 * e], fb[2 * e + 1]);
+        }
+      }
+    }
+
+    // P^T in place of s, dS^T in place of dp: this thread's keys g, g + 8 and
+    // queries j * 8 + 2t, + 1
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const int c = j * 8 + 2 * tq;
+      const float2 l2 = *reinterpret_cast<const float2*>(&lse_s[st * BQ + c]);
+      const float2 dl = *reinterpret_cast<const float2*>(&delta_s[st * BQ + c]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += sx[j][e];
+        dp[j][e] += dpx[j][e];
+      }
+      s[j][0] = flash::exp2_approx(fmaf(s[j][0], scale_log2, -l2.x));
+      s[j][1] = flash::exp2_approx(fmaf(s[j][1], scale_log2, -l2.y));
+      s[j][2] = flash::exp2_approx(fmaf(s[j][2], scale_log2, -l2.x));
+      s[j][3] = flash::exp2_approx(fmaf(s[j][3], scale_log2, -l2.y));
+      if (tail) {
+        if (key0 >= m) s[j][0] = s[j][1] = 0.f;
+        if (key0 + 8 >= m) s[j][2] = s[j][3] = 0.f;
+      }
+      dp[j][0] = s[j][0] * (dp[j][0] - dl.x);
+      dp[j][1] = s[j][1] * (dp[j][1] - dl.y);
+      dp[j][2] = s[j][2] * (dp[j][2] - dl.x);
+      dp[j][3] = s[j][3] * (dp[j][3] - dl.y);
+    }
+
+    // this tile's dV = P^T.dO and dK = dS^T.Q in accumulators of their own:
+    // k8 step j takes the queries j * 8 + 2t (slot t) and + 1 (slot t + 4);
+    // dS^T's split parts also go to shared memory for dQ
+    float tdv[DT][4], tdk[DT][4];
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tdv[d][e] = tdk[d][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      // a0 = X[g][2t], a1 = X[g+8][2t], a2 = X[g][2t+1], a3 = X[g+8][2t+1]
+      uint32_t pb[4], ps[4], db[4], dsm[4];
+      split_f(s[j][0], pb[0], ps[0]);
+      split_f(s[j][2], pb[1], ps[1]);
+      split_f(s[j][1], pb[2], ps[2]);
+      split_f(s[j][3], pb[3], ps[3]);
+      split_f(dp[j][0], db[0], dsm[0]);
+      split_f(dp[j][2], db[1], dsm[1]);
+      split_f(dp[j][1], db[2], dsm[2]);
+      split_f(dp[j][3], db[3], dsm[3]);
+      const int r = (warp * 16 + g) * LDS + j * 8 + 2 * tq;  // dS^T[key g][query 2t]
+      *reinterpret_cast<uint2*>(&dsb[r]) = make_uint2(db[0], db[2]);
+      *reinterpret_cast<uint2*>(&dsb[r + 8 * LDS]) = make_uint2(db[1], db[3]);
+      *reinterpret_cast<uint2*>(&dss[r]) = make_uint2(dsm[0], dsm[2]);
+      *reinterpret_cast<uint2*>(&dss[r + 8 * LDS]) = make_uint2(dsm[1], dsm[3]);
+      const int rq = (j * 8 + 2 * tq) * LD + g;  // dO[query 2t][g], q's alike
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int i0 = rq + d * 8, i1 = i0 + LD;
+        flash::mma_3xtf32(tdv[d], pb, ps, bits(dob[i0]), bits(dob[i1]), bits(dosm[i0]),
+                          bits(dosm[i1]));
+        flash::mma_3xtf32(tdk[d], db, dsm, bits(qb[i0]), bits(qb[i1]), bits(qsm[i0]),
+                          bits(qsm[i1]));
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (Cfg::RUN_SMEM) {
+          run[(d * 4 + e) * MMA_THREADS + tid] += tdk[d][e];
+          run[(DH / 2 + d * 4 + e) * MMA_THREADS + tid] += tdv[d][e];
+        } else {
+          dka[d][e] += tdk[d][e];
+          dva[d][e] += tdv[d][e];
+        }
+      }
+    __syncthreads();  // every warp's dS^T rows are in dsb and dss
+
+    // dQ_tile = dS.K: A = dS (queries as rows) read from dS^T, B = K rows
+    {
+      const int mq = warp / WPM, dw = (warp % WPM) * DW;
+      float acc[DW][4];
+#pragma unroll
+      for (int d = 0; d < DW; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < MMA_BKV / 8; ++kk) {
+        const int ia = (kk * 8 + tq) * LDS + mq * 16 + g;
+        const uint32_t ab[4] = {bits(dsb[ia]), bits(dsb[ia + 8]), bits(dsb[ia + 4 * LDS]),
+                                bits(dsb[ia + 4 * LDS + 8])};
+        const uint32_t as[4] = {bits(dss[ia]), bits(dss[ia + 8]), bits(dss[ia + 4 * LDS]),
+                                bits(dss[ia + 4 * LDS + 8])};
+        const int ik = (kk * 8 + tq) * LDK + dw * 8 + g;
+#pragma unroll
+        for (int d = 0; d < DW; ++d) {
+          const int i0 = ik + d * 8, i1 = i0 + 4 * LDK;
+          uint32_t b0, s0, b1, s1;
+          if constexpr (Cfg::KSPLIT) {
+            b0 = bits(ks[i0]);
+            s0 = bits(kss[i0]);
+            b1 = bits(ks[i1]);
+            s1 = bits(kss[i1]);
+          } else {
+            split_f(ks[i0], b0, s0);
+            split_f(ks[i1], b1, s1);
+          }
+          flash::mma_3xtf32(acc[d], ab, as, b0, b1, s0, s1);
+        }
+      }
+      const int row = t * BQ + mq * 16 + g;
+      float* const dqb = dq + qoff + dw * 8 + 2 * tq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (row + 8 * i >= n) continue;
+        float* const dst = dqb + (int64_t)(row + 8 * i) * rs;
+#pragma unroll
+        for (int d = 0; d < DW; ++d)
+          atomicAdd(reinterpret_cast<float2*>(dst + d * 8),
+                    make_float2(acc[d][2 * i] * scale, acc[d][2 * i + 1] * scale));
       }
     }
   }
-  if (!active) return;
+
+  float* const dkb = dk + koff + 2 * tq;
+  float* const dvb = dv + koff + 2 * tq;
 #pragma unroll
-  for (int d = 0; d < DH; ++d) dq[qoff + d] = dqr[d] * scale;
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= m) continue;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      float k0v, k1v, v0v, v1v;
+      if constexpr (Cfg::RUN_SMEM) {
+        k0v = run[(d * 4 + 2 * i) * MMA_THREADS + tid];
+        k1v = run[(d * 4 + 2 * i + 1) * MMA_THREADS + tid];
+        v0v = run[(DH / 2 + d * 4 + 2 * i) * MMA_THREADS + tid];
+        v1v = run[(DH / 2 + d * 4 + 2 * i + 1) * MMA_THREADS + tid];
+      } else {
+        k0v = dka[d][2 * i];
+        k1v = dka[d][2 * i + 1];
+        v0v = dva[d][2 * i];
+        v1v = dva[d][2 * i + 1];
+      }
+      *reinterpret_cast<float2*>(dkb + key * rs + d * 8) = make_float2(k0v * scale, k1v * scale);
+      *reinterpret_cast<float2*>(dvb + key * rs + d * 8) = make_float2(v0v, v1v);
+    }
+  }
 }
 
 static bool head_dim_ok(int dh) { return dh == 16 || dh == 32 || dh == 64 || dh == 128; }
@@ -425,22 +646,20 @@ static int launch_bwd_mma(const void* q, const void* k, const void* v, const voi
 }
 
 template <int DH>
-static int launch_bwd_dkv_f32(const float* q, const float* k, const float* v, const float* dout,
-                              const float* lse, const float* delta, float* dk, float* dv, int b,
-                              int n, int m, int h, float scale, cudaStream_t st) {
-  const dim3 grid((m + F32_BK - 1) / F32_BK, b * h);
-  flash_bwd_dkv_f32_kernel<DH><<<grid, F32_BK, 0, st>>>(q, k, v, dout, lse, delta, dk, dv, n, m,
-                                                        h, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int DH>
-static int launch_bwd_dq_f32(const float* q, const float* k, const float* v, const float* dout,
-                             const float* lse, const float* delta, float* dq, int b, int n,
-                             int m, int h, float scale, cudaStream_t st) {
-  const dim3 grid((n + F32_BN - 1) / F32_BN, b * h);
-  flash_bwd_dq_f32_kernel<DH><<<grid, F32_BN, 0, st>>>(q, k, v, dout, lse, delta, dq, n, m, h,
-                                                       scale);
+static int launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                          int b, int n, int m, int h, float scale, cudaStream_t st) {
+  constexpr int bytes = BwdF32<DH>::SMEM;
+  if (bytes > 48 * 1024) {
+    static const cudaError_t once = cudaFuncSetAttribute(
+        flash_bwd_3xtf32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (once != cudaSuccess) return (int)once;
+  }
+  const dim3 grid((m + MMA_BKV - 1) / MMA_BKV, b * h);
+  flash_bwd_3xtf32_kernel<DH><<<grid, MMA_THREADS, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)lse,
+      (const float*)delta, (float*)dq, (float*)dk, (float*)dv, n, m, h, scale,
+      scale * flash::LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -463,44 +682,22 @@ extern "C" int flash_attention_bwd_mma(const void* q, const void* k, const void*
 #undef BWD_MMA
 }
 
-extern "C" int flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
-                                           const void* dout, const void* lse, const void* delta,
-                                           void* dk, void* dv, int b, int n, int m, int h, int dh,
-                                           float scale, void* stream) {
+// f32: dq is added into (the caller zeroes it) and comes out scaled, with
+// respect to the unscaled q; dk and dv are written. Any scale.
+extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dq, void* dk, void* dv, int b, int n, int m, int h,
+                                       int dh, float scale, void* stream) {
   if (!head_dim_ok(dh)) return (int)cudaErrorInvalidValue;
   if (b * m == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define BWD_DKV(D)                                                                            \
-  launch_bwd_dkv_f32<D>((const float*)q, (const float*)k, (const float*)v, (const float*)dout, \
-                        (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, b, n, \
-                        m, h, scale, st)
+#define BWD_F32(D) launch_bwd_f32<D>(q, k, v, dout, lse, delta, dq, dk, dv, b, n, m, h, scale, st)
   switch (dh) {
-    case 16: return BWD_DKV(16);
-    case 32: return BWD_DKV(32);
-    case 64: return BWD_DKV(64);
-    case 128: return BWD_DKV(128);
+    case 16: return BWD_F32(16);
+    case 32: return BWD_F32(32);
+    case 64: return BWD_F32(64);
+    case 128: return BWD_F32(128);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef BWD_DKV
-}
-
-extern "C" int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
-                                          const void* dout, const void* lse, const void* delta,
-                                          void* dq, int b, int n, int m, int h, int dh,
-                                          float scale, void* stream) {
-  if (!head_dim_ok(dh)) return (int)cudaErrorInvalidValue;
-  if (b * n == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-#define BWD_DQ(D)                                                                            \
-  launch_bwd_dq_f32<D>((const float*)q, (const float*)k, (const float*)v, (const float*)dout, \
-                       (const float*)lse, (const float*)delta, (float*)dq, b, n, m, h, scale, \
-                       st)
-  switch (dh) {
-    case 16: return BWD_DQ(16);
-    case 32: return BWD_DQ(32);
-    case 64: return BWD_DQ(64);
-    case 128: return BWD_DQ(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef BWD_DQ
+#undef BWD_F32
 }

@@ -16,14 +16,14 @@ which run on the SFUs, not the tensor cores. The wrappers dispatch by dtype:
   `flash_bwd_mma_kernel`: mma.sync m16n8k16, FA2's online softmax in
   registers, P packed to bf16 as the A operand of P·V; the fused backward
   computes the exponentials once and adds dQ with f32 atomics);
-- f32, which the fp32 model takes, runs the forward on the tf32 tensor
-  cores at fp32 accuracy (`flash_fwd_3xtf32_kernel`: the bf16 kernel's
-  blocks and staging on mma.sync m16n8k8, each operand split into two tf32
-  parts and each product taken as three, small·big + big·small + big·big;
-  P is split too, never rounded to tf32 alone) and the backward on SIMT
-  kernels (`flash_bwd_dkv_f32_kernel`, `flash_bwd_dq_f32_kernel`: fp32
-  FMAs, one thread per row). The forward's earlier SIMT kernel stays as
-  `flash_attention_fwd_f32_simt`, a timing reference no path calls.
+- f32, which the fp32 model takes, runs both on the tf32 tensor cores at
+  fp32 accuracy: each operand split into two tf32 parts and each product
+  taken as three, small·big + big·small + big·big (3xTF32, mma.sync
+  m16n8k8; P and dS are split too, never rounded to tf32 alone). The
+  forward `flash_fwd_3xtf32_kernel` has the bf16 kernel's blocks and
+  staging; the backward `flash_bwd_3xtf32_kernel` is the bf16 one's fused
+  FA2 design, its dQ added with float2 atomics into an f32 output zeroed
+  here and already scaled by the kernel.
 
 The bf16 kernels round P (and in the backward dS) to bf16 before a product,
 as the TPU kernel does (`p.astype(v.dtype)`), so they are held to their fp32
@@ -121,12 +121,14 @@ def _bwd_plain(q, k, v, dout, lse, delta, scale, want_dq, want_dkv, chunk=4096,
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, scale):
-    """Plain version of the dK/dV kernel: (dk, dv) [B, M, H, Dh]."""
+    """The plain backward's dK and dV alone (the TPU's dK/dV kernel's
+    share): (dk, dv) [B, M, H, Dh]."""
     return _bwd_plain(q, k, v, dout, lse, delta, scale, False, True)[1]
 
 
 def flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, scale):
-    """Plain version of the dQ kernel: dq [B, N, H, Dh] (w.r.t. unscaled q)."""
+    """The plain backward's dQ alone (the TPU's dQ kernel's share): dq [B, N,
+    H, Dh] (w.r.t. unscaled q)."""
     return _bwd_plain(q, k, v, dout, lse, delta, scale, True, False)[0]
 
 
@@ -242,21 +244,6 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float,
     return res
 
 
-def flash_attention_fwd_f32_simt(q: Tensor, k: Tensor, v: Tensor, scale: float,
-                                 return_lse: bool = False):
-    """The f32 forward's earlier SIMT kernel (`flash_fwd_f32_simt_kernel`),
-    arguments and results as flash_attention_fwd's in f32: a timing
-    reference beside the 3xTF32 kernel, which no path calls. CPU tensors take
-    the plain version."""
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, scale, return_lse)
-    if q.dtype != torch.float32:
-        raise TypeError(f"flash_attention_fwd_f32_simt takes float32, got {q.dtype}")
-    res = _fwd_launch("flash_attention_fwd_f32_simt", q, k, v, scale, return_lse)
-    flash_attention_fwd_f32_simt.launches += 1
-    return res
-
-
 def _bwd_args(q, k, v, dout, lse, delta):
     _check_qkv(q, k, v)
     b, n, h, dh = q.shape
@@ -270,67 +257,28 @@ def _bwd_args(q, k, v, dout, lse, delta):
     return [_aligned(x, width) for x in (q, k, v, dout)] + [_aligned(lse), _aligned(delta)]
 
 
-def _f32_only(q: Tensor, what: str) -> None:
-    if q.dtype != torch.float32:
-        raise TypeError(f"{what} is the f32 kernel; bf16 goes through flash_attention_bwd")
-
-
-def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale):
-    """The f32 dK/dV kernel: q/dout [B, N, H, Dh], k/v [B, M, H, Dh] f32, lse
-    and delta [B, H, N] f32 -> (dk, dv). CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    if not q.is_cuda:
-        return flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, scale)
-    dh = q.shape[-1]
-    q, k, v, dout, lse, delta = _bwd_args(q, k, v, dout, lse, delta)
-    _f32_only(q, "flash_attention_bwd_dkv")
-    b, n, h, width = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _c_fn("flash_attention_bwd", "flash_attention_bwd_dkv_f32", 8)
-    check(fn(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dk), ptr(dv),
-             b, n, k.shape[1], h, width, float(scale), stream()), "flash_attention_bwd_dkv_f32")
-    flash_attention_bwd_dkv.launches += 1
-    return _unpad(dk, dh), _unpad(dv, dh)
-
-
-def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale):
-    """The f32 dQ kernel (gradient with respect to the unscaled q): arguments
-    as flash_attention_bwd_dkv -> dq [B, N, H, Dh]. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
-    if not q.is_cuda:
-        return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, scale)
-    dh = q.shape[-1]
-    q, k, v, dout, lse, delta = _bwd_args(q, k, v, dout, lse, delta)
-    _f32_only(q, "flash_attention_bwd_dq")
-    b, n, h, width = q.shape
-    dq = torch.empty_like(q)
-    fn = _c_fn("flash_attention_bwd", "flash_attention_bwd_dq_f32", 7)
-    check(fn(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq),
-             b, n, k.shape[1], h, width, float(scale), stream()), "flash_attention_bwd_dq_f32")
-    flash_attention_bwd_dq.launches += 1
-    return _unpad(dq, dh)
-
-
 def flash_attention_bwd(q, k, v, dout, lse, delta, scale):
     """The flash backward: q/dout [B, N, H, Dh], k/v [B, M, H, Dh] (bf16|f32,
     Dh <= 128), lse and delta [B, H, N] f32 -> (dq, dk, dv) in the input
-    dtype, dq with respect to the unscaled q. CPU tensors take the plain version; on CUDA
-    bf16 launches the fused tensor-core kernel (dQ summed in an f32 scratch,
-    scaled and cast here) and f32 the dK/dV and dQ SIMT kernels."""
+    dtype, dq with respect to the unscaled q. CPU tensors take the plain
+    version; on CUDA bf16 launches the fused tensor-core kernel (dQ summed in
+    an f32 scratch, scaled and cast here) and f32 the fused 3xTF32 kernel
+    (dQ summed and scaled in its f32 output)."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, dout, lse, delta, scale)
-    if q.dtype == torch.float32:
-        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale)
-        return flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale), dk, dv
     dh = q.shape[-1]
     q, k, v, dout, lse, delta = _bwd_args(q, k, v, dout, lse, delta)
     b, n, h, width = q.shape
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _c_fn("flash_attention_bwd", "flash_attention_bwd_mma", 9)
+    mma = q.dtype == torch.bfloat16
+    entry = "flash_attention_bwd_mma" if mma else "flash_attention_bwd_f32"
+    fn = _c_fn("flash_attention_bwd", entry, 9)
     check(fn(ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(dq_acc), ptr(dk),
-             ptr(dv), b, n, k.shape[1], h, width, float(scale), stream()),
-          "flash_attention_bwd_mma")
+             ptr(dv), b, n, k.shape[1], h, width, float(scale), stream()), entry)
+    if not mma:
+        flash_attention_bwd.launches_f32 += 1
+        return _unpad(dq_acc, dh), _unpad(dk, dh), _unpad(dv, dh)
     flash_attention_bwd.launches_mma += 1
     # dq_acc's padded columns are the atomics' too: sliced off before the cast
     return (dq_acc[..., :dh] * scale).to(q.dtype), _unpad(dk, dh), _unpad(dv, dh)
@@ -338,10 +286,8 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale):
 
 flash_attention_fwd.launches_mma = 0
 flash_attention_fwd.launches_f32 = 0
-flash_attention_fwd_f32_simt.launches = 0
 flash_attention_bwd.launches_mma = 0
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dq.launches = 0
+flash_attention_bwd.launches_f32 = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -41,16 +41,17 @@ CONV_GRID = [(k, ci, co, 1 + (i % 3), 9 + (i % 5), 33 + 2 * (i % 7))
              for i, (k, ci, co) in enumerate((k, ci, co) for k in (3, 5, 7)
                                              for ci in (1, 3, 8, 16, 32, 64)
                                              for co in (8, 16, 32, 64))]
-CONV_EXTRA = [(5, 8, 24, 2, 9, 33), (3, 16, 128, 2, 10, 70), (3, 64, 8, 3, 19, 45)]
+CONV_EXTRA = [(5, 8, 24, 2, 9, 33), (3, 16, 128, 2, 10, 70), (3, 64, 8, 3, 19, 45),
+              (3, 12, 20, 2, 11, 35), (5, 7, 5, 1, 13, 30), (3, 36, 40, 1, 9, 40)]
 # the (k, Ci, Co) of the grid whose mma tiles would not fit a block's shared
-# memory: they run the SIMT kernel in bf16 too
+# memory: they run the tf32 kernel in bf16 too
 NOT_BUILT = ((5, 64, 64), (7, 32, 64), (7, 64, 16), (7, 64, 32), (7, 64, 64))
 
 
 def _conv_check(fn, plain, fault, x, kern):
     """One launch of fn through the kernel `conv2d.variant` names (by its
     counters), against the plain version; the planted fault must fail."""
-    got, kind = _launched(fn, lambda: fn(x, kern), ("mma", "simt"))
+    got, kind = _launched(fn, lambda: fn(x, kern), ("mma", "tf32"))
     want = plain(x, kern)
     _close(got, want)
     assert _fails(fault(x, kern), want)
@@ -77,23 +78,70 @@ def test_conv_kernel_matches_plain(dev, dtype, k, ci, co, b, h, w):
     kern = (torch.randn(k, k, ci, co, generator=g, device=dev) * (k * k * ci) ** -0.5).to(dtype)
     kind = _conv_check(conv2d.conv2d_same, conv2d.conv2d_same_plain, _conv_fault, x, kern)
     assert kind == conv2d.variant(x, kern)
-    assert kind == ("mma" if dtype == torch.bfloat16 and (k, ci, co) not in NOT_BUILT else "simt")
+    assert kind == ("mma" if dtype == torch.bfloat16 and (k, ci, co) not in NOT_BUILT
+                    and co % 8 == 0 and ci in (1, 3, 7, 8, 16, 32, 64) else "tf32")
 
 
 @pytest.mark.parametrize("ci", [8, 64])
 def test_conv_misaligned_input_takes_the_simt_kernel(dev, ci):
-    """A bf16 input view off a 16-byte boundary runs the SIMT kernel, with
-    the same result; aligned, the same input runs the mma kernel."""
+    """A bf16 input view off a 16-byte boundary runs the tf32 kernel (the
+    SIMT one's successor), with the same result; aligned, the same input
+    runs the mma kernel."""
     g = torch.Generator(device=dev).manual_seed(300 + ci)
     x = torch.randn(2, 11, 37, ci, generator=g, device=dev).to(torch.bfloat16)
     kern = (torch.randn(3, 3, ci, 16, generator=g, device=dev) * 0.1).to(torch.bfloat16)
     fwd = (conv2d.conv2d_same, conv2d.conv2d_same_plain, _conv_fault)
-    assert _conv_check(*fwd, _misaligned(x), kern) == "simt"
+    assert _conv_check(*fwd, _misaligned(x), kern) == "tf32"
     assert _conv_check(*fwd, x, kern) == "mma"
     dx = (conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, _conv_dx_fault)
     gk = (torch.randn(3, 3, 16, ci, generator=g, device=dev) * 0.1).to(torch.bfloat16)
-    assert _conv_check(*dx, _misaligned(x), gk) == "simt"
+    assert _conv_check(*dx, _misaligned(x), gk) == "tf32"
     assert _conv_check(*dx, x, gk) == "mma"
+
+
+@pytest.mark.parametrize("ci", [4, 8, 64])
+def test_conv_f32_misaligned_input_takes_4_byte_copies(dev, ci):
+    """An f32 input off a 16-byte boundary is staged by 4-byte cp.async, not
+    16-byte, with the same result, forward and dx."""
+    g = torch.Generator(device=dev).manual_seed(310 + ci)
+    x = torch.randn(2, 11, 37, ci, generator=g, device=dev)
+    kern = torch.randn(3, 3, ci, 16, generator=g, device=dev) * 0.1
+    fwd = (conv2d.conv2d_same, conv2d.conv2d_same_plain, _conv_fault)
+    assert _conv_check(*fwd, _misaligned(x), kern) == "tf32"
+    dx = (conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, _conv_dx_fault)
+    gk = torch.randn(3, 3, 16, ci, generator=g, device=dev) * 0.1
+    assert _conv_check(*dx, _misaligned(x), gk) == "tf32"
+
+
+@pytest.mark.parametrize("kdtype,dtype,dx", [(torch.float32, torch.float32, False),
+                                             (torch.float32, torch.float32, True),
+                                             (torch.float32, torch.bfloat16, False),
+                                             (torch.bfloat16, torch.bfloat16, True)])
+def test_conv_tf32_packing_on_the_card_is_the_cpu_packing(dev, kdtype, dtype, dx):
+    """conv2d_pack_tf32_kernel gathers and splits the weights as the torch
+    version on the CPU does, bit for bit, from a strided (permuted) kernel,
+    rounding f32 weights to bf16 first for bf16 inputs."""
+    g = torch.Generator().manual_seed(11)
+    param = torch.randn(12, 20, 5, 5, generator=g).to(kdtype)  # [Co, Ci, k, k]
+    kern = param.permute(2, 3, 1, 0)
+    for cot in (8, 16):
+        cpu = conv2d.pack_weights_tf32(kern, dtype, cot, dx)
+        card = conv2d.pack_weights_tf32(param.to(dev).permute(2, 3, 1, 0), dtype, cot, dx)
+        assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def test_conv_tf32_streams_the_weights_where_they_do_not_fit(dev):
+    """The 7x7 at Ci 64 in f32 (its resident weights and three halo stages
+    exceed a block's shared memory) stages each chunk's weights beside its
+    halo; bf16 (one halo stage) keeps them resident, one block an SM."""
+    assert conv2d.tf32_plan(7, 64, 12) == (8, True)
+    assert conv2d.tf32_plan(7, 64, 12, torch.bfloat16) == (8, False)
+    g = torch.Generator(device=dev).manual_seed(320)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(1, 10, 40, 64, generator=g, device=dev).to(dtype)
+        kern = (torch.randn(7, 7, 64, 12, generator=g, device=dev) * 0.02).to(dtype)
+        fwd = (conv2d.conv2d_same, conv2d.conv2d_same_plain, _conv_fault)
+        assert _conv_check(*fwd, x, kern) == "tf32"
 
 
 def _flash_close(got, want, budget):
@@ -185,7 +233,7 @@ def test_flash_reads_no_key_past_m(dev, dtype, dh):
 
 @pytest.mark.parametrize("scale", [-0.3, 0.0])
 def test_flash_f32_any_scale(dev, scale):
-    """The f32 kernel takes any scale, as the SIMT kernel did: a negative one
+    """The f32 kernel takes any scale: a negative one
     (q's sign flipped) and zero (uniform weights, keys past a whole tile
     still masked)."""
     g = torch.Generator(device=dev).manual_seed(3)
@@ -196,21 +244,41 @@ def test_flash_f32_any_scale(dev, scale):
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dh,n,m", [(64, 1611, 1611), (16, 200, 333), (128, 150, 140)])
-def test_flash_f32_simt_reference_matches_plain(dev, dh, n, m):
-    """The SIMT kernel kept as the f32 forward's timing reference computes
-    the same function, and the wrapper of the path does not choose it."""
-    g = torch.Generator(device=dev).manual_seed(dh + n)
-    q, k, v = (torch.randn(1, s, 3, dh, generator=g, device=dev) for s in (n, m, m))
-    simt = flash_attention.flash_attention_fwd_f32_simt
-    before = (simt.launches, flash_attention.flash_attention_fwd.launches_f32)
-    got, lse = simt(q, k, v, 0.3, return_lse=True)
-    flash_attention.flash_attention_fwd(q, k, v, 0.3)
-    assert (simt.launches, flash_attention.flash_attention_fwd.launches_f32) == (
-        before[0] + 1, before[1] + 1)
-    want, want_lse = flash_attention.flash_attention_plain(q, k, v, 0.3, return_lse=True)
-    _close(got, want)
-    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_flash_bwd_f32_any_scale(dev, scale):
+    """The f32 backward takes any scale: a negative one and zero (uniform
+    weights), with keys past a whole 64-key block."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, dout = (torch.randn(2, 70, 2, 64, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(2, 135, 2, 64, generator=g, device=dev) for _ in range(2))
+    out, lse = flash_attention.flash_attention_plain(q, k, v, scale, return_lse=True)
+    args = (q, k, v, dout, lse, flash_attention.attention_delta(out, dout), scale)
+    for got, want in zip(flash_attention.flash_attention_bwd(*args),
+                         flash_attention.flash_attention_bwd_plain(*args)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("n,m", [(1, 9), (17, 65), (100, 63), (129, 200)])
+def test_flash_bwd_f32_every_head_dim_and_tail(dev, dh, n, m):
+    """The fused 3xTF32 backward at its four head dims with queries and keys
+    past whole tiles (16 or 32 queries, 64 keys), q and k at std 1.5."""
+    g = torch.Generator(device=dev).manual_seed(dh + n + m)
+    q, k = (1.5 * torch.randn(2, s, 3, dh, generator=g, device=dev) for s in (n, m))
+    v, dout = (torch.randn(2, s, 3, dh, generator=g, device=dev) for s in (m, n))
+    out, lse = flash_attention.flash_attention_plain(q, k, v, dh ** -0.5, return_lse=True)
+    delta = flash_attention.attention_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, dh ** -0.5)
+    fb = flash_attention.flash_attention_bwd
+    before = (fb.launches_mma, fb.launches_f32)
+    grads = fb(*args)
+    assert (fb.launches_mma, fb.launches_f32) == (before[0], before[1] + 1)
+    for got, want in zip(grads, flash_attention.flash_attention_bwd_plain(*args)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        _close(got, want)
+    bad = fb(q, k, v, dout, lse, 0.92 * delta, dh ** -0.5)
+    want = flash_attention.flash_attention_bwd_plain(*args)
+    assert _fails(bad[0], want[0]) and _fails(bad[1], want[1])
 
 
 def _camera(angle, tx, h, w):
@@ -391,7 +459,7 @@ def test_warp_bwd_misaligned_cotangent_takes_the_scalar_kernel(dev, c):
                                     (64, 300, 129), (16, 5, 64)])
 def test_flash_bwd_kernels_match_plain(dev, dtype, dh, n, m):
     """flash_attention_bwd: bf16 through the fused tensor-core kernel within
-    the rounding budget, f32 through the dK/dV and dQ SIMT kernels within
+    the rounding budget, f32 through the fused 3xTF32 kernel within
     `tolerance` (by their counters); delta 8% low must fail."""
     g = torch.Generator(device=dev).manual_seed(dh + n)
     q, dout = (torch.randn(2, n, 3, dh, generator=g, device=dev).to(dtype) for _ in range(2))
@@ -400,11 +468,10 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, dh, n, m):
     delta = flash_attention.attention_delta(out, dout)
     args = (q, k, v, dout, lse, delta, 0.3)
     counters = (flash_attention.flash_attention_bwd, "launches_mma"), \
-        (flash_attention.flash_attention_bwd_dkv, "launches"), \
-        (flash_attention.flash_attention_bwd_dq, "launches")
+        (flash_attention.flash_attention_bwd, "launches_f32")
     before = [getattr(f, a) for f, a in counters]
     grads = flash_attention.flash_attention_bwd(*args)
-    step = [1, 0, 0] if dtype == torch.bfloat16 else [0, 1, 1]
+    step = [1, 0] if dtype == torch.bfloat16 else [0, 1]
     assert [getattr(f, a) for f, a in counters] == [b + s for b, s in zip(before, step)]
     want = flash_attention.flash_attention_bwd_plain(*args)
     budgets = flash_attention.flash_bwd_budget(*args)
@@ -457,19 +524,17 @@ def test_flash_head_dim_above_128_raises(dev, dtype):
 
 def test_flash_autograd_in_bf16_runs_the_mma_kernels(dev):
     """FlashAttention on bf16 CUDA tensors: one mma forward and one fused
-    mma backward, no SIMT launch; gradients only where asked."""
+    mma backward, no f32 launch; gradients only where asked."""
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(1, 90, 2, 16, generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
     fa, fb = flash_attention.flash_attention_fwd, flash_attention.flash_attention_bwd
-    f32 = (fa.launches_f32, flash_attention.flash_attention_bwd_dkv.launches,
-           flash_attention.flash_attention_bwd_dq.launches)
+    f32 = (fa.launches_f32, fb.launches_f32)
     before = (fa.launches_mma, fb.launches_mma)
     qr, kr = q.requires_grad_(True), k.requires_grad_(True)
     flash_attention.FlashAttention.apply(qr, kr, v, 0.25).float().sum().backward()
     assert (fa.launches_mma, fb.launches_mma) == (before[0] + 1, before[1] + 1)
-    assert (fa.launches_f32, flash_attention.flash_attention_bwd_dkv.launches,
-            flash_attention.flash_attention_bwd_dq.launches) == f32
+    assert (fa.launches_f32, fb.launches_f32) == f32
     assert qr.grad is not None and kr.grad is not None and v.grad is None
 
 
@@ -485,7 +550,7 @@ def test_conv_dx_kernel_matches_plain(dev, dtype, k, ci, co, b, h, w):
     kind = _conv_check(conv2d.conv2d_same_dx, conv2d.conv2d_same_dx_plain, _conv_dx_fault, cot,
                        kern)
     assert kind == conv2d.variant(cot, conv2d.dx_kernel(kern))
-    assert kind == ("mma" if dtype == torch.bfloat16 and (k, co, ci) not in NOT_BUILT else "simt")
+    assert kind == ("mma" if dtype == torch.bfloat16 and (k, co, ci) not in NOT_BUILT else "tf32")
 
 
 def test_autograd_functions_launch_the_backward_kernels(dev):
@@ -501,9 +566,10 @@ def test_autograd_functions_launch_the_backward_kernels(dev):
            (lambda a, b_, c: flash_attention.FlashAttention.apply(a, b_, c, 0.25), (q, k, v),
             (0, 1, 2)),
            (conv2d.Conv2dSame.apply, (x, kern), (0, 1)))
-    counters = (warp.warp_bilinear_bwd, flash_attention.flash_attention_bwd_dkv,
-                flash_attention.flash_attention_bwd_dq, conv2d.conv2d_same_dx)
-    before = [c.launches for c in counters]
+    counters = ((warp.warp_bilinear_bwd, "launches"),
+                (flash_attention.flash_attention_bwd, "launches_f32"),
+                (conv2d.conv2d_same_dx, "launches_tf32"))
+    before = [getattr(c, a) for c, a in counters]
     for fn, inputs, diff in fns:
         grads = []
         for device in ("cpu", dev):
@@ -513,7 +579,7 @@ def test_autograd_functions_launch_the_backward_kernels(dev):
             grads.append([xs[i].grad.cpu() for i in diff])
         for a, b_ in zip(*grads):
             torch.testing.assert_close(b_, a, rtol=1e-4, atol=1e-4)
-    assert all(c.launches > n for c, n in zip(counters, before))
+    assert all(getattr(c, a) > n for (c, a), n in zip(counters, before))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -530,10 +596,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                                torch.zeros(1, 2, 8, 8, 2, device=dev), (1, 8, 8, 4))
     lse = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError):
-        flash_attention.flash_attention_bwd_dq(q, q, q, q, lse[..., :4], lse, 0.2)
+        flash_attention.flash_attention_bwd(q, q, q, q, lse[..., :4], lse, 0.2)
     qb = torch.randn(1, 8, 2, 16, device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        flash_attention.flash_attention_bwd_dkv(qb, qb, qb, qb, lse, lse, 0.2)
+        flash_attention.flash_attention_bwd(qb.half(), qb.half(), qb.half(), qb.half(), lse,
+                                            lse, 0.2)
     with pytest.raises(TypeError):
         flash_attention.flash_attention_fwd(qb.half(), qb.half(), qb.half(), 0.2)
 
