@@ -101,7 +101,8 @@ Phases, one JSON line each:
               line with its checkpoints on eval_cli's scan (5 maps, dpcd);
   blended_cli the training command line with configs/mvsformerplusplus_ft.json
               (--finetune from train_cli's checkpoints, --debug) on a BlendedMVS-
-              layout scan it writes (8 views at 1536 x 2048, JPEG), one epoch of
+              layout scan (8 views at 1536 x 2048, JPEG) written by a process
+              of its own from the start of the run, one epoch of
               512 x 640 crops at batch 4, validation at 1536 x 2048: metrics on
               the "blended" interval scale, scalars.jsonl's train, val and
               debug records, every module's gradient norm finite and no
@@ -178,6 +179,27 @@ Phases, one JSON line each:
               cv2's keypoints and descriptors of two committed images
               (tests/data/make_orb_fixtures.py), each view's converted
               depth range against its true depth;
+  tt_eval_cli, eth3d_eval_cli
+              the eval command line in process at the Tanks and Temples
+              and ETH3D settings of the run scripts (EVAL_SETTINGS: T&T
+              --num_view 20 at 1088 x 1920, --conf_choose stage4, dpcd at
+              conf 0.3 over 10 sources; ETH3D 7 views at 1024 x 1600,
+              --schedule queue, conf 0.5) with configs/mvsformerplusplus.json
+              at full width on a scan of each written by a process of its
+              own from the start of the run, pair.txt listing each view's
+              10 nearest as the repo's converters do (T&T 21 views at the
+              raw 1080 x 1920 with the four-field range line, 11 views a
+              sample; ETH3D 8 views at the raw 4032 x 6048 with the
+              depth-max range line, 7 a sample): a map per view, then the
+              true depths fused through the same command line; the checks
+              of eval_cli (dpcd only, reference view 0 over its 10 or 7
+              sources on the card against the CPU), the true depths' cloud
+              non-empty, each view decoded once; ms per map, the forward's
+              ms, decodes and decode ms per map, the loader-wait share,
+              fusion seconds, points, peak memory; then the host's ms for a
+              sample's decode, conversions and resize, and a CUDA-only
+              profiler pass over one forward (device busy ms, idle share,
+              ms by layer);
   host_codec  the host library against the numpy codec on images it makes at
               1152 x 1536, 1536 x 2048 and 1200 x 1600: JPEG encode (bytes
               equal), decode (pixels equal) and a Paeth PNG's row unfilter
@@ -195,12 +217,14 @@ Phases, one JSON line each:
               same image and quality, and the same photo as lossy WebP and
               9/7 JPEG 2000 (SHA-256 of PIL's RGB) timed; the host stages of one DTU training view; then the
               input-pipeline bench (tools/bench_input_pipeline.py) at its
-              defaults for 20 steps at train_step's measured ms per step,
+              defaults but one scan (35 samples) for 10 steps at
+              train_step's measured ms per step,
               and its JSON, its resizes and hue shifts all native.
 Each path (main_path, train_step, train_step_fp32, train_cli, eval_cli,
 casmvs_main_path, casmvs_train_step, variants_main_path, variants_train_step,
 casmvs_cli, blended_cli, dist_step, train_cli_mesh, eval_queue, e2e_casmvs,
-e2e_flagship, dino_match, scene_convert) is run with every kernel's launch
+e2e_flagship, dino_match, scene_convert, tt_eval_cli, eth3d_eval_cli) is run
+with every kernel's launch
 count set to 0 just before it and read just after, the counts of the
 processes it starts reported back by each (ops.cuda.launch_counts) and
 added; the kernel phase's cases must add
@@ -218,6 +242,7 @@ Then the eval CLI's metric line, the {"kernels": [...]} line and, last,
 Any failure exits non-zero before the last line. Needs one CUDA card.
 """
 import concurrent.futures
+import functools
 import json
 import shutil
 import subprocess
@@ -461,6 +486,140 @@ SCENE_CONVERT = dict(nerf_frames=12, nerf_hw=(1152, 1536), nerf_rgba=(1, 5, 9), 
 # counted in its run (scene_convert fills it before the launch check)
 SCENE_DINO_RUNS: dict = {}
 
+# the tt_eval_cli and eth3d_eval_cli phases: the eval command line at the
+# settings of mvsformerplusplus_tpu_torch/scripts/test_tt_inter.sh (T&T:
+# --num_view 20 at 1088 x 1920, stage-4 confidence, dpcd over 10 sources at
+# conf 0.3) and test_eth3d.sh (ETH3D: 7 views, max 1088 x 1600, the work
+# queue, conf 0.5), each on one scan of the analytic scene written by a
+# process of its own from the start of the run (render_scans): T&T 21 views
+# at its raw 1080 x 1920 with the four-field range line (depth min,
+# interval, depth num, depth max); ETH3D 8 views at its raw 4032 x 6048
+# (rendered at 1008 x 1512 and enlarged 4x nearest before the JPEG write, K
+# to match) with its range line (depth min, depth max), which the dataset
+# resizes to 1024 x 1600. Both rigs are tnt_cameras' (views on an 80-degree
+# arc, the wide field of view), numbered along the arc as a video's frames
+# are; pair.txt lists each view's PAIR_SOURCES nearest (by the distance
+# between camera centres), nearest first, as the repo's converters write it
+# (tools/colmap2mvsnet.py, nerf2mvsnet.py: n_pairs 10), so a T&T sample
+# reads 11 views (sample_views). The ground truth, at the eval size: T&T's render
+# padded as the dataset pads the images, ETH3D's rendered there.
+EVAL_SETTINGS = {
+    "tt": dict(path="tt_eval_cli", views=21, render_hw=(1080, 1920), enlarge=1,
+               hw=(1088, 1920), depths=192, nviews=20, fusion_view=10,
+               flags=["--dataset", "tt", "--num_view", "20", "--max_h", "1088", "--max_w",
+                      "1920", "--numdepth", "192", "--interval_scale", "1.0", "--conf_choose",
+                      "stage4", "--filter_method", "dpcd", "--conf", "0.3", "--fusion_view",
+                      "10"]),
+    "eth3d": dict(path="eth3d_eval_cli", views=8, render_hw=(1008, 1512), enlarge=4,
+                  hw=(1024, 1600), depths=192, nviews=7, fusion_view=10,
+                  flags=["--dataset", "eth3d", "--num_view", "7", "--max_h", "1088", "--max_w",
+                         "1600", "--numdepth", "192", "--interval_scale", "1.0", "--schedule",
+                         "queue", "--filter_method", "dpcd", "--conf", "0.5", "--fusion_view",
+                         "10"]),
+}
+PAIR_SOURCES = 10
+# a rig's depth range and median from renders at 1/RIG_PROBE of the size
+RIG_PROBE = 8
+
+
+def raw_hw(setting) -> tuple:
+    return tuple(n * setting["enlarge"] for n in setting["render_hw"])
+
+
+def sample_views(setting) -> int:
+    """The views a sample of the setting's scan reads: the reference and its
+    first --num_view - 1 sources in pair.txt."""
+    return min(setting["nviews"], 1 + min(PAIR_SOURCES, setting["views"] - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def settings_scene():
+    from mvsformerplusplus_tpu_torch.data.synthetic import GeometricScene
+
+    return GeometricScene(0)
+
+
+class Rig(NamedTuple):
+    """An EVAL_SETTINGS scan's rig (setting_rig)."""
+    render: list  # [(K at the render size, E)], numbered along the arc
+    cams: list  # [(K at the raw size, E)]: an enlarged render's K scaled about pixel centres
+    pairs: list  # [(ref, [(source, score)])]: its PAIR_SOURCES nearest, nearest first
+    depth_range: tuple  # (depth min, depth max) over the views, the writers' margin
+    median: float  # the views' median depth
+
+
+@functools.lru_cache(maxsize=None)
+def setting_rig(name) -> Rig:
+    """An EVAL_SETTINGS scan's rig; its depths from renders at 1/RIG_PROBE
+    of the size, with the writers' margin (0.94, 1.04)."""
+    from mvsformerplusplus_tpu_torch.data.synthetic import tnt_cameras
+
+    s = EVAL_SETTINGS[name]
+    h, w = s["render_hw"]
+    n = s["enlarge"]
+
+    def along_arc(cams):
+        def yaw(E):
+            x, _, z = -E[:3, :3].T @ E[:3, 3]
+            return np.arctan2(x, 650.0 - z)  # about tnt_cameras' target
+        return sorted(cams, key=lambda c: yaw(c[1]))
+
+    render = along_arc(tnt_cameras(s["views"], h, w))
+    cams = []
+    for K, E in render:
+        K = K.copy()
+        K[:2, :2] *= n
+        K[:2, 2] = K[:2, 2] * n + (n - 1) / 2
+        cams.append((K, E))
+    centres = np.stack([-E[:3, :3].T @ E[:3, 3] for _, E in cams])
+    pairs = []
+    for ref in range(len(cams)):
+        dist = np.linalg.norm(centres - centres[ref], axis=1)
+        near = [int(v) for v in np.argsort(dist, kind="stable") if v != ref][:PAIR_SOURCES]
+        pairs.append((ref, [(v, float(1e3 / (1 + dist[v]))) for v in near]))
+    scene, ph, pw = settings_scene(), h // RIG_PROBE, w // RIG_PROBE
+    depths = []
+    for K, E in tnt_cameras(s["views"], ph, pw):
+        d = scene.render(K, E, ph, pw)[1]
+        depths.append(d[d > 0])
+    depths = np.concatenate(depths)
+    return Rig(render, cams, pairs, (float(depths.min()) * 0.94, float(depths.max()) * 1.04),
+               float(np.median(depths)))
+
+
+def setting_eval_k(name, K):
+    """K at the eval size, as the dataset gives it: T&T's cy shifted by its
+    4-row pad, ETH3D's scaled by the resize."""
+    s = EVAL_SETTINGS[name]
+    K = K.copy()
+    if name == "tt":
+        K[1, 2] += 4.0
+        return K
+    (rh, rw), (h, w) = raw_hw(s), s["hw"]
+    K[0] *= w / rw
+    K[1] *= h / rh
+    return K
+
+
+def setting_cameras(name, b=1):
+    """Cameras of an EVAL_SETTINGS scan's first sample at the eval size
+    ({stageN: [b, sample_views, 2, 4, 4]}) and its hypotheses [b, D] (the
+    dataset's: its range over the run's depths at interval scale 1), on
+    the card."""
+    from mvsformerplusplus_tpu_torch.data.mvs_dataset import stage_cameras
+
+    s = EVAL_SETTINGS[name]
+    rig = setting_rig(name)
+    ref, srcs = rig.pairs[0]
+    per_view = [stage_cameras(setting_eval_k(name, rig.cams[v][0]), rig.cams[v][1])
+                for v in [ref] + [v for v, _ in srcs[:sample_views(s) - 1]]]
+    stacked = {k: torch.from_numpy(np.stack([c[k] for c in per_view])[None].repeat(b, 0)).cuda()
+               for k in per_view[0]}
+    lo, hi = rig.depth_range
+    dint = (hi - lo) / s["depths"]
+    dv = np.arange(lo, dint * s["depths"] + lo, dint, dtype=np.float32)[:s["depths"]]
+    return stacked, torch.from_numpy(dv[None].repeat(b, 0)).cuda()
+
 
 class ShapeConfig(NamedTuple):
     """One shape a path runs the model at (shape_configs)."""
@@ -471,6 +630,8 @@ class ShapeConfig(NamedTuple):
     runs: dict  # {path: runs of this shape per run of the path}
     model: str  # "flagship" or "casmvs"
     views: int = 4  # the source views a rank warps
+    nviews: int = 5  # the views of a sample (its reference and its sources)
+    rig: str = "dtu"  # the cameras: make_dtu_eval_batch's, or an EVAL_SETTINGS scan's
     # {path: runs} of a split rank's other kernels at this unsharded twin's
     # shapes, and of its visibility nets
     shared: dict = {}
@@ -479,6 +640,11 @@ class ShapeConfig(NamedTuple):
     remat: str = "cost_reg"  # a train config's granularity ("stage" replays
     # each stage's warps and visibility convs in the backward)
     vit: tuple = VIT_B
+
+
+def split_views(cfg) -> bool:
+    """A view-sharded rank's config: it warps part of the sample's sources."""
+    return cfg.views < cfg.nviews - 1
 
 
 def schedule_steps(samples, scales, batch, epochs):
@@ -519,7 +685,9 @@ def shape_configs():
     see a view split, only the warps a depth split: the other kernels of a
     split rank run at its unsharded twin's shapes, whose `shared` and
     `shared_vis` count them. The e2e_protocol paths' configs (e2e_configs)
-    follow. A config no path runs is left out."""
+    follow, then the eval CLI's at the T&T and ETH3D settings (EVAL_SETTINGS:
+    a forward per view of the scan, 11 and 7 views a sample, on their
+    rigs). A config no path runs is left out."""
     steps, val_maps = cli_counts()
     cas = schedule_steps(CLI["samples"], CLI["scales"], CAS_CLI["batch"], CAS_CLI["epochs"])
     blended = schedule_steps(BLENDED["views"], BLENDED["scales"], BLENDED["batch"],
@@ -559,7 +727,9 @@ def shape_configs():
           views=2),
         C("depth640", "train", (2, 512, 640), 1, {"dist_step": rank_steps}, "flagship",
           parts=2),
-    ]
+    ] + [C(f"{name}_eval", "eval", (1,) + s["hw"], 0, {s["path"]: s["views"]}, "flagship",
+           views=sample_views(s) - 1, nviews=sample_views(s), rig=name)
+         for name, s in EVAL_SETTINGS.items()]
 
     def shape(c):  # what the kernels see: all but the name, seed and runs
         return c._replace(name=None, seed=None, runs=None)
@@ -597,9 +767,16 @@ def e2e_configs():
     return out
 
 
-def _config_batch(bhw, seed):
-    b, h, w = bhw
-    return to_device(make_dtu_eval_batch(b=b, h=h, w=w, seed=seed), "cuda")
+def config_cameras(cfg):
+    """A shape config's cameras and hypotheses on the card: its rig's
+    (make_dtu_eval_batch's at its views, or an EVAL_SETTINGS scan's first
+    sample)."""
+    b, h, w = cfg.bhw
+    if cfg.rig != "dtu":
+        return setting_cameras(cfg.rig, b)
+    _, cams, dv = to_device(make_dtu_eval_batch(b=b, v=cfg.nviews, h=h, w=w, seed=cfg.seed),
+                            "cuda")
+    return cams, dv
 
 
 def _times(runs, n):
@@ -674,14 +851,16 @@ def warp_cases():
     (fusion_warp_cases)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     for cfg in shape_configs():
-        imgs, cams, dv = _config_batch(cfg.bhw, cfg.seed)
-        nsrc = cfg.views * imgs.shape[0]
+        cams, dv = config_cameras(cfg)
+        b, h, w = cfg.bhw
+        nsrc = cfg.views * b
         replays = 2 if cfg.kind == "train" and cfg.remat == "stage" else 1
-        for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
+        for stage, nd, c, hh, ww in _stage_shapes(h, w):
             coords = stage_coords(cams, dv, stage, nd, hh, ww, cfg.views, cfg.parts)
             src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda").to(torch.bfloat16)
             yield (f"{cfg.name}_stage{stage}", _times(cfg.runs, replays), (src, coords),
-                   warp_tpu_rows(stage, nd, c, ww, cfg.views < 4 or cfg.parts > 1))
+                   warp_tpu_rows(stage, nd, c, ww, split_views(cfg) or cfg.parts > 1))
+            del src, coords
     for stage, nd, c, hh, ww, coords, nsrc in _train640_stages((1, 2, 3, 4)):
         src = torch.randn(nsrc, hh, ww, c, generator=gen, device="cuda")  # the fp32 step's
         yield f"train640_fp32_stage{stage}", dict(FP32_STEP), (src, coords), warp_tpu_rows(
@@ -694,7 +873,8 @@ def fusion_warp_cases():
     (5 in the eval_cli run) dpcd samples the 4 source depth maps (C=1) and
     pcd the 4 sources' (x, y, depth) fields (C=3), each padded to 4 f32
     channels (fusion.bilinear_sample), at the reference pixels' projections
-    into the sources (the eval scan's rig, the scene's mean depth). The
+    into the sources (the eval scan's rig, the scene's mean depth); then
+    dpcd at the T&T and ETH3D settings (EVAL_SETTINGS). The
     values are random: a constant field would hide the planted fault. In
     the JAX package these are XLA gathers (no TPU row). The coordinates
     [V, 1, H, W, 2] (one depth) are fusion's [V, H, W, 2]: the same
@@ -719,6 +899,23 @@ def fusion_warp_cases():
         runs = {"eval_cli": v, "e2e_casmvs": v, "e2e_flagship": v,
                 **({"casmvs_cli": v} if method == "dpcd" else {})}
         yield f"eval_cli_fusion_{method}", runs, (src, coords), ()
+        del src
+    for name, s in EVAL_SETTINGS.items():
+        # dpcd per reference view over its first fusion_view sources, in the
+        # depth run's fusion and again in the ground-truth fusion through
+        # the CLI (run_eval_setting), at the rig's median depth
+        rig = setting_rig(name)
+        h, w = s["hw"]
+        ref, srcs = rig.pairs[0]
+        stack = torch.from_numpy(np.stack([
+            build_camera_stack(setting_eval_k(name, K), E) for K, E in
+            [rig.cams[ref]] + [rig.cams[v] for v, _ in srcs[:s["fusion_view"]]]])).cuda()
+        wc = project_ref(torch.full((h, w), rig.median, device="cuda"), stack[0], stack[1:])
+        src = torch.zeros(len(stack) - 1, h, w, 4, device="cuda")
+        src[..., :1] = torch.randn(len(stack) - 1, h, w, 1, generator=gen, device="cuda")
+        yield (f"{s['path']}_fusion_dpcd", {s["path"]: 2 * s["views"]},
+               (src, wc[:, None, ..., :2].contiguous()), ())
+        del src, wc
 
 
 def misaligned(t):
@@ -732,8 +929,9 @@ def misaligned(t):
 def _train640_stages(stages):
     """(stage, nd, c, hh, ww, coords, source views) of the train crop's
     warps at `stages`."""
-    imgs, cams, dv = _config_batch((TRAIN["b"], TRAIN["h"], TRAIN["w"]), 1)
-    nsrc = (imgs.shape[1] - 1) * imgs.shape[0]
+    _, cams, dv = to_device(make_dtu_eval_batch(b=TRAIN["b"], h=TRAIN["h"], w=TRAIN["w"],
+                                                seed=1), "cuda")
+    nsrc = (TRAIN["v"] - 1) * TRAIN["b"]
     for stage, nd, c, hh, ww in _stage_shapes(TRAIN["h"], TRAIN["w"]):
         if stage in stages:
             yield stage, nd, c, hh, ww, stage_coords(cams, dv, stage, nd, hh, ww), nsrc
@@ -779,12 +977,13 @@ def warp_bwd_cases():
     for cfg in shape_configs():
         if cfg.kind != "train":
             continue
-        imgs, cams, dv = _config_batch(cfg.bhw, cfg.seed)
-        nsrc = cfg.views * imgs.shape[0]
-        for stage, nd, c, hh, ww in _stage_shapes(imgs.shape[2], imgs.shape[3]):
+        cams, dv = config_cameras(cfg)
+        b, h, w = cfg.bhw
+        nsrc = cfg.views * b
+        for stage, nd, c, hh, ww in _stage_shapes(h, w):
             coords = stage_coords(cams, dv, stage, nd, hh, ww, cfg.views, cfg.parts)
             g = torch.randn(nsrc, nd // cfg.parts, hh, ww, c, generator=gen, device="cuda")
-            if cfg.views < 4 or cfg.parts > 1:
+            if split_views(cfg) or cfg.parts > 1:
                 rows = ()
             else:
                 rows = (7,) if ww % 128 == 0 and ww >= 384 else (6,)
@@ -844,11 +1043,11 @@ def flash_cases():
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     for cfg in shape_configs():
-        if cfg.model != "flagship" or cfg.views != 4 or cfg.parts > 1:
+        if cfg.model != "flagship" or split_views(cfg) or cfg.parts > 1:
             continue
         runs = _plus(cfg.runs, cfg.shared)
         b, h, w = cfg.bhw
-        v = TRAIN["v"]  # every config has 5 views
+        v = cfg.nviews
         n_vit, n_cta = _tokens(h, w)
         train = cfg.kind == "train"
         blocks, heads, dh, vit_trains = cfg.vit
@@ -961,7 +1160,7 @@ def flash_bwd_cases():
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     for cfg in shape_configs():
-        if cfg.kind != "train" or cfg.model != "flagship" or cfg.views != 4 or cfg.parts > 1:
+        if cfg.kind != "train" or cfg.model != "flagship" or split_views(cfg) or cfg.parts > 1:
             continue
         runs = _plus(cfg.runs, cfg.shared)
         b, h, w = cfg.bhw
@@ -971,7 +1170,7 @@ def flash_bwd_cases():
         blocks, heads, dh, vit_trains = cfg.vit
         if vit_trains:
             yield (f"{cfg.name}_vit", _times(runs, blocks),
-                   _bwd_args(gen, (b * TRAIN["v"], n_vit, heads, dh), dh ** -0.5), (8,))
+                   _bwd_args(gen, (b * cfg.nviews, n_vit, heads, dh), dh ** -0.5), (8,))
     yield "dh32", {}, _bwd_args(gen, (2, 1000, 3, 32), 32 ** -0.5), (8,)
 
 
@@ -1036,16 +1235,25 @@ def _conv_runs(conv, cfg):
         return None
     if conv.startswith("visibility"):
         return _plus(cfg.runs, cfg.shared_vis)
-    return _plus(cfg.runs, cfg.shared) if cfg.views == 4 else None
+    return None if split_views(cfg) else _plus(cfg.runs, cfg.shared)
 
 
-def _batched_conv(shapes, b, model, views=4):
-    """The same convs on B samples (the batch of each grows B-fold), those
-    of `model` (CasMVSNet has no FMT); a visibility net sees the `views`
-    source views a rank warps (4, or 4 / n_cv under view sharding)."""
-    return [(name, n, (b * (views if name.startswith("visibility") else bb), div, ci, co, k))
-            for name, n, (bb, div, ci, co, k) in shapes
-            if model == "flagship" or not name.startswith("fmt_")]
+def _batched_conv(shapes, b, model, views=4, nviews=5):
+    """The same convs on B samples of `nviews` views (the batch of each
+    grows B-fold; the encoder's and decoder's batch is the sample's views,
+    the FMT smoothing runs once per view), those of `model` (CasMVSNet has
+    no FMT); a visibility net sees the `views` source views a rank warps
+    (all but the reference, or their share under view sharding)."""
+    out = []
+    for name, n, (bb, div, ci, co, k) in shapes:
+        if name.startswith("fmt_"):
+            if model != "flagship":
+                continue
+            n = nviews
+        else:
+            bb = views if name.startswith("visibility") else nviews
+        out.append((name, n, (b * bb, div, ci, co, k)))
+    return out
 
 
 # the convs whose input needs a gradient on the train path, with their dx
@@ -1060,7 +1268,7 @@ def conv_cases():
     for cfg in shape_configs():
         b, h, w = cfg.bhw
         for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_SHAPES, b, cfg.model,
-                                                               cfg.views):
+                                                               cfg.views, cfg.nviews):
             conv_runs = _conv_runs(conv, cfg)
             if conv_runs is None:
                 continue
@@ -1124,7 +1332,7 @@ def conv_dx_cases():
             continue
         b, h, w = cfg.bhw
         for conv, count, (bb, div, ci, co, k) in _batched_conv(CONV_DX_SHAPES, b, cfg.model,
-                                                               cfg.views):
+                                                               cfg.views, cfg.nviews):
             conv_runs = _conv_runs(conv, cfg)
             if conv_runs is None:
                 continue
@@ -2103,12 +2311,13 @@ def profile_run(fn, iters, top=20) -> dict:
             "result": result}
 
 
-def profile_forward(model, inputs, family="flagship") -> dict:
+def profile_forward(model, inputs, family="flagship", phase=None) -> dict:
     def forward():
         with torch.inference_mode():
             model(*inputs)
 
-    spec, phase = family_spec(family), PHASE_PREFIX[family] + "profile"
+    spec = family_spec(family)
+    phase = phase or PHASE_PREFIX[family] + "profile"
     prof = profile_run(forward, iters=2)
     del prof["result"]
     check_kernel_names(prof, phase, spec["forward_names"], spec["absent_names"])
@@ -2315,11 +2524,13 @@ def _fuse_with_decisions(method, a):
     return pts, mask, torch.cat([consistent.int(), src_px.permute(3, 0, 1, 2).flatten(0, 1)])
 
 
-def gt_fusion_check(scan_dir: Path, out_dir: Path, gt_dir: Path) -> dict:
+def gt_fusion_check(scan_dir: Path, out_dir: Path, gt_dir: Path, methods=tuple(FUSE_ARGS),
+                    refs=GT_FUSE_REFS, sources=None) -> dict:
     """The scan's ground-truth depths (confidence 1) fused on the card and
-    on the CPU (plain versions) with each method at its defaults, for the
-    reference views GT_FUSE_REFS against their 4 sources (the CPU takes ~5
-    s per view and method at this size). fp32 products in another order
+    on the CPU (plain versions) with each of `methods` at its defaults, for
+    the reference views `refs` against their sources in pair.txt (the first
+    `sources` of them; the CPU takes ~5 s per view and method over 4
+    sources at 1152 x 1536). fp32 products in another order
     can flip a decision that sits on its threshold: the final mask or a
     per-view decision the kept point is averaged over (which moves the
     point by up to a view's share of the average). Reported: the share of
@@ -2330,16 +2541,17 @@ def gt_fusion_check(scan_dir: Path, out_dir: Path, gt_dir: Path) -> dict:
     from mvsformerplusplus_tpu_torch.data.io import (build_camera_stack, read_cam_file,
                                                      read_pair_file, read_pfm)
 
-    pair = dict(read_pair_file(scan_dir / "pair.txt"))
-    depth = {v: read_pfm(gt_dir / f"depth_map_{v:0>4}.pfm")[0] for v in pair}
+    pair = {ref: srcs[:sources] for ref, srcs in read_pair_file(scan_dir / "pair.txt")}
+    used = sorted({v for ref in refs for v in [ref] + pair[ref]})
+    depth = {v: read_pfm(gt_dir / f"depth_map_{v:0>4}.pfm")[0] for v in used}
     cam = {v: build_camera_stack(*read_cam_file(out_dir / "cams" / f"{v:0>8}_cam.txt")[:2])
-           for v in pair}
+           for v in used}
     out = {}
-    for method in FUSE_ARGS:
+    for method in methods:
         flips = decision_flips = pixels = kept = 0
         dist_mask = dist_all = 0.0
         pts_cpu = []
-        for ref in GT_FUSE_REFS:
+        for ref in refs:
             srcs = pair[ref]
             arrays = {"ref_depth": depth[ref], "ref_conf": np.ones_like(depth[ref]),
                       "src_depths": np.stack([depth[s] for s in srcs]),
@@ -2365,7 +2577,8 @@ def gt_fusion_check(scan_dir: Path, out_dir: Path, gt_dir: Path) -> dict:
             pts_cpu.append(p_cpu[m_cpu])
         pts = np.concatenate(pts_cpu)
         extent = float(np.ptp(pts, axis=0).max()) if len(pts) else 0.0
-        out[method] = {"refs": list(GT_FUSE_REFS), "mask_flip_share": flips / pixels,
+        out[method] = {"refs": list(refs), "sources": len(pair[refs[0]]),
+                       "mask_flip_share": flips / pixels,
                        "decision_flip_share": decision_flips / pixels,
                        "kept_share": kept / pixels, "points_cpu": len(pts), "extent": extent,
                        "max_point_dist_over_extent_masks_agree":
@@ -2431,48 +2644,17 @@ def run_eval_cli(counters, work: Path):
     host = read_host_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     depth_run = runs["dpcd"]
-    written = eval_outputs(out, cfg, EVAL_CLI["views"], EVAL_CLI["hw"], EVAL_CLI["depths"])
-    files = written["output_files"] and (out / "depth_metric.txt").exists()
-    conf_u8 = files and all(
-        (c.dtype, c.shape) == (np.uint8, (h, w))
-        for c in (np.load(out / "scan1" / "confidence" / f"{v:0>8}.npy")
-                  for v in range(EVAL_CLI["views"])))
-    gt = (gt_fusion_check(root / "scan1", out / "scan1", root / "gt_depths" / "scan1")
-          if files else {})
-    maps = depth_run["maps"]
-    fwd = depth_run["forward_ms"]
-    steady = np.diff(depth_run["map_done_s"]) * 1e3
-    checks = {
-        **written,
-        "output_files": files,
-        "ply_per_method": all(clouds.values()),
-        "confidence_uint8": conf_u8,
-        "maps_and_forwards": maps == EVAL_CLI["views"] and len(fwd) == maps,
-        "gt_clouds_non_empty": bool(gt) and all(r["points_cpu"] > 0 for r in gt.values()),
-        "gt_masks_card_vs_cpu": bool(gt) and all(r["decision_flip_share"] <= 1e-4
-                                                 for r in gt.values()),
-        "gt_points_card_vs_cpu": bool(gt) and all(
-            r["max_point_dist_over_extent"] is not None
-            and r["max_point_dist_over_extent"] <= 1e-4 for r in gt.values()),
-        "every_forward_kernel_launched": all(
-            launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd", "conv2d_same")),
-        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
-        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
-        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
-        **host_checks(host, sum(r["decodes"] + r["fusion_decodes"] for r in runs.values())),
-    }
-    ms_per_map = depth_run["depth_s"] / maps * 1e3
+    checks, gt = eval_cli_checks(
+        out, cfg, EVAL_CLI["views"], EVAL_CLI["hw"], EVAL_CLI["depths"], depth_run, launches,
+        host, sum(r["decodes"] + r["fusion_decodes"] for r in runs.values()),
+        lambda: gt_fusion_check(root / "scan1", out / "scan1", root / "gt_depths" / "scan1"))
+    checks["depth_metric_file"] = (out / "depth_metric.txt").exists()
+    checks["ply_per_method"] = all(clouds.values())
     row = {"phase": "eval_cli", "config": str(CONFIG.relative_to(REPO)),
            "scan": {"views": EVAL_CLI["views"], "hw": [h, w], "depths": EVAL_CLI["depths"],
                     "write_s": write_s},
-           "ms_per_map": ms_per_map, "ms_between_maps": steady.tolist(),
-           "forward_ms": fwd, "forward_ms_per_map": float(np.mean(fwd)) if fwd else None,
-           "decode_ms_per_image": depth_run["decode_s"] / max(depth_run["decodes"], 1) * 1e3,
-           "decodes": depth_run["decodes"], "decode_share_of_ms_per_map":
-               depth_run["decode_s"] / depth_run["depth_s"],
-           "encode_ms_per_image": depth_run["encode_s"] / maps * 1e3,
+           **eval_run_fields(depth_run),
            "decode_ms_alone": decode_alone_ms, "encode_ms_alone": encode_alone_ms,
-           "loader_wait_share": depth_run["loader_wait_s"] / depth_run["depth_s"],
            "fusion_s_per_scan": {m: r["fusion_s"]["scan1"] for m, r in runs.items()},
            "points_per_cloud": {m: r["points"]["scan1"] for m, r in runs.items()},
            "fusion_decodes": {m: r["fusion_decodes"] for m, r in runs.items()},
@@ -2508,6 +2690,278 @@ def eval_outputs(out: Path, cfg: dict, views: int, hw, depths: int) -> dict:
         in_range &= bool(((depth >= lo * (1 - 1e-5)) & (depth <= hi * (1 + 1e-5))).all())
     return {"output_files": files, "depth_finite": files and finite,
             "depth_in_hypothesis_range": files and in_range}
+
+
+def eval_cli_checks(out: Path, cfg: dict, views: int, hw, depths: int, run: dict, launches,
+                    host, decodes: int, fuse_gt):
+    """The checks every eval-CLI path makes of its depth run `run`
+    (cli.main's result) under `out`: eval_outputs', the confidence maps
+    uint8 of size `hw`, a map and a forward per view, the ground-truth
+    depths' fusion on the card against the CPU (`fuse_gt()`, a
+    gt_fusion_check run only where every file was written: both clouds
+    non-empty, the mask or a per-view decision differing on at most 1e-4 of
+    the pixels, points within 1e-4 of the cloud's extent where every
+    decision agrees), every forward kernel launched and none of the f32
+    flash, tf32 conv or scalar warp kernels, and host_checks over the
+    path's `decodes`. Returns (checks, gt_fusion_check's result)."""
+    written = eval_outputs(out, cfg, views, hw, depths)
+    files = written["output_files"]
+    conf_u8 = files and all(
+        (c.dtype, c.shape) == (np.uint8, tuple(hw))
+        for c in (np.load(out / "scan1" / "confidence" / f"{v:0>8}.npy") for v in range(views)))
+    gt = fuse_gt() if files else {}
+    checks = {
+        **written,
+        "confidence_uint8": conf_u8,
+        "maps_and_forwards": run["maps"] == views and len(run["forward_ms"]) == views,
+        "gt_clouds_non_empty": bool(gt) and all(r["points_cpu"] > 0 for r in gt.values()),
+        "gt_masks_card_vs_cpu": bool(gt) and all(r["decision_flip_share"] <= 1e-4
+                                                 for r in gt.values()),
+        "gt_points_card_vs_cpu": bool(gt) and all(
+            r["max_point_dist_over_extent"] is not None
+            and r["max_point_dist_over_extent"] <= 1e-4 for r in gt.values()),
+        "every_forward_kernel_launched": all(
+            launches[k] > 0 for k in ("warp_bilinear", "flash_attention_fwd", "conv2d_same")),
+        "flash_through_mma_kernels": none_launched(launches, F32_ONLY),
+        "conv_through_mma_kernel": none_launched(launches, CONV_TF32),
+        "warp_through_vec_kernels": none_launched(launches, WARP_SCALAR),
+        **host_checks(host, decodes),
+    }
+    return checks, gt
+
+
+def eval_run_fields(run: dict) -> dict:
+    """An eval-CLI path's row fields from its depth run (cli.main's result):
+    ms per map end to end (data, forward, writes) and between maps, the
+    forward's ms (CUDA events in the CLI), decodes and their ms, the encode
+    ms per map and the loader-wait share."""
+    maps, fwd, depth_s = run["maps"], run["forward_ms"], run["depth_s"]
+    return {"ms_per_map": depth_s / maps * 1e3,
+            "ms_between_maps": (np.diff(run["map_done_s"]) * 1e3).tolist(),
+            "forward_ms": fwd, "forward_ms_per_map": float(np.mean(fwd)) if fwd else None,
+            "decodes": run["decodes"], "decodes_per_map": run["decodes"] / maps,
+            "decode_ms_per_map": run["decode_s"] / maps * 1e3,
+            "decode_ms_per_image": run["decode_s"] / max(run["decodes"], 1) * 1e3,
+            "decode_share_of_ms_per_map": run["decode_s"] / depth_s,
+            "encode_ms_per_image": run["encode_s"] / maps * 1e3,
+            "loader_wait_share": run["loader_wait_s"] / depth_s}
+
+
+def write_setting_scan(root: Path, name: str) -> None:
+    """An EVAL_SETTINGS scan of the analytic scene under root/scan1,
+    written by make_geometric_eval_scan on the setting's rig at the render
+    size (JPEG at quality 97, the true depths under gt_depths/), then made
+    the setting's: each image enlarged nearest to the raw size where the
+    setting says so (decoded and written again at quality 97), the cams at
+    the raw size with the setting's range line (T&T: depth min, interval,
+    depth num, depth max; ETH3D: depth min, depth max), pair.txt the rig's,
+    list.txt, and the true depths at the eval size under gt_eval/ (T&T's
+    padded 4 rows each side as the dataset pads the images, ETH3D's
+    rendered at the eval size with the cams the dataset gives)."""
+    from mvsformerplusplus_tpu_torch.data.io import (read_image_u8, read_pfm, save_cam_file,
+                                                     save_pair_file, save_pfm)
+    from mvsformerplusplus_tpu_torch.data.jpeg import write_jpeg
+    from mvsformerplusplus_tpu_torch.data.synthetic import make_geometric_eval_scan
+
+    s, rig, scene = EVAL_SETTINGS[name], setting_rig(name), settings_scene()
+    n, (h, w), (lo, hi) = s["enlarge"], s["hw"], rig.depth_range
+    make_geometric_eval_scan(root, "scan1", n_views=s["views"], h=s["render_hw"][0],
+                             w=s["render_hw"][1], ndepth=s["depths"], scene=scene,
+                             cameras=rig.render)
+    sd, gt = root / "scan1", root / "gt_eval"
+    gt.mkdir()
+    for vid, (K, E) in enumerate(rig.cams):
+        if n > 1:
+            image = sd / "images" / f"{vid:0>8}.jpg"
+            write_jpeg(image, np.repeat(np.repeat(read_image_u8(image), n, axis=0), n, axis=1),
+                       quality=97)
+        if name == "tt":
+            truth = np.pad(read_pfm(root / "gt_depths" / "scan1" / f"depth_map_{vid:0>4}.pfm")[0],
+                           ((4, 4), (0, 0)), mode="edge")
+        else:
+            truth = scene.render(setting_eval_k(name, K), E, h, w)[1]
+        save_pfm(gt / f"depth_map_{vid:0>4}.pfm", truth)
+        cam = sd / "cams" / f"{vid:0>8}_cam.txt"
+        if name == "tt":
+            save_cam_file(cam, K, E, lo, (hi - lo) / s["depths"], depth_num=s["depths"],
+                          depth_max=hi)
+        else:
+            save_cam_file(cam, K, E, lo, hi)
+    save_pair_file(sd / "pair.txt", rig.pairs)
+    (root / "list.txt").write_text("scan1\n")
+
+
+def render_scans(root: str) -> None:
+    """The blended_cli, tt_eval_cli and eth3d_eval_cli phases' scans,
+    rendered and written in a process of its own while the card runs the
+    earlier phases, at the lowest CPU priority: root/blended
+    (make_blended_scan at BLENDED's views and size), then root/<setting>/
+    as write_setting_scan writes each of EVAL_SETTINGS; each directory's
+    render.json (its seconds) last, which the phase waits for."""
+    import os
+
+    from mvsformerplusplus_tpu_torch.data.synthetic import make_blended_scan
+
+    os.nice(19)
+    sys.path.insert(0, str(REPO))
+    jobs = [("blended", lambda d: make_blended_scan(d, "blended1", n_views=BLENDED["views"],
+                                                    h=BLENDED["hw"][0], w=BLENDED["hw"][1],
+                                                    ndepth=192))]
+    jobs += [(name, functools.partial(write_setting_scan, name=name)) for name in EVAL_SETTINGS]
+    for name, write in jobs:
+        t0 = time.perf_counter()
+        write(Path(root) / name)
+        (Path(root) / name / "render.json").write_text(
+            json.dumps({"render_s": time.perf_counter() - t0}))
+
+
+def wait_for_render(done: Path, renderer) -> float:
+    """Seconds waited for a renderer's `done` file; fails if the renderer
+    exits without writing it or takes more than 10 minutes."""
+    t0 = time.perf_counter()
+    while not done.exists():
+        if not renderer.is_alive() and not done.exists():
+            raise SystemExit(f"the renderer exited ({renderer.exitcode}) without {done.name}")
+        if time.perf_counter() - t0 > 600:
+            raise SystemExit(f"{done} not written within 600 s")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def setting_host_ms(name: str, scan: Path, args) -> dict:
+    """The host's work on an EVAL_SETTINGS sample on the main thread: one
+    raw view's decode, its float conversion, T&T's pad and the resize to
+    the eval size (native.resize_linear), ms each; then a sample of the
+    dataset from its cache (every view already decoded: the conversions,
+    pads, resizes and the normalisation of its views) and with its views
+    to decode."""
+    from mvsformerplusplus_tpu_torch.data import native
+    from mvsformerplusplus_tpu_torch.data.eval_dataset import EvalDataset
+    from mvsformerplusplus_tpu_torch.data.io import read_image_u8
+
+    h, w = EVAL_SETTINGS[name]["hw"]
+    out = {}
+    t0 = time.perf_counter()
+    pixels = read_image_u8(scan / "images" / "00000000.jpg")
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    img = np.asarray(pixels, np.float32) / 255.0
+    out["to_float_ms"] = (time.perf_counter() - t0) * 1e3
+    if name == "tt":
+        t0 = time.perf_counter()
+        img = np.pad(img, ((4, 4), (0, 0), (0, 0)), mode="edge")
+        out["pad_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    native.resize_linear(img, h, w)
+    out["resize_ms"] = (time.perf_counter() - t0) * 1e3
+    ds = EvalDataset(str(scan.parent), [scan.name], nviews=args.num_view, ndepths=args.numdepth,
+                     interval_scale=args.interval_scale, max_h=args.max_h, max_w=args.max_w,
+                     dataset_name=name)
+    t0 = time.perf_counter()
+    sample = ds[0]
+    out["sample_ms_decoding"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ds[0]
+    out["sample_ms_cached"] = (time.perf_counter() - t0) * 1e3
+    out["views_per_sample"] = len(sample["imgs"])
+    return out, sample
+
+
+def run_eval_setting(counters, name: str, root: Path, renderer):
+    """The eval command line in process on the card at an EVAL_SETTINGS
+    setting (T&T or ETH3D: its flags, as the run scripts give them) with
+    configs/mvsformerplusplus.json at full width, seeded weights, on its
+    scan (render_scans, under root/<setting>): a depth map per view
+    with dpcd fusion, then the scan's true depths (confidence 1) in place
+    of the estimates fused through the same command line (--skip_depth)
+    with the run's cams and images. Checks every output file, every depth
+    map finite, of the eval size and inside the cascade's hypothesis range,
+    the confidence uint8, each cloud the run's count (the random weights'
+    may be empty, the true depths' not), the true depths fused on the card
+    and on the CPU for reference view 0 over its fusion sources within
+    gt_fusion_check's limits, every forward kernel launched and none of the
+    scalar warps, f32 flash or tf32 conv, each view of the scan decoded
+    once and every decode native, a sample's views sample_views'. Records ms per map end to end, the
+    forward's ms per map (CUDA events in the CLI), decodes and decode ms
+    per map, the loader-wait share, fusion seconds and points, peak memory;
+    then, outside the counted run, the host's work on a sample
+    (setting_host_ms) and a CUDA-only profiler pass over one forward on a
+    sample of the scan (device busy ms and idle share, ms by layer)."""
+    from mvsformerplusplus_tpu_torch.config import build_model, load_config
+    from mvsformerplusplus_tpu_torch.eval import cli
+    from mvsformerplusplus_tpu_torch.fusion.ply import read_ply
+
+    phase_t0 = time.perf_counter()
+    s = EVAL_SETTINGS[name]
+    cfg = json.loads(CONFIG.read_text())["arch"]["args"]
+    scan_root = root / name
+    render_wait_s = wait_for_render(scan_root / "render.json", renderer)
+    out, gt_out = root / f"{name}_out", root / f"{name}_gt_out"
+    h, w = s["hw"]
+    base = ["--config", str(CONFIG), "--testpath", str(scan_root), "--testlist",
+            str(scan_root / "list.txt"), *s["flags"]]
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    run = cli.main(base + ["--outdir", str(out)])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for sub in ("cams", "images"):
+        shutil.copytree(out / "scan1" / sub, gt_out / "scan1" / sub)
+    for sub in ("depth_est", "confidence"):
+        (gt_out / "scan1" / sub).mkdir(parents=True)
+    for v in range(s["views"]):
+        shutil.copyfile(scan_root / "gt_eval" / f"depth_map_{v:0>4}.pfm",
+                        gt_out / "scan1" / "depth_est" / f"{v:0>8}.pfm")
+        np.save(gt_out / "scan1" / "confidence" / f"{v:0>8}.npy", np.full((h, w), 255, np.uint8))
+    gt_run = cli.main(base + ["--outdir", str(gt_out), "--skip_depth"])
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    host = read_host_counts()
+    clouds = {k: (len(read_ply(o / "scan1.ply")[0]) if (o / "scan1.ply").exists() else None)
+              for k, o in (("run", out), ("gt", gt_out))}
+    checks, gt = eval_cli_checks(
+        out, cfg, s["views"], s["hw"], s["depths"], run, launches, host,
+        run["decodes"] + run["fusion_decodes"] + gt_run["fusion_decodes"],
+        lambda: gt_fusion_check(scan_root / "scan1", out / "scan1", scan_root / "gt_eval",
+                                methods=("dpcd",), refs=(0,), sources=s["fusion_view"]))
+    checks.update({
+        "ply_holds_the_runs_points": clouds["run"] == run["points"]["scan1"],
+        "gt_ply_non_empty": clouds["gt"] == gt_run["points"]["scan1"] and bool(clouds["gt"]),
+        "each_view_decoded_once": run["decodes"] == s["views"],
+    })
+    row = {"phase": s["path"], "config": str(CONFIG.relative_to(REPO)), "argv": s["flags"],
+           "scan": {"views": s["views"], "raw_hw": list(raw_hw(s)), "eval_hw": [h, w],
+                    "views_per_sample": sample_views(s), "pair_sources": PAIR_SOURCES,
+                    **json.loads((scan_root / "render.json").read_text()),
+                    "render_wait_s": render_wait_s},
+           **eval_run_fields(run),
+           "fusion_s": run["fusion_s"]["scan1"], "points": run["points"]["scan1"],
+           "gt_fusion_s": gt_run["fusion_s"]["scan1"], "gt_points": gt_run["points"]["scan1"],
+           "fusion_decodes": run["fusion_decodes"] + gt_run["fusion_decodes"],
+           "gt_fusion": gt, "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_map": {k: n / run["maps"] for k, n in launches.items() if n},
+           "host_calls": host, "checks": checks}
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(gt_out, ignore_errors=True)
+    release()
+    args = cli.parser().parse_args(base + ["--outdir", str(out)])
+    row["host_sample_ms"], sample = setting_host_ms(name, scan_root / "scan1", args)
+    checks["samples_read_their_views"] = len(sample["imgs"]) == sample_views(s)
+    model = build_model(load_config(CONFIG))
+    inputs = (torch.from_numpy(sample["imgs"])[None].cuda(),
+              {k: torch.from_numpy(v)[None].cuda() for k, v in sample["cams"].items()},
+              torch.from_numpy(sample["depth_values"])[None].cuda())
+    with torch.inference_mode():
+        model(*inputs)
+    profile = profile_forward(model, inputs, phase=f"{s['path']}_profile")
+    row["device_busy_ms_per_map"] = profile["device_busy_ms_per_call"]
+    row["device_idle_share_of_a_forward"] = profile["device_idle_share"]
+    row["phase_s"] = time.perf_counter() - phase_t0
+    emit(row)
+    emit(profile)
+    del model, inputs
+    if not all(checks.values()):
+        raise SystemExit(f"{s['path']} checks failed: {checks}")
+    return launches
 
 
 def run_casmvs_cli(counters, work: Path):
@@ -2605,10 +3059,11 @@ def run_casmvs_cli(counters, work: Path):
     return launches
 
 
-def run_blended_cli(counters, work: Path):
+def run_blended_cli(counters, work: Path, scans: Path, renderer):
     """The BlendedMVS fine-tune in process on the card: a BlendedMVS-layout
     scan of BLENDED["views"] views at 1536 x 2048 (data/synthetic.make_blended_scan,
-    JPEG through the port's encoder), then the training CLI with
+    JPEG through the port's encoder; written under scans/blended by
+    `renderer`, render_scans, from the start of the run), then the training CLI with
     configs/mvsformerplusplus_ft.json at full width, --finetune
     --dtu_model_path train_cli's checkpoints (the config's reset_sche: a
     fresh optimizer and schedule), --debug, one epoch of 512 x 640 crops at
@@ -2621,15 +3076,12 @@ def run_blended_cli(counters, work: Path):
     the mma and vector kernels. Records ms per step, validation ms per map,
     decode ms per image, peak memory."""
     from mvsformerplusplus_tpu_torch.data.mvs_dataset import BlendedTrainDataset
-    from mvsformerplusplus_tpu_torch.data.synthetic import make_blended_scan
     from mvsformerplusplus_tpu_torch.train import cli
 
     phase_t0 = time.perf_counter()
-    data, save = work / "blended", work / "blended_saved"
+    data, save = scans / "blended", work / "blended_saved"
     h, w = BLENDED["hw"]
-    t0 = time.perf_counter()
-    make_blended_scan(data, "blended1", n_views=BLENDED["views"], h=h, w=w, ndepth=192)
-    write_s = time.perf_counter() - t0
+    render_wait_s = wait_for_render(data / "render.json", renderer)
     argv = (["-c", str(FT_CONFIG), "--save_dir", str(save), "--finetune", "--dtu_model_path",
              str(work / "saved" / "checkpoints"), "--debug", "--batch_size",
              str(BLENDED["batch"]), "--epochs", str(BLENDED["epochs"])]
@@ -2688,7 +3140,9 @@ def run_blended_cli(counters, work: Path):
     }
     n_dec = sum(n for n, _ in decodes.values())
     row = {"phase": "blended_cli", "config": str(FT_CONFIG.relative_to(REPO)),
-           "argv": argv[4:], "data": {"views": BLENDED["views"], "hw": [h, w], "write_s": write_s},
+           "argv": argv[4:], "data": {"views": BLENDED["views"], "hw": [h, w],
+                                      **json.loads((data / "render.json").read_text()),
+                                      "render_wait_s": render_wait_s},
            "buckets": buckets, "epochs": epoch_stats,
            "val_ms_per_map": [s_["ms_per_map"] for s_ in val_stats],
            "val_metrics": [s_["metrics"] for s_ in val_stats],
@@ -3640,8 +4094,8 @@ def run_scene_convert(counters, work: Path, scene_root: Path, scene_renderer) ->
 # 1200 x 1600, on images it writes; then the input-pipeline bench at its
 # defaults (2 scans x 5 views x 7 lights at 1200 x 1600, B=2, 4 workers)
 # for `bench_steps` steps at train_step's measured ms per step
-HOST_CODEC = dict(sizes=((1152, 1536), (1536, 2048), (1200, 1600)), bench_steps=20,
-                  bench_scans=2, native_reps=3)
+HOST_CODEC = dict(sizes=((1152, 1536), (1536, 2048), (1200, 1600)), bench_steps=10,
+                  bench_scans=1, native_reps=3)
 # OpenCV's share, as the data paths call it: the training resize's area
 # shrink at the protocol's smallest scale and a fractional one, the DINOv2
 # matcher's uint8 shrink of a 1260 x 1932 photo to its 420 x 644 working
@@ -3989,25 +4443,28 @@ def main() -> int:
 
     e2e_root = Path(tempfile.mkdtemp(prefix="chip_smoke_e2e_"))
     scene_root = Path(tempfile.mkdtemp(prefix="chip_smoke_scenes_"))
+    scans_root = Path(tempfile.mkdtemp(prefix="chip_smoke_scans_"))
     renderer = start_render(render_e2e_data, e2e_root, 2)
     scene_renderer = start_render(render_scene_data, scene_root, 1)
+    scans_renderer = start_render(render_scans, scans_root, 1)
     try:
         return run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root,
-                          scene_renderer)
+                          scene_renderer, scans_root, scans_renderer)
     finally:
-        for proc in (renderer, scene_renderer):
+        for proc in (renderer, scene_renderer, scans_renderer):
             if proc.is_alive():
                 proc.terminate()
             proc.join()
-        shutil.rmtree(e2e_root, ignore_errors=True)
-        shutil.rmtree(scene_root, ignore_errors=True)
+        for root in (e2e_root, scene_root, scans_root):
+            shutil.rmtree(root, ignore_errors=True)
 
 
-def run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root,
-               scene_renderer) -> int:
+def run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root, scene_renderer,
+               scans_root, scans_renderer) -> int:
     """Every phase after the build, the e2e_protocol data rendered meanwhile
-    by `renderer` under e2e_root and scene_convert's by `scene_renderer`
-    under scene_root; the last lines as main's docstring says."""
+    by `renderer` under e2e_root, scene_convert's by `scene_renderer` under
+    scene_root and the BlendedMVS, T&T and ETH3D scans by `scans_renderer`
+    under scans_root; the last lines as main's docstring says."""
     counters = launch_counters()
     results = run_kernel_phase(counters)
     assert set(counters) == set(results)
@@ -4029,7 +4486,8 @@ def run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root,
                           ("variants_main_path", lambda: run_main_path(counters, "variants")),
                           ("variants_train_step", lambda: run_train_step(counters, "variants")),
                           ("casmvs_cli", lambda: run_casmvs_cli(counters, work)),
-                          ("blended_cli", lambda: run_blended_cli(counters, work)),
+                          ("blended_cli",
+                           lambda: run_blended_cli(counters, work, scans_root, scans_renderer)),
                           ("dist_step", lambda: run_dist_step(counters)),
                           ("train_cli_mesh", lambda: run_train_cli_mesh(counters, work)),
                           ("eval_queue", lambda: run_eval_queue(counters, work))):
@@ -4042,6 +4500,11 @@ def run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root,
         release()
         by_path["scene_convert"] = run_scene_convert(counters, work, scene_root,
                                                      scene_renderer)
+        release()
+        for name, setting in EVAL_SETTINGS.items():
+            by_path[setting["path"]] = run_eval_setting(counters, name, scans_root,
+                                                        scans_renderer)
+            release()
     results = {name: kernel_summary(name) for name in results}
     run_host_codec(host_build_s, STEP_MS["train_step"])
     by_path["eval_cli"], eval_row = by_path["eval_cli"]

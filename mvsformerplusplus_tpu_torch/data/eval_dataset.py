@@ -5,10 +5,15 @@ scale, T&T's 4-row edge pad with the cy shift, a resize toward max_h x
 max_w rounded down to multiples of 64 (exactly max_h x max_w with
 fix_res), per-stage intrinsics, and the optional DTU ground-truth depth.
 
-A view is read by up to `nviews` samples of a scan (once as the reference,
-then as a source of its neighbours): each dataset keeps the decoded uint8
-pixels of its last CACHED_VIEWS views, so a 5-view scan decodes each view
-once. The resize is the host library's (native.resize_linear, cv2's
+A view is read by the samples whose reference or sources it is: each
+dataset keeps the decoded uint8 pixels of its last max(CACHED_VIEWS,
+2 x the most views a sample reads) views, room for what the eval loader's
+two threads read between two reads of a view. So a sweep over a scan whose
+pair file lists each view's nearest sources first along the camera path
+(as the converters write it) decodes each view once
+(tests/test_torch_eval_data.py, on scans several times a sample long); a
+least-recently-used cache smaller than a sample's views misses on nearly
+every read. The resize is the host library's (native.resize_linear, cv2's
 INTER_LINEAR bit for bit at the eval scripts' sizes).
 """
 from __future__ import annotations
@@ -23,7 +28,10 @@ from .io import DecodedImages, read_cam_file, read_pair_file, read_pfm
 from .mvs_dataset import stage_cameras
 from .transforms import normalize_imagenet
 
-CACHED_VIEWS = 16  # 16 x 1200 x 1600 x 3 bytes = 92 MB at DTU's size
+# the least number of decoded views kept: 16 x 1200 x 1600 x 3 bytes = 92 MB at
+# DTU's size, 1.2 GB at ETH3D's 4032 x 6048; more where a sample reads more
+# than 8 views (22 x 6.2 MB at Tanks and Temples' 11)
+CACHED_VIEWS = 16
 
 
 class EvalDataset:
@@ -47,7 +55,8 @@ class EvalDataset:
             for ref, srcs in read_pair_file(os.path.join(datapath, scan, "pair.txt")):
                 if len(srcs) > 0:
                     self.metas.append((scan, ref, srcs))
-        self.views = DecodedImages(CACHED_VIEWS)
+        reads = max((1 + min(len(srcs), nviews - 1) for _, _, srcs in self.metas), default=1)
+        self.views = DecodedImages(max(CACHED_VIEWS, 2 * reads))
 
     def __len__(self):
         return len(self.metas)
