@@ -143,6 +143,18 @@ Phases, one JSON line each:
               command line processes with --schedule queue sharing the card,
               then by one process; every scan claimed once and done, every
               depth map the one process's, maps/s at 2 and at 1 worker;
+  bench       the port's benchmark entry point (python -m
+              mvsformerplusplus_tpu_torch.bench) at bench.py's protocol, its
+              JSON line printed (maps/s, ms per map, steps/s, both MFUs from
+              ops.cuda.flops' product count): the depths and the loss finite,
+              both MFUs in (0, 1), its launches per forward and per step
+              main_path's and train_step's; both trace profilers
+              (tools/profile_eval.py, profile_train.py) once on its models
+              (the bf16 paths' kernels by name, the category rollup, busy
+              ms and idle share); the product count of a small flagship's
+              forward and train step (fp32) on the card (the kernels'
+              formulas) equal to the CPU's (the plain versions); its
+              seconds within BENCH_MAX_S;
   e2e_protocol
               the port's end-to-end accuracy protocol
               (mvsformerplusplus_tpu_torch/tools/e2e_protocol.py) at the
@@ -294,28 +306,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def make_dtu_eval_batch(b=1, v=5, h=1152, w=1536, dfull=192, seed=0):
-    """DTU-eval-like batch: images, per-stage cameras with DTU-scale
-    baselines (mm) and focal, and the 425 mm + 2.65 mm steps depth range."""
-    rng = np.random.RandomState(seed)
-    imgs = rng.rand(b, v, h, w, 3).astype(np.float32)
-    cams = {}
-    for s in range(4):
-        scale = 0.125 * 2 ** s
-        cam = np.zeros((b, v, 2, 4, 4), np.float32)
-        for vi in range(v):
-            ang = 0.06 * vi
-            c, sn = np.cos(ang), np.sin(ang)
-            ext = np.eye(4, dtype=np.float32)
-            ext[:3, :3] = np.array([[c, 0, sn], [0, 1, 0], [-sn, 0, c]], np.float32)
-            ext[0, 3] = 40.0 * vi
-            cam[:, vi, 0] = ext
-            f = 2892.33 * scale * (w / 1600.0)
-            cam[:, vi, 1, :3, :3] = np.array(
-                [[f, 0, w * scale / 2], [0, f, h * scale / 2], [0, 0, 1]], np.float32)
-        cams[f"stage{s + 1}"] = cam
-    depth_values = (425.0 + np.arange(dfull, dtype=np.float32) * 2.5 * 1.06)[None].repeat(b, 0)
-    return imgs, cams, depth_values
+def make_dtu_eval_batch(**kwargs):
+    """bench.py's DTU-eval batch (the port's copy, bench.make_dtu_eval_batch):
+    images, per-stage cameras with DTU-scale baselines (mm) and focal, and
+    the 425 mm + 2.65 mm steps depth range."""
+    from mvsformerplusplus_tpu_torch.bench import make_dtu_eval_batch as make
+
+    return make(**kwargs)
 
 
 def to_device(batch, device):
@@ -787,16 +784,13 @@ def _plus(a, b):
     return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
 
 
-def make_train_batch(b=2, v=5, h=512, w=640, dfull=192, seed=1):
-    """The train protocol's batch (as bench.py's): DTU-like images, cameras
-    and depth range at the crop, ground truth uniform in 450-900 mm and 80%
-    valid masks per stage."""
-    rng = np.random.RandomState(seed)
-    imgs, cams, dv = make_dtu_eval_batch(b=b, v=v, h=h, w=w, dfull=dfull, seed=seed)
-    gt = {f"stage{i + 1}": rng.uniform(450, 900, (b, h // (8 >> i), w // (8 >> i))).astype(
-        np.float32) for i in range(4)}
-    return {"imgs": imgs, "cams": cams, "depth_values": dv, "depth_gt": gt,
-            "mask": {k: (rng.rand(*g.shape) > 0.2).astype(np.float32) for k, g in gt.items()}}
+def make_train_batch(**kwargs):
+    """bench.py's train batch (the port's copy, bench.make_train_batch):
+    DTU-like images, cameras and depth range at the crop, ground truth
+    uniform in 450-900 mm and 80% valid masks per stage."""
+    from mvsformerplusplus_tpu_torch.bench import make_train_batch as make
+
+    return make(**kwargs)
 
 
 def stage_coords(cams, dv, stage, nd, hh, ww, views=4, parts=1):
@@ -2198,6 +2192,7 @@ def run_train_step(counters, family="flagship", iters=6, dtype=torch.bfloat16):
            "logs": logs}
     if fp32:
         from mvsformerplusplus_tpu_torch.train.step import train_step
+        from mvsformerplusplus_tpu_torch.utils.profiler import profile_run
 
         prof = profile_run(lambda: train_step(model, opt, sched, loader.batch), 2)
         last = prof.pop("result")
@@ -2219,11 +2214,6 @@ LAYERS = ("encoder", "vit", "decoder_vit", "decoder", "fmt", "cascade.stage1",
           "cascade.stage2", "cascade.stage3", "cascade.stage4")
 CASMVS_LAYERS = ("encoder", "decoder", "cascade.stage1", "cascade.stage2", "cascade.stage3",
                  "cascade.stage4")
-HAND_WRITTEN = ("warp_bilinear_vec_kernel", "warp_bilinear_bwd_vec_kernel",
-                "warp_bilinear_scalar_kernel", "warp_bilinear_narrow_kernel",
-                "warp_bilinear_bwd_scalar_kernel", "flash_fwd_mma_kernel",
-                "flash_bwd_mma_kernel", "flash_fwd_3xtf32_kernel", "flash_bwd_3xtf32_kernel",
-                "conv2d_mma_kernel", "conv2d_tf32_kernel")
 # the hand-written kernels no bf16 model path may run: the f32 flash ones,
 # the conv's tf32 one, the warps' scalar ones; and the bf16 tensor-core
 # kernels, which the fp32 step may not run
@@ -2274,44 +2264,9 @@ def layer_ms(model, inputs, layers=LAYERS) -> dict:
     return out
 
 
-def profile_run(fn, iters, top=20) -> dict:
-    """torch.profiler tracing CUDA activity only (no host op recording)
-    over `iters` calls of fn: device time by kernel name, the share of each
-    hand-written kernel, and the device's idle share of the CUDA-event wall
-    time around the same calls (one stream, so kernels do not overlap).
-    Returns the last call's result under "result"."""
-    from torch.profiler import ProfilerActivity, profile
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(iters):
-            result = fn()
-        end.record()
-        torch.cuda.synchronize()
-    wall_ms = start.elapsed_time(end)
-    by_name = {}
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    busy_ms = sum(ms for ms, _ in by_name.values())
-    ours = {k: sum(ms for name, (ms, _) in by_name.items() if k in name.split("<")[0]) / iters
-            for k in HAND_WRITTEN}
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"iters": iters, "wall_ms_per_call": wall_ms / iters,
-            "device_busy_ms_per_call": busy_ms / iters,
-            "device_idle_share": 1 - busy_ms / wall_ms if wall_ms else None,
-            "hand_written_ms_per_call": ours,
-            "hand_written_share": sum(ours.values()) * iters / busy_ms if busy_ms else None,
-            "top_kernels_per_call": [{"name": k[:160], "ms": ms / iters, "count": n / iters}
-                                     for k, (ms, n) in ranked],
-            "result": result}
-
-
 def profile_forward(model, inputs, family="flagship", phase=None) -> dict:
+    from mvsformerplusplus_tpu_torch.utils.profiler import profile_run
+
     def forward():
         with torch.inference_mode():
             model(*inputs)
@@ -2328,6 +2283,7 @@ def profile_train(model, opt, sched, batch, family="flagship", iters=3) -> dict:
     """The traced window over `iters` more train steps; their last step's
     losses and gradient norm must be finite."""
     from mvsformerplusplus_tpu_torch.train.step import train_step
+    from mvsformerplusplus_tpu_torch.utils.profiler import profile_run
 
     prof = profile_run(lambda: train_step(model, opt, sched, batch), iters)
     logs = prof.pop("result")
@@ -2339,6 +2295,90 @@ def profile_train(model, opt, sched, batch, family="flagship", iters=3) -> dict:
     check_kernel_names(prof, phase, spec["forward_names"] + spec["train_names"],
                        spec["absent_names"])
     return {"phase": phase, **prof}
+
+
+BENCH_MAX_S = 90  # the bench phase's share of the script's 1200 s
+
+
+def tiny_product_counts(device) -> dict:
+    """Products (ops.cuda.flops) of one forward and one train step of the
+    bench's models at TINY in fp32 on `device`, on a small batch: on the card
+    the kernels' formulas, on the CPU the plain versions."""
+    from mvsformerplusplus_tpu_torch import bench
+    from mvsformerplusplus_tpu_torch.ops.cuda.flops import ProductCount
+    from mvsformerplusplus_tpu_torch.train.optim import make_optimizer
+    from mvsformerplusplus_tpu_torch.train.step import train_step
+    from mvsformerplusplus_tpu_torch.train.trainer import to_device as batch_to
+
+    model = bench.build(False, torch.float32, device, **TINY)
+    inputs = to_device(bench.make_dtu_eval_batch(v=3, h=128, w=256, dfull=48, seed=1), device)
+    with torch.inference_mode(), ProductCount() as fwd:
+        model(*inputs)
+    model = bench.build(True, torch.float32, device, **TINY)
+    opt, sched = make_optimizer(model, **bench.OPT_ARGS)
+    batch = batch_to(bench.make_train_batch(b=1, v=3, h=128, w=256, dfull=48), device)
+    with ProductCount() as step:
+        train_step(model, opt, sched, batch)
+    return {"forward": fwd.total, "forward_kernels": fwd.kernels, "step": step.total,
+            "step_kernels": step.kernels}
+
+
+def run_bench_phase(by_path) -> None:
+    """The port's bench (mvsformerplusplus_tpu_torch.bench.run, the work of
+    its main) at bench.py's protocol, its JSON line printed; the depths and
+    the loss finite, both MFUs in (0, 1), its launches per forward and per
+    step main_path's and train_step's; both profilers (tools/profile_eval,
+    profile_train) once on its models, their kernels the bf16 paths'; the
+    product count of a TINY forward and train step on the card equal to the
+    CPU's."""
+    from mvsformerplusplus_tpu_torch import bench
+    from mvsformerplusplus_tpu_torch.tools.profile_eval import profile_eval
+    from mvsformerplusplus_tpu_torch.tools.profile_train import profile_train
+
+    t0 = time.perf_counter()
+    res = bench.run()
+    line = bench.line(res)
+    emit(line)
+    bench_s = time.perf_counter() - t0
+    ev, tr, extra = res["eval"], res["train"], line["extra"]
+    key = {name: f"{fn.__name__}.{attr}" for name, (fn, attr) in launch_counters().items()}
+
+    def same_launches(leg, path):
+        return all(leg["launches_per_call"][k] == by_path[path][name] for name, k in key.items())
+
+    spec = family_spec("flagship")
+    prof_eval = profile_eval(res["eval_model"], res["eval_inputs"])
+    prof_train = profile_train(res["train_model"], *tr["optimizer"], res["train_batch"])
+    del res
+    release()
+    for prof, phase, names in ((prof_eval, "bench profile_eval", spec["forward_names"]),
+                               (prof_train, "bench profile_train",
+                                spec["forward_names"] + spec["train_names"])):
+        check_kernel_names(prof, phase, names)
+    counts = {device: tiny_product_counts(device) for device in ("cuda", "cpu")}
+    seconds = time.perf_counter() - t0
+    checks = {
+        "depths_and_loss_finite": bench.ok({"eval": ev, "train": tr}),
+        "eval_mfu_in_0_1": 0 < extra["eval_mfu_pct"] < 100,
+        "train_mfu_in_0_1": 0 < extra["train_mfu_pct"] < 100,
+        "eval_launches_main_path's": same_launches(ev, "main_path"),
+        "train_launches_train_step's": same_launches(tr, "train_step"),
+        "profiles_finite": prof_eval["finite"] and prof_train["finite"],
+        "tiny_count_card_equals_cpu": counts["cuda"] == counts["cpu"],
+        "seconds_within_budget": seconds <= BENCH_MAX_S,
+    }
+    row = {"phase": "bench", "seconds": seconds, "bench_s": bench_s,
+           "eval_flops": ev["flops"], "eval_kernel_flops": ev["kernel_flops"],
+           "train_flops": tr["flops"], "train_kernel_flops": tr["kernel_flops"],
+           "train_losses": tr["losses"], "tiny_counts": counts, "checks": checks}
+    for name, prof in (("profile_eval", prof_eval), ("profile_train", prof_train)):
+        row[name] = {k: prof[k] for k in ("first_call_s", "steady_ms", "wall_ms_per_call",
+                                          "device_busy_ms_per_call", "device_idle_share",
+                                          "categories_ms_per_call")}
+        row[name]["top_kernels_per_call"] = prof["top_kernels_per_call"][:10]
+    emit(row)
+    if not all(checks.values()):
+        raise SystemExit(f"bench checks failed: {checks}")
 
 
 def _bucket_totals(epoch_stats):
@@ -4493,6 +4533,8 @@ def run_phases(card, kind, e2e_root, renderer, host_build_s, scene_root, scene_r
                           ("eval_queue", lambda: run_eval_queue(counters, work))):
             by_path[path] = run()
             release()
+        run_bench_phase(by_path)
+        release()
         by_path.update(run_e2e_protocol(counters, e2e_root, renderer))
         release()
         run_vit_pth_phase(work)

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.cuda import flops
 from ..ops.cuda.conv2d import Conv2dSame
 from ..ops.resize import resize2d
 
@@ -57,6 +58,14 @@ def frozen_batch_stats(module: nn.Module):
             bn.stats_frozen = False
 
 
+@contextlib.contextmanager
+def _replay(module: nn.Module):
+    """A checkpoint's replay of `module`: its running BatchNorm statistics
+    frozen, its products not counted a second time (ops.cuda.flops)."""
+    with frozen_batch_stats(module), flops.replay():
+        yield
+
+
 def remat(fn: nn.Module, *args):
     """fn(*args) under gradient checkpointing when autograd records: the
     activations inside are recomputed in the backward, with the running
@@ -65,7 +74,7 @@ def remat(fn: nn.Module, *args):
     if not torch.is_grad_enabled():
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), frozen_batch_stats(fn)))
+                      context_fn=lambda: (contextlib.nullcontext(), _replay(fn)))
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: Tensor) -> Tensor:

@@ -35,7 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import check, dtype_code, load, ptr, stream
+from . import check, dtype_code, flops, load, ptr, stream
 
 Tensor = torch.Tensor
 
@@ -298,9 +298,10 @@ def conv2d_same(x: Tensor, kernel: Tensor) -> Tensor:
     """Odd-k stride-1 'same' conv. x [B, H, W, Ci] bf16|f32, kernel
     [k, k, Ci, Co] (cast to x's dtype) -> [B, H, W, Co]. CPU tensors take the
     plain version; CUDA tensors launch the kernel `variant(x, kernel)` names."""
-    if not x.is_cuda:
-        return conv2d_same_plain(x, kernel)
-    return _launch(x, kernel, conv2d_same)
+    with flops.kernel_call("conv2d_same", flops.conv_products(x, kernel.shape)):
+        if not x.is_cuda:
+            return conv2d_same_plain(x, kernel)
+        return _launch(x, kernel, conv2d_same)
 
 
 def conv2d_same_dx(g: Tensor, kernel: Tensor) -> Tensor:
@@ -308,9 +309,10 @@ def conv2d_same_dx(g: Tensor, kernel: Tensor) -> Tensor:
     dtype: the same conv kernel launched with dx_kernel(kernel). CPU tensors
     take the plain version; CUDA tensors launch the kernel
     `variant(g, dx_kernel(kernel))` names."""
-    if not g.is_cuda:
-        return conv2d_same_plain(g, dx_kernel(kernel))
-    return _launch(g, kernel, conv2d_same_dx, dx=True)
+    with flops.kernel_call("conv2d_same_dx", flops.conv_products(g, kernel.shape)):
+        if not g.is_cuda:
+            return conv2d_same_plain(g, dx_kernel(kernel))
+        return _launch(g, kernel, conv2d_same_dx, dx=True)
 
 
 conv2d_same.launches = conv2d_same.launches_mma = conv2d_same.launches_tf32 = 0

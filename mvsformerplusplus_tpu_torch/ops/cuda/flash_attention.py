@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import check, load, ptr, stream
+from . import check, flops, load, ptr, stream
 
 Tensor = torch.Tensor
 
@@ -232,11 +232,12 @@ def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float,
     Dh <= 128) -> out [B, N, H, Dh] in q's dtype (and lse [B, H, N] f32).
     CPU tensors take the plain version; CUDA tensors launch the bf16
     tensor-core kernel or the f32 3xTF32 one at the padded head dim."""
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, scale, return_lse)
-    mma = q.dtype == torch.bfloat16
-    res = _fwd_launch("flash_attention_fwd_mma" if mma else "flash_attention_fwd_f32",
-                      q, k, v, scale, return_lse)
+    with flops.kernel_call("flash_attention_fwd", flops.flash_fwd_products(q, k)):
+        if not q.is_cuda:
+            return flash_attention_plain(q, k, v, scale, return_lse)
+        mma = q.dtype == torch.bfloat16
+        res = _fwd_launch("flash_attention_fwd_mma" if mma else "flash_attention_fwd_f32",
+                          q, k, v, scale, return_lse)
     if mma:
         flash_attention_fwd.launches_mma += 1
     else:
@@ -264,8 +265,15 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale):
     version; on CUDA bf16 launches the fused tensor-core kernel (dQ summed in
     an f32 scratch, scaled and cast here) and f32 the fused 3xTF32 kernel
     (dQ summed and scaled in its f32 output)."""
-    if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, dout, lse, delta, scale)
+    with flops.kernel_call("flash_attention_bwd", flops.flash_bwd_products(q, k)):
+        if not q.is_cuda:
+            return flash_attention_bwd_plain(q, k, v, dout, lse, delta, scale)
+        return _bwd_launch(q, k, v, dout, lse, delta, scale)
+
+
+def _bwd_launch(q, k, v, dout, lse, delta, scale):
+    """flash_attention_bwd on CUDA tensors: one launch of the fused kernel
+    for the dtype."""
     dh = q.shape[-1]
     q, k, v, dout, lse, delta = _bwd_args(q, k, v, dout, lse, delta)
     b, n, h, width = q.shape
