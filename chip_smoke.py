@@ -2234,32 +2234,21 @@ def check_kernel_names(prof, phase, want, absent=(), off=OFF_PATH_KERNELS) -> No
                          f"{', '.join(want)}: {ours}")
 
 
-def layer_ms(model, inputs, layers=LAYERS) -> dict:
-    """ms of each top-level layer's span on the device timeline over one
-    forward (idle gaps inside a span included), from CUDA events recorded by
-    forward hooks; `rest` is the forward's time outside those layers."""
-    spans, hooks = {}, []
-    for name in layers:
-        def pre(mod, args, name=name):
-            spans[name] = [torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True)]
-            spans[name][0].record()
+def layer_ms(layers=LAYERS) -> dict:
+    """ms of each top-level layer's span on the device timeline (idle gaps
+    inside a span included) in the last forward traced, from the program's
+    spans (utils.profiler.spans); `total` is that forward's, `rest` its time
+    outside those layers."""
+    from mvsformerplusplus_tpu_torch.utils.profiler import spans
 
-        def post(mod, args, out, name=name):
-            spans[name][1].record()
+    records = spans()
+    root = max(r["id"] for r in records if r["parent"] is None and r["name"] == "forward")
 
-        sub = model.get_submodule(name)
-        hooks += [sub.register_forward_pre_hook(pre), sub.register_forward_hook(post)]
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with torch.inference_mode():
-        start.record()
-        model(*inputs)
-        end.record()
-    torch.cuda.synchronize()
-    for h in hooks:
-        h.remove()
-    out = {name: a.elapsed_time(b) for name, (a, b) in spans.items()}
-    out["total"] = start.elapsed_time(end)
+    def ms(r):
+        return (r["device_end"] - r["device_start"]) * 1e3
+
+    out = {r["name"]: ms(r) for r in records if r["parent"] == root and r["name"] in layers}
+    out["total"] = ms(next(r for r in records if r["id"] == root))
     out["rest"] = out["total"] - sum(out[n] for n in layers)
     return out
 
@@ -2276,7 +2265,7 @@ def profile_forward(model, inputs, family="flagship", phase=None) -> dict:
     prof = profile_run(forward, iters=2)
     del prof["result"]
     check_kernel_names(prof, phase, spec["forward_names"], spec["absent_names"])
-    return {"phase": phase, "layer_ms": layer_ms(model, inputs, spec["layers"]), **prof}
+    return {"phase": phase, "layer_ms": layer_ms(spec["layers"]), **prof}
 
 
 def profile_train(model, opt, sched, batch, family="flagship", iters=3) -> dict:
@@ -2376,6 +2365,7 @@ def run_bench_phase(by_path) -> None:
                                           "device_busy_ms_per_call", "device_idle_share",
                                           "categories_ms_per_call")}
         row[name]["top_kernels_per_call"] = prof["top_kernels_per_call"][:10]
+        row[name]["span_ms_by_part"] = prof["span_ms"]["parts"]
     emit(row)
     if not all(checks.values()):
         raise SystemExit(f"bench checks failed: {checks}")

@@ -1,0 +1,9 @@
+"""cost_reg_device_ms.eval: device ms, the sum of the card's time between each
+span's two events (idle time inside included), a map, in the regularizers:
+the program's `cascade.stage{k}.cost_reg` spans; over the traced window's
+maps (spans.py)."""
+from mvsbench.spans import read_part
+
+
+def read(run):
+    return read_part(run, "cost_reg", "device_ms")

@@ -1,0 +1,8 @@
+"""fmt_device_ms.eval: device ms, the sum of the card's time between each
+span's two events (idle time inside included), a map, in the FMT: the
+program's `fmt` span; over the traced window's maps (spans.py)."""
+from mvsbench.spans import read_part
+
+
+def read(run):
+    return read_part(run, "fmt", "device_ms")

@@ -1,0 +1,5 @@
+"""fmt_device_ms.tt: `fmt_device_ms.eval`'s reading (see that file), in the cells whose
+rate is read per layer."""
+from mvsbench.harness import HERE, load_module
+
+read = load_module(HERE / "metrics" / "fmt_device_ms.eval.py", "mvsbench_metric_fmt_device_ms.eval").read

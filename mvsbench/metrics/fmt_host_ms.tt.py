@@ -1,0 +1,5 @@
+"""fmt_host_ms.tt: `fmt_host_ms.eval`'s reading (see that file), in the cells whose
+rate is read per layer."""
+from mvsbench.harness import HERE, load_module
+
+read = load_module(HERE / "metrics" / "fmt_host_ms.eval.py", "mvsbench_metric_fmt_host_ms.eval").read

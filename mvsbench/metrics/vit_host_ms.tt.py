@@ -1,0 +1,5 @@
+"""vit_host_ms.tt: `vit_host_ms.eval`'s reading (see that file), in the cells whose
+rate is read per layer."""
+from mvsbench.harness import HERE, load_module
+
+read = load_module(HERE / "metrics" / "vit_host_ms.eval.py", "mvsbench_metric_vit_host_ms.eval").read

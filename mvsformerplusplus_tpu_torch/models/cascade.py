@@ -8,7 +8,10 @@ checkpoints whole StageNets (the warp is replayed in the backward) and
 `shard_views` every StageNet splits its source views over the cv ranks, with
 `shard_depth` its hypotheses. `log_var` gives stages the uncertainty head:
 a bare true every stage whose regularizer is a CostRegNet3D (a 'Normal'
-stage of at most 8 depths), a per-stage list exactly the stages it names."""
+stage of at most 8 depths), a per-stage list exactly the stages it names.
+Spans (utils.profiler.annotate): `cascade.stage{k}` around each stage, with
+`hypotheses` (the range and the 3D PE) and the StageNet's inside, and
+`cascade.confidence`, the stages' confidences resized and averaged."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Union
@@ -19,6 +22,7 @@ import torch.nn as nn
 from ..ops.geometry import get_position_3d
 from ..ops.resize import resize2d
 from ..ops.sampling import init_inverse_range, init_range, schedule_inverse_range, schedule_range
+from ..utils.profiler import annotate
 from .layers import remat
 from .stagenet import StageNet
 
@@ -43,6 +47,7 @@ class CascadeDepth(nn.Module):
         self.inverse_depth = inverse_depth
         self.cost_reg_type = tuple(cost_reg_type)
         self.use_pe3d = use_pe3d
+        self.span_names = tuple(f"cascade.stage{i + 1}" for i in range(len(self.ndepths)))
         for i, nd in enumerate(self.ndepths):
             tc = None
             if cost_reg_type[i] == "PureTransformerCostReg" and transformer_config:
@@ -76,35 +81,42 @@ class CascadeDepth(nn.Module):
         img_h, img_w = last.shape[2], last.shape[3]
         outputs, prev = {}, {}
         bounds = None
-        prob_maps = 0.0
         for idx, nd in enumerate(self.ndepths):
             key = f"stage{idx + 1}"
             feats, stage_cams = features[key], cams[key]
             h, w = feats.shape[2], feats.shape[3]
-            if idx == 0:
-                init = init_inverse_range if self.inverse_depth else init_range
-                hypo = init(depth_values, nd, h, w)
-            elif self.inverse_depth:
-                hypo = schedule_inverse_range(prev["depth"].detach(), prev["depth_values"], nd,
-                                              self.depth_intervals_ratio[idx], h, w)
-            else:
-                hypo = schedule_range(prev["depth"].detach(), nd,
-                                      self.depth_intervals_ratio[idx] * depth_interval, h, w)
-            position3d = None
-            if self.cost_reg_type[idx] != "Normal" and self.use_pe3d:
-                position3d, bounds = get_position_3d(
-                    stage_cams[:, 0, 1, :3, :3], hypo, h, w, depth_min=depth_values.min(),
-                    depth_max=depth_values.max(), bounds=bounds)
-            stage = getattr(self, key)
-            if self.remat_whole_stage:
-                prev = remat(stage, feats, stage_cams, hypo, tmp[idx], position3d)
-            else:
-                prev = stage(feats, stage_cams, hypo, tmp[idx], position3d)
+            with annotate(self.span_names[idx]):
+                with annotate("hypotheses"):
+                    if idx == 0:
+                        init = init_inverse_range if self.inverse_depth else init_range
+                        hypo = init(depth_values, nd, h, w)
+                    elif self.inverse_depth:
+                        hypo = schedule_inverse_range(prev["depth"].detach(),
+                                                      prev["depth_values"], nd,
+                                                      self.depth_intervals_ratio[idx], h, w)
+                    else:
+                        hypo = schedule_range(prev["depth"].detach(), nd,
+                                              self.depth_intervals_ratio[idx] * depth_interval,
+                                              h, w)
+                    position3d = None
+                    if self.cost_reg_type[idx] != "Normal" and self.use_pe3d:
+                        position3d, bounds = get_position_3d(
+                            stage_cams[:, 0, 1, :3, :3], hypo, h, w,
+                            depth_min=depth_values.min(), depth_max=depth_values.max(),
+                            bounds=bounds)
+                stage = getattr(self, key)
+                if self.remat_whole_stage:
+                    prev = remat(stage, feats, stage_cams, hypo, tmp[idx], position3d)
+                else:
+                    prev = stage(feats, stage_cams, hypo, tmp[idx], position3d)
             outputs[key] = prev
-            conf = prev["photometric_confidence"]
-            if conf.shape[1] != img_h or conf.shape[2] != img_w:
-                conf = resize2d(conf[..., None], img_h, img_w, method="nearest")[..., 0]
-            prob_maps = prob_maps + conf
         outputs["refined_depth"] = prev["depth"]
-        outputs["photometric_confidence"] = prob_maps / len(self.ndepths)
+        with annotate("cascade.confidence"):
+            prob_maps = 0.0
+            for idx in range(len(self.ndepths)):
+                conf = outputs[f"stage{idx + 1}"]["photometric_confidence"]
+                if conf.shape[1] != img_h or conf.shape[2] != img_w:
+                    conf = resize2d(conf[..., None], img_h, img_w, method="nearest")[..., 0]
+                prob_maps = prob_maps + conf
+            outputs["photometric_confidence"] = prob_maps / len(self.ndepths)
         return outputs

@@ -12,6 +12,7 @@ from typing import Dict, Optional, Sequence, Union
 import torch
 import torch.nn as nn
 
+from ..utils.profiler import annotate
 from .cascade import CascadeDepth
 from .layers import FPNDecoder, FPNEncoder
 
@@ -41,8 +42,13 @@ class CasMVSNet(nn.Module):
     def forward(self, imgs: Tensor, cams: Dict[str, Tensor], depth_values: Tensor,
                 tmp: Sequence[float] = (5.0, 5.0, 5.0, 1.0)) -> dict:
         """imgs [B, V, H, W, 3]; cams {'stage1'..'stage4': [B, V, 2, 4, 4]};
-        depth_values [B, Dfull]."""
-        b, v, h, w, _ = imgs.shape
-        f = self.decoder(*self.encoder(imgs.reshape(b * v, h, w, 3).to(self.dtype)))
-        features = {f"stage{i + 1}": x.reshape(b, v, *x.shape[1:]) for i, x in enumerate(f)}
-        return self.cascade(features, cams, depth_values, tmp)
+        depth_values [B, Dfull]. Spans (utils.profiler.annotate): `forward`
+        around `encoder`, `decoder` and the cascade's."""
+        with annotate("forward"):
+            b, v, h, w, _ = imgs.shape
+            with annotate("encoder"):
+                c = self.encoder(imgs.reshape(b * v, h, w, 3).to(self.dtype))
+            with annotate("decoder"):
+                f = self.decoder(*c)
+            features = {f"stage{i + 1}": x.reshape(b, v, *x.shape[1:]) for i, x in enumerate(f)}
+            return self.cascade(features, cams, depth_values, tmp)

@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.cuda import flops
 from ..ops.cuda.conv2d import Conv2dSame
 from ..ops.resize import resize2d
+from ..utils import profiler
 
 Tensor = torch.Tensor
 
@@ -61,8 +62,9 @@ def frozen_batch_stats(module: nn.Module):
 @contextlib.contextmanager
 def _replay(module: nn.Module):
     """A checkpoint's replay of `module`: its running BatchNorm statistics
-    frozen, its products not counted a second time (ops.cuda.flops)."""
-    with frozen_batch_stats(module), flops.replay():
+    frozen, its products not counted a second time (ops.cuda.flops), its
+    spans not recorded (utils.profiler)."""
+    with frozen_batch_stats(module), flops.replay(), profiler.quiet():
         yield
 
 

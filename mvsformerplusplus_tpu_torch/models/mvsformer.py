@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.resize import resize2d
+from ..utils.profiler import annotate
 from .cascade import CascadeDepth
 from .cross_vit import CrossVITDecoder
 from .dino import DinoVisionTransformer
@@ -73,25 +74,34 @@ class DINOv2MVSNet(nn.Module):
         p = self.vit_patch
         vit_h = int(h * self.rescale // p * p)
         vit_w = int(w * self.rescale // p * p)
-        vit_imgs = resize2d(imgs_flat, vit_h, vit_w, method="cubic", align_corners=False)
-        with torch.no_grad() if self.freeze_vit else contextlib.nullcontext():
-            levels = self.vit(vit_imgs)
-        levels = [f.reshape(b, v, -1, self.vit_ch) for f in levels]
-        return self.decoder_vit(levels, (b, v, vit_h // p, vit_w // p, self.vit_ch))
+        with annotate("vit"):
+            vit_imgs = resize2d(imgs_flat, vit_h, vit_w, method="cubic", align_corners=False)
+            with torch.no_grad() if self.freeze_vit else contextlib.nullcontext():
+                levels = self.vit(vit_imgs)
+            levels = [f.reshape(b, v, -1, self.vit_ch) for f in levels]
+        with annotate("decoder_vit"):
+            return self.decoder_vit(levels, (b, v, vit_h // p, vit_w // p, self.vit_ch))
 
     def forward(self, imgs: Tensor, cams: Dict[str, Tensor], depth_values: Tensor,
                 tmp: Sequence[float] = (5.0, 5.0, 5.0, 1.0)) -> dict:
         """imgs [B, V, H, W, 3]; cams {'stage1'..'stage4': [B, V, 2, 4, 4]};
-        depth_values [B, Dfull]."""
-        b, v, h, w, _ = imgs.shape
-        flat = imgs.reshape(b * v, h, w, 3).to(self.dtype)
-        c01, c11, c21, c31 = self.encoder(flat)
-        vit_feat = self.vit_features(flat, b, v)
-        vit_flat = vit_feat.reshape(b * v, vit_feat.shape[2], vit_feat.shape[3], -1)
-        if vit_flat.shape[1:3] != c31.shape[1:3]:
-            vit_flat = resize2d(vit_flat, c31.shape[1], c31.shape[2], method="linear",
-                                align_corners=False)
-        c31 = c31 + vit_flat.to(self.dtype)
-        f = self.decoder(c01, c11, c21, c31)
-        features = {f"stage{i + 1}": x.reshape(b, v, *x.shape[1:]) for i, x in enumerate(f)}
-        return self.cascade(self.fmt(features), cams, depth_values, tmp)
+        depth_values [B, Dfull]. Spans (utils.profiler.annotate): `forward`
+        around `encoder`, `vit`, `decoder_vit`, `decoder` (with the ViT
+        features' resize and add), `fmt` and the cascade's."""
+        with annotate("forward"):
+            b, v, h, w, _ = imgs.shape
+            flat = imgs.reshape(b * v, h, w, 3).to(self.dtype)
+            with annotate("encoder"):
+                c01, c11, c21, c31 = self.encoder(flat)
+            vit_feat = self.vit_features(flat, b, v)
+            with annotate("decoder"):
+                vit_flat = vit_feat.reshape(b * v, vit_feat.shape[2], vit_feat.shape[3], -1)
+                if vit_flat.shape[1:3] != c31.shape[1:3]:
+                    vit_flat = resize2d(vit_flat, c31.shape[1], c31.shape[2], method="linear",
+                                        align_corners=False)
+                c31 = c31 + vit_flat.to(self.dtype)
+                f = self.decoder(c01, c11, c21, c31)
+            features = {f"stage{i + 1}": x.reshape(b, v, *x.shape[1:]) for i, x in enumerate(f)}
+            with annotate("fmt"):
+                features = self.fmt(features)
+            return self.cascade(features, cams, depth_values, tmp)

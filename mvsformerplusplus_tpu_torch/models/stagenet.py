@@ -13,7 +13,9 @@ stage's depth is the hypothesis at the argmax of the probabilities (which
 moves the next stage's hypotheses), and with `remat_cost_reg` the
 regularizer is checkpointed (recomputed in the backward, with the running
 BatchNorm statistics left alone on the replay). The similarity that feeds
-the entropy and the confidence carry no gradient in either mode.
+the entropy and the confidence carry no gradient in either mode. Spans
+(utils.profiler.annotate): `volume` (build_volume), `cost_reg` and `heads`
+(the softmax, the depth and the confidence).
 
 With `shard_views` (the JAX StageNet's, on a mesh with cv > 1) each rank of
 the cv group `self.cv` (parallel.dist.Layout.attach) warps its own
@@ -53,6 +55,7 @@ from ..ops.geometry import compose_projection
 from ..ops.grid_sample import homography_warp
 from ..ops.sampling import conf_regression, depth_regression
 from ..parallel.dist import Group
+from ..utils.profiler import annotate
 from .cost_reg import CostRegNet, CostRegNet3D, PureTransformerCostReg
 from .layers import ConvBnReLU, MMConv, remat
 
@@ -167,30 +170,34 @@ class StageNet(nn.Module):
 
     def forward(self, features: Tensor, cams: Tensor, depth_values: Tensor, tmp: float = 1.0,
                 position3d: Optional[Tensor] = None) -> dict:
-        volume = self.build_volume(features, cams, depth_values).to(self.dtype)
+        with annotate("volume"):
+            volume = self.build_volume(features, cams, depth_values).to(self.dtype)
         args = (volume, position3d) if self.cost_reg_type == "PureTransformerCostReg" else (volume,)
-        if self.remat_cost_reg:
-            reg = remat(self.cost_reg, *args)
-        else:
-            reg = self.cost_reg(*args)
-        prob_pre = reg[..., 0].float()  # [B, D, H, W]
-        prob_volume = torch.softmax(prob_pre, dim=1)
-        if self.depth_type == "ce":
-            if self.training:
-                idx = prob_volume.argmax(dim=1, keepdim=True)  # [B, 1, H, W]
-                dv4 = depth_values if depth_values.ndim == 4 else depth_values[:, :, None, None]
-                depth = torch.gather(dv4.expand_as(prob_volume), 1, idx)[:, 0]
+        with annotate("cost_reg"):
+            if self.remat_cost_reg:
+                reg = remat(self.cost_reg, *args)
             else:
-                depth = depth_regression(torch.softmax(prob_pre * tmp, dim=1), depth_values)
-            confidence = prob_volume.max(dim=1).values
-        else:
-            depth = depth_regression(prob_volume, depth_values)
-            n = 4 if self.ndepth >= 32 else {16: 3, 8: 2}.get(self.ndepth)
-            confidence = (conf_regression(prob_volume, n) if n is not None
-                          else prob_volume.max(dim=1).values)
-        out = {"depth": depth, "prob_volume": prob_volume,
-               "photometric_confidence": confidence.detach(),
-               "depth_values": depth_values, "prob_volume_pre": prob_pre}
-        if self.log_var:  # the log-variance's expectation under the depth distribution
-            out["log_var"] = torch.sum(prob_volume * reg[..., 1].float(), dim=1)
+                reg = self.cost_reg(*args)
+        with annotate("heads"):
+            prob_pre = reg[..., 0].float()  # [B, D, H, W]
+            prob_volume = torch.softmax(prob_pre, dim=1)
+            if self.depth_type == "ce":
+                if self.training:
+                    idx = prob_volume.argmax(dim=1, keepdim=True)  # [B, 1, H, W]
+                    dv4 = (depth_values if depth_values.ndim == 4
+                           else depth_values[:, :, None, None])
+                    depth = torch.gather(dv4.expand_as(prob_volume), 1, idx)[:, 0]
+                else:
+                    depth = depth_regression(torch.softmax(prob_pre * tmp, dim=1), depth_values)
+                confidence = prob_volume.max(dim=1).values
+            else:
+                depth = depth_regression(prob_volume, depth_values)
+                n = 4 if self.ndepth >= 32 else {16: 3, 8: 2}.get(self.ndepth)
+                confidence = (conf_regression(prob_volume, n) if n is not None
+                              else prob_volume.max(dim=1).values)
+            out = {"depth": depth, "prob_volume": prob_volume,
+                   "photometric_confidence": confidence.detach(),
+                   "depth_values": depth_values, "prob_volume_pre": prob_pre}
+            if self.log_var:  # the log-variance's expectation under the depth distribution
+                out["log_var"] = torch.sum(prob_volume * reg[..., 1].float(), dim=1)
         return out

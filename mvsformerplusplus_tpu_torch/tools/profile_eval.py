@@ -14,7 +14,10 @@ prints:
   family (warp, warp backward, flash, flash backward, conv), then cuDNN
   convolutions, GEMMs, reductions and softmax, copies and transposes,
   elementwise and other;
-- the device's busy ms and its idle share of the CUDA-event wall.
+- the device's busy ms and its idle share of the CUDA-event wall;
+- the program's spans in the traced forward (utils.profiler.spans): host ms
+  and device ms by span path and by part (utils.profiler.PARTS), the
+  device ms between each span's events, idle time inside included.
 `--outdir` keeps the Chrome trace (ui.perfetto.dev reads it). CUDA only:
 without a card it raises.
 
@@ -32,7 +35,7 @@ from pathlib import Path
 import torch
 
 from .. import bench
-from ..utils.profiler import profile_run, rollup
+from ..utils.profiler import PARTS, profile_run, rollup, spans
 
 
 def traced(fn, trace_path=None) -> dict:
@@ -45,10 +48,29 @@ def traced(fn, trace_path=None) -> dict:
         fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
     prof = profile_run(fn, 1, top=None, trace_path=trace_path)
     prof["categories_ms_per_call"] = rollup(prof["top_kernels_per_call"])
+    prof["span_ms"] = span_ms([r for r in spans() if r["start"] >= t0])
     prof["first_call_s"], prof["steady_ms"] = times[0], times[1] * 1e3
     return prof
+
+
+def span_ms(records) -> dict:
+    """Host and device ms per root span of `records` (a forward), by span
+    path and by part: {"forwards", "paths" {path: [host, device]}, "parts"
+    {part: [host, device]}}; device ms None where a span has no events."""
+    forwards = sum(r["parent"] is None for r in records) or 1
+    paths, parts = {}, {}
+    for r in records:
+        host = (r["end"] - r["start"]) * 1e3 / forwards
+        dev = (None if r["device_start"] is None
+               else (r["device_end"] - r["device_start"]) * 1e3 / forwards)
+        for table, key in ((paths, r["path"]), (parts, PARTS.get(r["name"]))):
+            if key is not None:
+                h, d = table.get(key, (0.0, 0.0))
+                table[key] = [h + host, None if d is None or dev is None else d + dev]
+    return {"forwards": forwards, "paths": paths, "parts": parts}
 
 
 def profile_eval(model, inputs, trace_path=None) -> dict:
@@ -78,6 +100,13 @@ def report(prof: dict, top: int, call: str) -> None:
         print(f"{ms:9.3f} ms {100 * ms / busy:5.1f}%  {cat}")
     print(f"\ndevice busy {busy:.2f} ms per {call} of {prof['wall_ms_per_call']:.2f} ms "
           f"(CUDA events), idle share {prof['device_idle_share']:.3f}", flush=True)
+    spans_ = prof.get("span_ms")
+    if spans_ and spans_["paths"]:
+        for title, table in (("span path", spans_["paths"]), ("part", spans_["parts"])):
+            print(f"\n== host ms / device ms per {call} by {title} ==")
+            for key, (host, dev) in table.items():
+                dev = "-" if dev is None else f"{dev:9.3f}"
+                print(f"{host:9.3f} {dev:>9} ms  {key}")
 
 
 def parser(doc: str) -> argparse.ArgumentParser:

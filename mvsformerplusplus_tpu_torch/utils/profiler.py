@@ -5,7 +5,17 @@ which wraps jax.profiler).
   included where CUDA is available; writes a Chrome trace
   (<logdir>/<host>_<pid>.<time>.pt.trace.json) that TensorBoard's profiler
   plugin and ui.perfetto.dev read.
-- `annotate(name)`: a named range in that trace (record_function).
+- `annotate(name)`: the program's span. Off any torch profiler session it
+  is one check and a shared no-op. Inside one (`trace`, `profile_run`, any
+  torch.profiler window, CUDA-only ones too) it records, in `SPANS`, the
+  span's name, its dotted path through the spans it nests in, its parent and
+  the root span it belongs to (one forward's spans share a root), its host
+  start and end on `time.perf_counter()` and, on CUDA, a pair of timing
+  events on the current stream (none while the stream captures a graph); a
+  CPU-activity session's trace holds it as a named range. A gradient
+  checkpoint's replay records nothing (`quiet`, models/layers.remat).
+- `spans()`: the recorded spans, each with its device start and end on the
+  host clock (None on the CPU).
 - `Stopwatch`: wall-clock timing that waits for the device: `time_fn`
   synchronises the devices of its outputs' tensors where JAX calls
   block_until_ready.
@@ -20,9 +30,12 @@ which wraps jax.profiler).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -38,9 +51,153 @@ def trace(logdir: str):
         yield
 
 
+SPAN_CAPACITY = 65536  # about 30 spans a map: four 51-s windows of maps
+_profiler_enabled = torch.autograd._profiler_enabled
+# a named range in a CPU-activity session's trace, near free in any other
+_named_range = getattr(torch._C._profiler, "_RecordFunctionFast",
+                       torch.profiler.record_function)
+
+
+class _Record:
+    __slots__ = ("id", "name", "path", "parent", "root", "start", "end", "events", "range")
+
+
+class SpanRing:
+    """The newest `capacity` spans (`annotate`), in the order they opened.
+    Each thread nests its own spans; a thread inside `quiet` records none.
+    A record whose span is evicted hands its events to the next one."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY):
+        self.records = collections.deque(maxlen=capacity)
+        self.ids = itertools.count()
+        self.free = []  # event pairs of evicted records
+        self.local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+            self.local.quiet = 0
+        return stack
+
+    def _events(self):
+        if not torch.cuda.is_initialized() or torch.cuda.is_current_stream_capturing():
+            return None
+        if self.free:
+            return self.free.pop()
+        return (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+
+    def open(self, name: str) -> Optional[_Record]:
+        stack = self._stack()
+        if self.local.quiet:
+            return None
+        parent = stack[-1] if stack else None
+        rec = _Record()
+        rec.id, rec.name, rec.end = next(self.ids), name, None
+        if parent is None:
+            rec.path, rec.parent, rec.root = name, None, rec.id
+        else:
+            rec.path, rec.parent, rec.root = f"{parent.path}.{name}", parent.id, parent.root
+        rec.events = self._events()
+        if len(self.records) == self.records.maxlen and self.records[0].events is not None:
+            self.free.append(self.records[0].events)
+        self.records.append(rec)
+        stack.append(rec)
+        rec.range = _named_range(rec.path)
+        rec.range.__enter__()
+        rec.start = time.perf_counter()
+        if rec.events is not None:
+            rec.events[0].record()
+        return rec
+
+    def close(self, rec: Optional[_Record]) -> None:
+        if rec is None:
+            return
+        if rec.events is not None:
+            rec.events[1].record()
+        rec.end = time.perf_counter()
+        rec.range.__exit__(None, None, None)
+        rec.range = None
+        self._stack().pop()
+
+    @contextlib.contextmanager
+    def quiet(self):
+        """No span of this thread is recorded inside."""
+        self._stack()
+        self.local.quiet += 1
+        try:
+            yield
+        finally:
+            self.local.quiet -= 1
+
+    def resolve(self) -> List[dict]:
+        """The closed spans, oldest first: {"id", "name", "path", "parent",
+        "root", "start", "end", "device_start", "device_end"}, in seconds on
+        the host clock. The device times come from one synchronize and an
+        anchor event recorded right after it on the idle card, whose host
+        time is known; they are None for a span recorded without events."""
+        recs = [r for r in self.records if r.end is not None]
+        anchor = t_anchor = None
+        if any(r.events is not None for r in recs):
+            torch.cuda.synchronize()
+            anchor = torch.cuda.Event(enable_timing=True)
+            t_anchor = time.perf_counter()
+            anchor.record()
+            anchor.synchronize()
+        out = []
+        for r in recs:
+            d0 = d1 = None
+            if r.events is not None:
+                d0 = t_anchor - r.events[0].elapsed_time(anchor) / 1e3
+                d1 = t_anchor - r.events[1].elapsed_time(anchor) / 1e3
+            out.append({"id": r.id, "name": r.name, "path": r.path, "parent": r.parent,
+                        "root": r.root, "start": r.start, "end": r.end,
+                        "device_start": d0, "device_end": d1})
+        return out
+
+
+SPANS = SpanRing()
+
+
+class _Span:
+    __slots__ = ("ring", "name", "rec")
+
+    def __init__(self, ring: SpanRing, name: str):
+        self.ring, self.name = ring, name
+
+    def __enter__(self):
+        self.rec = self.ring.open(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self.ring.close(self.rec)
+
+
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Label a region of the trace."""
-    return torch.profiler.record_function(name)
+    """The program's span `name` (the module docstring): the shared no-op
+    `_OFF` when no torch profiler session is on."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(SPANS, name)
+
+
+def quiet():
+    """Inside, this thread records no span (a checkpoint's replay)."""
+    return SPANS.quiet()
+
+
+def spans() -> List[dict]:
+    """The recorded spans (SpanRing.resolve)."""
+    return SPANS.resolve()
+
+
+# the forward's parts by the names of their spans
+PARTS = {"encoder": "fpn", "decoder": "fpn", "vit": "vit", "decoder_vit": "sva", "fmt": "fmt",
+         "volume": "volume", "cost_reg": "cost_reg", "hypotheses": "heads", "heads": "heads",
+         "cascade.confidence": "heads"}
 
 
 def _tensors(x):
